@@ -1,0 +1,78 @@
+"""State carried across between the reference and the port.
+
+The reference's state and topology travel as nested dicts of numpy
+arrays keyed by the reference's field names (``{"swim": {...}, "data":
+{..., "cells": {...}}, "round": ..., "vis_round": ...}``). These helpers
+turn such dicts into the port's tensors and back, without importing
+JAX: the caller flattens the reference's NamedTuples (``_asdict``) and
+hands over numpy arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from corrosion_tpu_torch import resolve_device
+from corrosion_tpu_torch.ops.crdt import CellState
+from corrosion_tpu_torch.ops.gossip import DataState, Topology
+from corrosion_tpu_torch.ops.swim_sparse import SparseSwimState
+from corrosion_tpu_torch.sim.engine import ClusterState
+
+# Fields the reference stores as uint32 (everything else integer is int32).
+U32_FIELDS = frozenset({
+    "head", "contig", "seen", "oo", "q_ver", "q_gw", "cl", "col_version",
+    "value_rank", "exc_pkd", "incarnation", "susp_inc", "upd_packed",
+    "writer_ids",
+})
+
+
+def _tensor(x, device) -> torch.Tensor:
+    a = np.asarray(x)
+    # astype copies, so read-only exports (np.asarray of a device array)
+    # never alias the tensor.
+    return torch.as_tensor(
+        a.astype(np.bool_ if a.dtype == np.bool_ else np.int64), device=device
+    )
+
+
+def _build(cls, d: dict, device):
+    return cls(**{f: _tensor(d[f], device) for f in cls._fields})
+
+
+def cluster_state_from_numpy(d: dict, device=None) -> ClusterState:
+    """ClusterState from the reference's state as nested numpy dicts."""
+    device = resolve_device(device)
+    data = dict(d["data"])
+    cells = _build(CellState, data.pop("cells"), device)
+    return ClusterState(
+        swim=_build(SparseSwimState, d["swim"], device),
+        data=DataState(
+            cells=cells,
+            **{f: _tensor(data[f], device) for f in DataState._fields if f != "cells"},
+        ),
+        round=_tensor(d["round"], device),
+        vis_round=_tensor(d["vis_round"], device),
+    )
+
+
+def topology_from_numpy(d: dict, device=None) -> Topology:
+    """Topology from the reference's topology as a numpy dict."""
+    device = resolve_device(device)
+    return Topology(**{
+        f: None if d.get(f) is None else _tensor(d[f], device)
+        for f in Topology._fields
+    })
+
+
+def to_numpy(tree, name: str = ""):
+    """Any of the port's NamedTuples (nested) -> nested dict of numpy
+    arrays in the reference's dtypes (u32, i32, bool)."""
+    if tree is None:
+        return None
+    if hasattr(tree, "_fields"):
+        return {f: to_numpy(getattr(tree, f), f) for f in tree._fields}
+    a = tree.detach().cpu().numpy()
+    if a.dtype == np.bool_:
+        return a
+    return a.astype(np.uint32 if name in U32_FIELDS else np.int32)

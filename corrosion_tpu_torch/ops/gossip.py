@@ -1,0 +1,800 @@
+"""Changeset broadcast + anti-entropy sync (the data plane), in PyTorch.
+
+Counterpart of corrosion_tpu/ops/gossip.py for the dense engine's main
+path: the fast one-hot delivery path of ``_broadcast_round`` (W <=
+``_FAST_MAX_WRITERS``, fresh per-holder budgets, no stale re-admission,
+unsharded), the anti-entropy sessions of ``_sync_round``/``_sync_rows``
+with exact and digest candidate scoring and the W < 2048 grant
+enumeration, the out-of-order possession window, and the tracking reads
+(``visibility``, ``total_need``, ``staleness``, ``queue_backlog``). The
+module docstring of the reference describes the model.
+
+Options this slice does not port (the legacy sort+scatter delivery, the
+adaptive-dissemination mechanisms, rotating writer slots, propagation
+observables, sketches, revive sync) raise ``NotImplementedError``.
+
+Data-dependent ``lax.cond`` branches become Python ``if`` on a 0-d
+tensor: one device-to-host sync each, counted in ``HOST_SYNCS`` together
+with the row scatters that drop padded rows (``mode="drop"`` in the
+reference), which read their row mask on the host.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from corrosion_tpu_torch import resolve_device
+from corrosion_tpu_torch import rng as rng_mod
+from corrosion_tpu_torch.ops import crdt, faulting, onehot, routing
+
+MASK = 0xFFFFFFFF
+
+# Writer-axis width above which the reference switches to the legacy
+# sort+scatter delivery (not ported yet).
+_FAST_MAX_WRITERS = 2048
+# Writer-axis width at which the reference's grant enumeration switches
+# to the block decomposition (not ported yet).
+_BLOCK_ENUM_MIN_WRITERS = 2048
+# Row x writer x candidate volume above which candidate scoring falls
+# back from the exact per-writer deficit to the total-progress digest
+# (module-level so tests can force digest mode at small sizes).
+_EXACT_SCORE_MAX = 1 << 25
+# Digest quantization (reference ``_DIGEST_QUANT``/``_DIGEST_SAT``).
+_DIGEST_QUANT: str | None = "bf16"
+_DIGEST_SAT = {"u8": 255, "bf16": 256}
+
+HOST_SYNCS = {"branch": 0, "drop_scatter": 0}
+
+
+def reset_host_syncs() -> None:
+    for k in HOST_SYNCS:
+        HOST_SYNCS[k] = 0
+
+
+def _branch(pred: torch.Tensor) -> bool:
+    """A ``lax.cond`` predicate read on the host (one device sync)."""
+    HOST_SYNCS["branch"] += 1
+    return bool(pred)
+
+
+def _ok_rows(rows: torch.Tensor, row_ok: torch.Tensor) -> torch.Tensor:
+    """Positions of rows whose scatter lands (``mode="drop"`` on the
+    rest); reads the mask on the host."""
+    HOST_SYNCS["drop_scatter"] += 1
+    return torch.nonzero(row_ok).squeeze(1)
+
+
+@dataclass(frozen=True)
+class GossipConfig:
+    """Field for field the reference's GossipConfig (see its comments).
+    ``kernel_backend`` is accepted and ignored: here the tensors' device
+    picks the kernel (CUDA) or the plain version (CPU)."""
+
+    n_nodes: int
+    n_writers: int
+    queue: int = 16
+    max_writes_per_round: int = 4
+    fanout_near: int = 2
+    fanout_far: int = 2
+    max_transmissions: int = 6
+    loss_prob: float = 0.0
+    sync_interval: int = 10
+    sync_budget: int = 256
+    sync_chunk: int = 64
+    sync_peers: int = 3
+    sync_candidates: int = 8
+    rebroadcast_fresh_budget: bool = True
+    rebroadcast_stale: bool = False
+    rebroadcast_intake: int = 0
+    queue_priority: str = "budget"
+    n_cells: int = 0
+    cells_per_write: int = 1
+    window_k: int = 32
+    track_writer_ids: bool = False
+    kernel_backend: str | None = None
+    prop_observe: bool = False
+    rumor_kill_k: int = 0
+    pull_switch_age: int = 0
+    age_forward: bool = False
+    sync_sketch_buckets: int = 0
+
+    def __post_init__(self):
+        if self.window_k < 0 or self.window_k % 32 != 0:
+            raise ValueError(
+                f"window_k must be a non-negative multiple of 32, got "
+                f"{self.window_k}"
+            )
+        if self.sync_peers > self.sync_candidates:
+            raise ValueError(
+                f"sync_peers ({self.sync_peers}) must be <= "
+                f"sync_candidates ({self.sync_candidates})"
+            )
+        if self.rebroadcast_fresh_budget and self.rebroadcast_stale:
+            raise ValueError(
+                "rebroadcast_fresh_budget requires rebroadcast_stale=False"
+            )
+        if self.queue_priority not in ("version", "budget"):
+            raise ValueError(
+                f"queue_priority must be 'version' or 'budget', got "
+                f"{self.queue_priority!r}"
+            )
+        for name in ("rumor_kill_k", "pull_switch_age", "sync_sketch_buckets"):
+            if getattr(self, name) < 0:
+                raise ValueError(f"{name} must be >= 0")
+
+    @property
+    def fanout(self) -> int:
+        return self.fanout_near + self.fanout_far
+
+
+def _check_slice(cfg: GossipConfig) -> None:
+    """Raise for the options whose code paths later slices port."""
+    unported = {
+        "track_writer_ids": cfg.track_writer_ids,
+        "prop_observe": cfg.prop_observe,
+        "rumor_kill_k": cfg.rumor_kill_k > 0,
+        "pull_switch_age": cfg.pull_switch_age > 0,
+        "age_forward": cfg.age_forward,
+        "sync_sketch_buckets": cfg.sync_sketch_buckets > 0,
+        "legacy delivery (stale re-admission, inherited budgets or "
+        f"W > {_FAST_MAX_WRITERS})": not (
+            cfg.rebroadcast_fresh_budget
+            and not cfg.rebroadcast_stale
+            and cfg.n_writers <= _FAST_MAX_WRITERS
+        ),
+        f"block grant enumeration (W >= {_BLOCK_ENUM_MIN_WRITERS})": (
+            cfg.n_cells > 0 and cfg.n_writers >= _BLOCK_ENUM_MIN_WRITERS
+        ),
+    }
+    on = [k for k, v in unported.items() if v]
+    if on:
+        raise NotImplementedError(
+            f"not ported to corrosion_tpu_torch yet: {', '.join(on)}"
+        )
+
+
+class Topology(NamedTuple):
+    """Region layout + writer placement + rings (reference Topology)."""
+
+    region: torch.Tensor  # [N] region id per node
+    region_start: torch.Tensor  # [N] first node index of own region
+    region_size: torch.Tensor  # [N] size of own region
+    region_rtt: torch.Tensor  # [R, R] ring bucket per region pair (0-5)
+    writer_nodes: torch.Tensor  # [W] node hosting each writer stream
+    writer_of_node: torch.Tensor  # [N] writer index or -1
+    sync_phase: torch.Tensor  # [N] per-node sync jitter offset
+    sync_cohorts: torch.Tensor | None = None  # [interval, ceil(N/interval)]
+    writer_ids: torch.Tensor | None = None  # [W] global id per writer column
+
+
+def make_topology(
+    region_sizes: list[int], writer_nodes, seed: int = 0, region_rtt=None,
+    sync_interval: int | None = None, device=None,
+) -> Topology:
+    """Host-side topology builder, identical draws to the reference's
+    (numpy ``default_rng(seed)``); ``region_rtt`` None = flat ring 1,
+    "geo" = circle geography with graded rings, or an [R, R] matrix."""
+    device = resolve_device(device)
+    n = int(sum(region_sizes))
+    r_count = len(region_sizes)
+    region = np.zeros(n, np.int64)
+    rstart = np.zeros(n, np.int64)
+    rsize = np.zeros(n, np.int64)
+    off = 0
+    for rid, sz in enumerate(region_sizes):
+        region[off : off + sz] = rid
+        rstart[off : off + sz] = off
+        rsize[off : off + sz] = sz
+        off += sz
+    if region_rtt is None:
+        rtt = np.ones((r_count, r_count), np.int64)
+        np.fill_diagonal(rtt, 0)
+    elif isinstance(region_rtt, str) and region_rtt == "geo":
+        d = np.abs(np.arange(r_count)[:, None] - np.arange(r_count)[None, :])
+        d = np.minimum(d, r_count - d)
+        max_d = max(int(d.max()), 1)
+        rtt = np.ceil(d / max_d * 5).astype(np.int64)
+    else:
+        rtt = np.asarray(region_rtt, np.int64)
+        if rtt.shape != (r_count, r_count):
+            raise ValueError(f"region_rtt must be [{r_count}, {r_count}]")
+    writer_nodes = np.asarray(writer_nodes, np.int64)
+    won = np.full(n, -1, np.int64)
+    won[writer_nodes] = np.arange(len(writer_nodes))
+    rng = np.random.default_rng(seed)
+    if sync_interval is None:
+        phase = rng.integers(0, 1 << 30, n).astype(np.int64)
+        cohorts = None
+    else:
+        perm = rng.permutation(n)
+        phase = np.empty(n, np.int64)
+        phase[perm] = np.arange(n) % sync_interval
+        nc = -(-n // sync_interval)
+        cohorts = np.full((sync_interval, nc), -1, np.int64)
+        for c in range(sync_interval):
+            members = np.nonzero(phase == c)[0]
+            cohorts[c, : len(members)] = members
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.int64, device=device)
+
+    return Topology(
+        region=t(region),
+        region_start=t(rstart),
+        region_size=t(rsize),
+        region_rtt=t(rtt),
+        writer_nodes=t(writer_nodes),
+        writer_of_node=t(won),
+        sync_phase=t(phase),
+        sync_cohorts=None if cohorts is None else t(cohorts),
+    )
+
+
+class DataState(NamedTuple):
+    """Per-node replica state (reference DataState; u32 in int64)."""
+
+    head: torch.Tensor  # [W] writer's committed version head
+    contig: torch.Tensor  # [N, W] contiguous watermark
+    seen: torch.Tensor  # [N, W] highest version heard of
+    oo: torch.Tensor  # [B, N, W] out-of-order window words
+    oo_any: torch.Tensor  # bool[] any window bit set anywhere
+    q_writer: torch.Tensor  # [N, Q] (-1 = empty)
+    q_ver: torch.Tensor  # [N, Q]
+    q_tx: torch.Tensor  # [N, Q] transmissions left
+    q_gw: torch.Tensor  # [N, 0] (rotating writer slots not ported)
+    q_dup: torch.Tensor  # [N, 0] (rumor death not ported)
+    cells: crdt.CellState  # [N * K] x3 per-node registers
+
+
+def init_data(cfg: GossipConfig, device=None) -> DataState:
+    device = resolve_device(device)
+    n, w, q = cfg.n_nodes, cfg.n_writers, cfg.queue
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.int64, device=device)
+
+    return DataState(
+        head=z(w),
+        contig=z(n, w),
+        seen=z(n, w),
+        oo=z(cfg.window_k // 32, n, w),
+        oo_any=torch.zeros((), dtype=torch.bool, device=device),
+        q_writer=torch.full((n, q), -1, dtype=torch.int64, device=device),
+        q_ver=z(n, q),
+        q_tx=z(n, q),
+        q_gw=z(n, q if cfg.track_writer_ids else 0),
+        q_dup=z(n, q if cfg.rumor_kill_k > 0 else 0),
+        cells=crdt.make_cells(n * cfg.n_cells, device),
+    )
+
+
+# -- out-of-order possession window -------------------------------------------
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each u32 (``lax.population_count``, which torch lacks)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & MASK) >> 24
+
+
+def _trailing_ones(oo: torch.Tensor) -> torch.Tensor:
+    """Consecutive set bits from bit 0 of the B-word field."""
+    t = torch.zeros(oo.shape[1:], dtype=torch.int64, device=oo.device)
+    carry = torch.ones(oo.shape[1:], dtype=torch.bool, device=oo.device)
+    for b in range(oo.shape[0]):
+        tb = popcount32(oo[b] & (((oo[b] + 1) & MASK) ^ MASK))
+        t = t + torch.where(carry, tb, 0)
+        carry = carry & (tb == 32)
+    return t
+
+
+def _window_shift(oo: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Right-shift the B-word bitfield by t (0 <= t <= 32B)."""
+    nw = oo.shape[0]
+    outs = []
+    for i in range(nw):
+        acc = torch.zeros_like(oo[i])
+        for j in range(i, nw):
+            s = t - 32 * (j - i)
+            sr = torch.clamp(s, 0, 31)
+            sl = torch.clamp(-s, 0, 31)
+            acc = (
+                acc
+                | torch.where((s >= 0) & (s < 32), oo[j] >> sr, 0)
+                | torch.where((s > -32) & (s < 0), (oo[j] << sl) & MASK, 0)
+            )
+        outs.append(acc)
+    return torch.stack(outs) if nw else oo
+
+
+def window_absorb(contig, oo, adv, new_bits):
+    """Advance contig by ``adv``, fold ``new_bits`` into the window, then
+    promote through the now-contiguous prefix. Returns (contig', oo')."""
+    oo = _window_shift(oo, adv) | new_bits
+    t = _trailing_ones(oo)
+    return contig + adv + t, _window_shift(oo, t)
+
+
+def _window_admit(oo, contig_pre, adv, adv_m, d, valid, wk: int, fast_idx, width: int):
+    """Fast-path out-of-order admission: the fused window kernel decides
+    and assembles, then the window absorbs. Returns (contig', oo',
+    newly_possessed)."""
+    new_poss, words = onehot.window_delivery(
+        oo, fast_idx, d, adv_m, valid, wk, width
+    )
+    contig2, oo2 = window_absorb(contig_pre, oo, adv, words)
+    return contig2, oo2, new_poss
+
+
+def digest_quantize(defc: torch.Tensor, sync_budget: int) -> torch.Tensor:
+    """u32 digest deficit -> its quantized form (u8 or bf16, saturating),
+    or the i32 value when disabled or when ``sync_budget`` exceeds the
+    saturation point."""
+    if _DIGEST_QUANT is None or sync_budget > _DIGEST_SAT[_DIGEST_QUANT]:
+        return _as_i32(defc)
+    q = torch.clamp(defc, max=_DIGEST_SAT[_DIGEST_QUANT])
+    if _DIGEST_QUANT == "u8":
+        return q.to(torch.uint8)
+    return q.to(torch.bfloat16)
+
+
+def _digest_score(defc: torch.Tensor, sync_budget: int) -> torch.Tensor:
+    return digest_quantize(defc, sync_budget).to(torch.int64)
+
+
+def _as_i32(x: torch.Tensor) -> torch.Tensor:
+    """u32 bits reinterpreted as int32 (``astype(int32)`` on u32)."""
+    x = x & MASK
+    return torch.where(x >= (1 << 31), x - (1 << 32), x)
+
+
+def _merge_versions_dense(cells, rows, writer, version, mask, row_ok, n_nodes: int, cfg):
+    """Row-dense CRDT merge: lexicographic (cl, col_version, value_rank)
+    max per cell via the packed (cl << 24 | col_version) word, then
+    value_rank among winners — rowmax/rowgather over the cell axis."""
+    k = cfg.n_cells
+    cl2 = cells.cl.reshape(n_nodes, k)
+    cv2 = cells.col_version.reshape(n_nodes, k)
+    vr2 = cells.value_rank.reshape(n_nodes, k)
+    if rows is not None:
+        cl2, cv2, vr2 = cl2[rows], cv2[rows], vr2[rows]
+    n_merges = mask.sum() * cfg.cells_per_write
+    for j in range(cfg.cells_per_write):
+        ckey, ccl, ccv, cvr = crdt.derive_change(writer, version, j, k)
+        packed_state = ((cl2 << 24) | cv2) & MASK
+        packed_in = ((ccl << 24) | ccv) & MASK
+        p1 = torch.maximum(packed_state, onehot.rowmax(ckey, packed_in, mask, k))
+        vr_seed = torch.where(p1 == packed_state, vr2, 0)
+        in_win = mask & (packed_in == onehot.rowgather(p1, ckey))
+        vr2 = torch.maximum(vr_seed, onehot.rowmax(ckey, cvr, in_win, k))
+        cl2 = p1 >> 24
+        cv2 = p1 & ((1 << 24) - 1)
+    if rows is None:
+        return crdt.CellState(
+            cl=cl2.reshape(-1), col_version=cv2.reshape(-1),
+            value_rank=vr2.reshape(-1),
+        ), n_merges
+    sel = _ok_rows(rows, row_ok) if row_ok is not None else None
+    out = []
+    for full, part in ((cells.cl, cl2), (cells.col_version, cv2), (cells.value_rank, vr2)):
+        full = full.reshape(n_nodes, k).clone()
+        if sel is None:
+            full[rows] = part
+        else:
+            full[rows[sel]] = part[sel]
+        out.append(full.reshape(-1))
+    return crdt.CellState(*out), n_merges
+
+
+def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
+    """One broadcast-plane round (reference ``_broadcast_round``, fast
+    path, unsharded): local writes, source sampling, queue gather, loss,
+    the packed row sort, delivery reductions, window admission, the CRDT
+    merge and the queue rebuild. Returns (DataState, stats)."""
+    _check_slice(cfg)
+    w_count, q_cap = cfg.n_writers, cfg.queue
+    n = data.contig.shape[0]
+    dev = data.contig.device
+    nodes = torch.arange(n, device=dev)
+    keys = rng_mod.split(rng, 3)
+    k_near, k_far, k_loss = keys[0], keys[1], keys[2]
+
+    # ---- 1. local writes ---------------------------------------------------
+    writes = torch.clamp(writes, max=cfg.max_writes_per_round) * alive[
+        topo.writer_nodes
+    ].to(torch.int64)
+    head = data.head + writes
+    wi = torch.arange(w_count, device=dev)
+    contig = data.contig.clone()
+    contig[topo.writer_nodes, wi] = torch.maximum(contig[topo.writer_nodes, wi], head)
+    seen = data.seen.clone()
+    seen[topo.writer_nodes, wi] = torch.maximum(seen[topo.writer_nodes, wi], head)
+    contig_before = contig
+
+    mw = cfg.max_writes_per_round
+    won = topo.writer_of_node
+    won_safe = torch.clamp(won, min=0)
+    nw = torch.where(won >= 0, writes[won_safe], 0)
+    head_old_n = torch.where(won >= 0, data.head[won_safe], 0)
+    ar_mw = torch.arange(mw, device=dev)
+    new_ver = head_old_n[:, None] + 1 + ar_mw[None, :]
+    new_valid = (ar_mw[None, :] < nw[:, None]) & alive[:, None]
+    new_writer = won[:, None].expand(n, mw)
+
+    cells = data.cells
+    n_merges = torch.zeros((), dtype=torch.int64, device=dev)
+    if cfg.n_cells > 0:
+        cells, m = _merge_versions_dense(
+            cells, None, torch.clamp(new_writer, min=0), new_ver, new_valid,
+            None, n, cfg,
+        )
+        n_merges = n_merges + m
+
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    f = cfg.fanout
+    if f > 0:
+        # ---- 2. source selection -------------------------------------------
+        near_off = rng_mod.randint(k_near, (n, cfg.fanout_near), 0, 1 << 30)
+        far = rng_mod.randint(k_far, (n, cfg.fanout_far), 0, n)
+        near = topo.region_start[:, None] + near_off % torch.clamp(
+            topo.region_size[:, None], min=1
+        )
+        src = torch.cat([near, far], dim=1)  # [N, F]
+        link_ok = (
+            ~partition[topo.region[:, None], topo.region[src]]
+            & alive[:, None]
+            & alive[src]
+            & (src != nodes[:, None])
+        )
+        # ---- 3. delivery ---------------------------------------------------
+        kk = f * q_cap
+        m_w = data.q_writer[src].reshape(n, kk)
+        m_v = data.q_ver[src].reshape(n, kk)
+        m_ok = (
+            link_ok[:, :, None].expand(n, f, q_cap).reshape(n, kk) & (m_w >= 0)
+        )
+        dyn_loss = None if loss is None else loss[topo.region][:, None]
+        m_ok, n_lost = faulting.apply_loss(k_loss, m_ok, cfg.loss_prob, dyn_loss)
+        n_msgs = m_ok.sum()
+        k_in = cfg.rebroadcast_intake or cfg.fanout * 2
+        wk = cfg.window_k
+
+        # ---- 3a. delta-packed delivery -------------------------------------
+        mw_safe = torch.clamp(m_w, min=0)
+        contig_pre = contig
+        base_m = onehot.rowgather(contig_pre, mw_safe)  # [N, kk]
+        lim = max(kk, wk)
+        k2 = lim + 3
+        sent_key = w_count * k2
+        # The reference sorts (pkd, v) with two u32 keys; here they ride
+        # ONE int64 key pkd << 32 | v, which needs pkd < 2^31.
+        if sent_key >= (1 << 31):
+            raise ValueError("packed delivery key overflow")
+        useful = m_ok & (m_v > base_m)
+        d_raw = torch.where(useful, m_v - base_m, 0)
+        dc = torch.clamp(d_raw, max=lim + 1)
+        pkd = torch.where(useful, m_w * k2 + dc, sent_key)
+        skey64 = torch.sort((pkd << 32) | m_v, dim=1, stable=True).values
+        skey = skey64 >> 32
+        v2 = skey64 & MASK
+        valid2 = skey < sent_key
+        w2 = torch.clamp(skey // k2, max=w_count - 1)
+        d2 = skey % k2
+        ones_col = torch.ones((n, 1), dtype=torch.bool, device=dev)
+        zeros_col = torch.zeros((n, 1), dtype=torch.int64, device=dev)
+        seg_start = torch.cat([ones_col, w2[:, 1:] != w2[:, :-1]], dim=1)
+        prev_d = torch.cat([zeros_col, d2[:, :-1]], dim=1)
+        ok_link = torch.where(seg_start, d2 == 1, d2 <= prev_d + 1) & (d2 <= kk)
+        run = routing.segmented_prefix_and_rows(ok_link & valid2, seg_start)
+        applied = run & valid2
+        adv, seen = onehot.delivery_reduce(
+            w2, d2, v2, applied, valid2, seen, w_count
+        )
+        first_copy = ~((~seg_start) & (d2 == prev_d))
+        fresh_run = applied & first_copy
+        prev_v2 = torch.cat([zeros_col, v2[:, :-1]], dim=1)
+        same_copy = (~seg_start) & (d2 == prev_d) & (v2 == prev_v2)
+        n_degraded = (valid2 & (d2 == lim + 1) & ~same_copy).sum()
+        if wk:
+            oo_pred = data.oo_any | (valid2 & ~applied & (d2 <= lim)).any()
+            if _branch(oo_pred):
+                adv_m = routing.segmented_running_max(
+                    torch.where(applied, d2, 0), seg_start, lim + 2
+                )
+                admit = valid2 & first_copy & (d2 <= lim)
+                contig, oo_new, new_poss = _window_admit(
+                    data.oo, contig_pre, adv, adv_m, d2, admit, wk, w2, w_count
+                )
+                near_deg = (
+                    admit & (d2 > adv_m) & (((d2 - adv_m) & MASK) > wk)
+                ).sum()
+                fresh = fresh_run | new_poss
+                oo_any_new = oo_new.any()
+                n_degraded = n_degraded + near_deg
+            else:
+                contig = contig_pre + adv
+                oo_new = data.oo
+                fresh = fresh_run
+                oo_any_new = torch.zeros((), dtype=torch.bool, device=dev)
+        else:
+            contig = contig_pre + adv
+            oo_new, oo_any_new = data.oo, data.oo_any
+            fresh = fresh_run
+            n_degraded = (valid2 & ~applied & ~same_copy).sum()
+        if cfg.n_cells > 0:
+            cells, m = _merge_versions_dense(cells, None, w2, v2, fresh, None, n, cfg)
+            n_merges = n_merges + m
+        in_mask, (in_w, in_v) = routing.rebuild_bounded_queue(
+            fresh, -v2, (w2, v2), k_in
+        )
+        in_tx = torch.full(in_w.shape, cfg.max_transmissions, dtype=torch.int64, device=dev)
+        in_w = torch.where(in_mask, in_w, -1)
+        # A source's budgets burn when at least one receiver pulled it.
+        pulled = torch.bincount(
+            torch.where(link_ok, src, n).reshape(-1), minlength=n + 1
+        )[:n]
+        sent_any = pulled > 0
+    else:
+        n_msgs = zero
+        in_mask = torch.zeros((n, 0), dtype=torch.bool, device=dev)
+        in_w = torch.zeros((n, 0), dtype=torch.int64, device=dev)
+        in_v = in_w.clone()
+        in_tx = in_w.clone()
+        sent_any = torch.zeros((n,), dtype=torch.bool, device=dev)
+        oo_new, oo_any_new = data.oo, data.oo_any
+        n_degraded = zero
+        n_lost = zero
+
+    # ---- 5. queue rebuild --------------------------------------------------
+    occ = data.q_writer >= 0
+    old_tx = torch.where(
+        occ & sent_any[:, None], data.q_tx - 1, torch.where(occ, data.q_tx, 0)
+    )
+    old_live = occ & (old_tx > 0)
+    cand_w = torch.cat([data.q_writer, new_writer, in_w], dim=1)
+    cand_v = torch.cat([data.q_ver, new_ver, in_v], dim=1)
+    cand_tx = torch.cat(
+        [
+            old_tx,
+            torch.full((n, mw), cfg.max_transmissions, dtype=torch.int64, device=dev),
+            in_tx,
+        ],
+        dim=1,
+    )
+    cand_ok = torch.cat([old_live, new_valid, in_mask], dim=1)
+    prio = cand_tx if cfg.queue_priority == "budget" else -cand_v
+    keep, (q_writer, q_ver, q_tx) = routing.rebuild_bounded_queue(
+        cand_ok, prio, (cand_w, cand_v, cand_tx), q_cap
+    )
+    q_writer = torch.where(keep, q_writer, -1)
+
+    stats = {
+        "applied_broadcast": (contig - contig_before).sum() & MASK,
+        "msgs": n_msgs,
+        "cell_merges": n_merges & MASK,
+        "window_degraded": n_degraded,
+        "lost_msgs": n_lost,
+    }
+    return (
+        DataState(
+            head=head, contig=contig, seen=seen, oo=oo_new, oo_any=oo_any_new,
+            q_writer=q_writer, q_ver=q_ver, q_tx=q_tx, q_gw=data.q_gw,
+            q_dup=data.q_dup, cells=cells,
+        ),
+        stats,
+    )
+
+
+def sync_round(data, topo, alive, partition, round_idx, rng, cfg):
+    """Anti-entropy pull sessions for the round's sync cohort (or, without
+    cohorts, every due node). Reference ``_sync_round``."""
+    _check_slice(cfg)
+    if topo.sync_cohorts is not None:
+        if topo.sync_cohorts.shape[0] != cfg.sync_interval:
+            raise ValueError(
+                f"topology cohorts were built for sync_interval="
+                f"{topo.sync_cohorts.shape[0]} but cfg.sync_interval="
+                f"{cfg.sync_interval}"
+            )
+        cohort = torch.remainder(-round_idx, cfg.sync_interval).reshape(1)
+        rows = torch.index_select(topo.sync_cohorts, 0, cohort)[0]
+        rows_safe = torch.clamp(rows, min=0)
+        row_ok = (rows >= 0) & alive[rows_safe]
+        return _sync_rows(data, topo, alive, partition, rows_safe, row_ok, rng, cfg)
+    nodes = torch.arange(cfg.n_nodes, device=data.contig.device)
+    due = alive & (torch.remainder(round_idx + topo.sync_phase, cfg.sync_interval) == 0)
+    return _sync_rows(data, topo, alive, partition, nodes, due, rng, cfg)
+
+
+def _sync_rows(data, topo, alive, partition, rows, row_ok, rng, cfg):
+    """One pull session per row: score ``sync_candidates`` sampled peers
+    by need (exact per-writer deficit, or the total-progress digest above
+    ``_EXACT_SCORE_MAX``), pull the union of the top ``sync_peers`` plus
+    the origin of the largest known gap under one budget, absorb the
+    window, and merge the granted versions' cells. Reference
+    ``_sync_rows``."""
+    n = cfg.n_nodes
+    r = rows.shape[0]
+    dev = data.contig.device
+    keys = rng_mod.split(rng, 2)
+    k_near, k_far = keys[0], keys[1]
+    region_r = topo.region[rows]
+    contig0 = data.contig[rows]  # [R, W]
+    seen_r = data.seen[rows]
+
+    c_count = cfg.sync_candidates
+    c_near = c_count // 2
+    c_far = c_count - c_near
+    near = topo.region_start[rows][:, None] + rng_mod.randint(
+        k_near, (r, c_near), 0, 1 << 30
+    ) % torch.clamp(topo.region_size[rows][:, None], min=1)
+    far = rng_mod.randint(k_far, (r, c_far), 0, n)
+    cand = torch.cat([near, far], dim=1)  # [R, C]
+    ok_c = (
+        row_ok[:, None]
+        & alive[cand]
+        & (cand != rows[:, None])
+        & ~partition[region_r[:, None], topo.region[cand]]
+    )
+
+    exact = r * cfg.n_writers * c_count <= _EXACT_SCORE_MAX
+    if exact:
+        cc = data.contig[cand]  # [R, C, W]
+        defc = _as_i32((cc - torch.minimum(cc, contig0[:, None, :])).sum(-1))
+        seen_r = torch.maximum(
+            seen_r,
+            torch.where(ok_c[:, :, None], data.seen[cand], 0).amax(dim=1),
+        )
+    else:
+        total = data.contig.sum(1) & MASK
+        total_r = total[rows]
+        tc = total[cand]
+        defc = _digest_score(tc - torch.minimum(tc, total_r[:, None]), cfg.sync_budget)
+
+    ring = topo.region_rtt[region_r[:, None], topo.region[cand]]
+    ar_c = torch.arange(c_count, device=dev)
+    tri = ar_c[None, :] < ar_c[:, None]  # tri[i, j] = j strictly before i
+    dup = ((cand[:, :, None] == cand[:, None, :]) & tri[None]).any(dim=2)
+    score = torch.where(ok_c & ~dup & (defc > 0), defc * 8 + (5 - ring), -1)
+    order = torch.argsort(-score, dim=1, stable=True)[:, : cfg.sync_peers]
+    sel = torch.gather(cand, 1, order)
+    sel_ok = torch.gather(score, 1, order) > 0
+
+    gap = _as_i32(seen_r - torch.minimum(seen_r, contig0))
+    w_star = torch.argmax(gap, dim=1)
+    origin = topo.writer_nodes[w_star]
+    origin_ok = (
+        row_ok
+        & (gap.amax(dim=1) > 0)
+        & alive[origin]
+        & (origin != rows)
+        & ~partition[region_r, topo.region[origin]]
+    )
+    peers = torch.cat([sel, origin[:, None]], dim=1)
+    ok_p = torch.cat([sel_ok, origin_ok[:, None]], dim=1)
+    avail = torch.maximum(
+        contig0, torch.where(ok_p[:, :, None], data.contig[peers], 0).amax(dim=1)
+    )
+    if not exact:
+        seen_r = torch.maximum(
+            seen_r, torch.where(ok_p[:, :, None], data.seen[peers], 0).amax(dim=1)
+        )
+    deficit = avail - torch.minimum(avail, contig0)
+    per_w = torch.clamp(deficit, max=cfg.sync_chunk)
+    cum = torch.cumsum(per_w, dim=1)
+    grant = torch.minimum(
+        torch.clamp(cfg.sync_budget - (cum - per_w), min=0), per_w
+    )
+    contig_r = contig0 + grant
+
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    oo_new, oo_any_new, n_regrant = data.oo, data.oo_any, zero
+    if cfg.window_k and _branch(data.oo_any):
+        oo_r = data.oo[:, rows]
+        regrant = zero
+        for b in range(oo_r.shape[0]):
+            g = torch.clamp(grant - 32 * b, 0, 32)
+            m = torch.where(g >= 32, MASK, (1 << torch.clamp(g, max=31)) - 1)
+            regrant = regrant + torch.where(
+                row_ok[:, None], popcount32(oo_r[b] & m), 0
+            ).sum()
+        c2, oo2 = window_absorb(contig0, oo_r, grant, torch.zeros_like(oo_r))
+        sel_rows = _ok_rows(rows, row_ok)
+        oo_new = data.oo.clone()
+        oo_new[:, rows[sel_rows]] = oo2[:, sel_rows]
+        contig_r = torch.where(row_ok[:, None], c2, contig_r)
+        oo_any_new = oo_new.any()
+        n_regrant = regrant & MASK
+    seen_r = torch.maximum(seen_r, contig_r)
+
+    cells = data.cells
+    n_merges = zero
+    if cfg.n_cells > 0 and _branch((grant > 0).any()):
+        cum_g = torch.cumsum(grant, dim=1)
+        total_g = cum_g[:, -1]
+        e = torch.arange(cfg.sync_budget, device=dev)
+        # Writer owning granted unit e: the count of span ends <= e (the
+        # reference's CPU searchsorted form; identical to its dense count).
+        w_idx = torch.searchsorted(
+            cum_g, e[None, :].expand(r, -1).contiguous(), right=True
+        )
+        w_idx = torch.clamp(w_idx, max=cfg.n_writers - 1)
+        prev = torch.where(
+            w_idx > 0, onehot.rowgather(cum_g, torch.clamp(w_idx - 1, min=0)), 0
+        )
+        ver = (onehot.rowgather(contig0, w_idx) + 1 + (e[None, :] - prev)) & MASK
+        mask = e[None, :] < total_g[:, None]
+        cells, n_merges = _merge_versions_dense(
+            cells, rows, w_idx, ver, mask, row_ok, n, cfg
+        )
+
+    sel_rows = _ok_rows(rows, row_ok)
+    tgt = rows[sel_rows]
+    contig = data.contig.clone()
+    contig[tgt] = contig_r[sel_rows]
+    seen = data.seen.clone()
+    seen[tgt] = torch.maximum(seen[tgt], seen_r[sel_rows])
+
+    stats = {
+        "applied_sync": torch.where(row_ok[:, None], contig_r - contig0, 0).sum() & MASK,
+        "sessions": ok_c.any(dim=1).sum(),
+        "cell_merges": n_merges & MASK,
+        "sync_regrant": n_regrant,
+    }
+    return (
+        data._replace(
+            contig=contig, seen=seen, cells=cells, oo=oo_new, oo_any=oo_any_new
+        ),
+        stats,
+    )
+
+
+def total_need(data: DataState) -> torch.Tensor:
+    """Cluster-wide outstanding need (sum of heard-of minus possessed, u32
+    wraparound); window-possessed versions are not needed."""
+    need = (data.seen - data.contig).sum() & MASK
+    if data.oo.shape[0] == 0 or not _branch(data.oo_any):
+        return need
+    return (need - popcount32(data.oo).sum()) & MASK
+
+
+def staleness(data: DataState) -> tuple[torch.Tensor, torch.Tensor]:
+    """(staleness_sum float32, staleness_max): per-node watermark lag
+    against the writers' heads. The sum is the exact integer total
+    rounded once to float32 — equal to the reference's float32 sum
+    whenever the mass stays below 2^24, and independent of the device's
+    reduction order."""
+    gap = data.head[None, :] - torch.minimum(data.contig, data.head[None, :])
+    node_lag = gap.sum(dim=1) & MASK
+    return node_lag.sum().to(torch.float32), node_lag.max()
+
+
+def queue_backlog(data: DataState) -> torch.Tensor:
+    """Occupied pending-broadcast queue slots cluster-wide."""
+    return (data.q_writer >= 0).sum()
+
+
+def visibility(data: DataState, sample_writer, sample_ver) -> torch.Tensor:
+    """bool[S, N]: sampled write s visible at each node (at or below the
+    watermark, or possessed in the window). The reference's kernel branch:
+    the per-sample column reads go through ``onehot.rowgather``."""
+    n, w = data.contig.shape
+    cols = torch.clamp(sample_writer, 0, max(w - 1, 0))[None, :].expand(n, -1)
+    c_int = onehot.rowgather(data.contig, cols)
+    vis = c_int >= sample_ver[None, :]
+    if data.oo.shape[0] == 0 or not _branch(data.oo_any):
+        return vis.T
+    out = vis
+    bit = (sample_ver[None, :] - c_int - 1) & MASK  # wraps when visible
+    for b in range(data.oo.shape[0]):
+        word = onehot.rowgather(data.oo[b], cols)
+        sh = torch.clamp((bit - 32 * b) & MASK, max=31)
+        inb = (bit >= 32 * b) & (bit < 32 * (b + 1))
+        out = out | (inb & (((word >> sh) & 1) == 1))
+    return out.T

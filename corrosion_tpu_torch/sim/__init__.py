@@ -1,0 +1,1 @@
+"""sim of the PyTorch/CUDA port (see the package docstring)."""

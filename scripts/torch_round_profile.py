@@ -1,0 +1,152 @@
+#!/usr/bin/env python3
+"""Where a full-size wan_100k round of the PyTorch/CUDA port spends its
+time on the card.
+
+    python3 scripts/torch_round_profile.py [--warm 12] [--rounds 6]
+        [--out build/torch_round_profile.json]
+
+Runs ``wan_100k()`` at full size for ``--warm`` rounds, then profiles
+``--rounds`` more with ``torch.profiler`` (CPU + CUDA activities) and
+prints, from the exported trace:
+
+- ms/round over the profiled window (CUDA events) and the device's busy
+  and idle share (union of kernel/memcpy/memset intervals over the
+  window);
+- device time per plane: kernels whose launch falls inside each
+  ``corro_*`` profiler range of ``cluster_round``, plus ``other`` (keys,
+  curve stacking, chunk set-up);
+- the top kernels by device time and the four ported kernels' share;
+- host syncs per round (``gossip.HOST_SYNCS``) and kernel launches per
+  round.
+
+Needs one CUDA device. Writes the summary as JSON to ``--out``.
+"""
+
+from __future__ import annotations
+
+import os as _os
+import sys as _sys
+
+_sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
+
+import argparse
+import json
+import tempfile
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+PLANES = ("corro_broadcast", "corro_swim", "corro_sync", "corro_track", "corro_health")
+PORTED = ("rowmax_kernel", "rowgather_kernel", "delivery_reduce_kernel",
+          "window_delivery_kernel")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _union(intervals) -> float:
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def analyse(events: list, window_ms: float, rounds: int) -> dict:
+    ranges = [
+        (e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+        if e.get("cat") == "user_annotation" and e.get("name") in PLANES
+    ]
+    launch_ts = {
+        e["args"]["correlation"]: e["ts"] for e in events
+        if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})
+    }
+    dev = [e for e in events if e.get("cat") in DEVICE_CATS]
+    per_plane = defaultdict(float)
+    per_kernel = defaultdict(float)
+    count = defaultdict(int)
+    for e in dev:
+        ts = launch_ts.get(e.get("args", {}).get("correlation"))
+        plane = "other"
+        if ts is not None:
+            for s, t, name in ranges:
+                if s <= ts <= t:
+                    plane = name
+                    break
+        per_plane[plane] += e["dur"] / 1e3
+        per_kernel[e["name"]] += e["dur"] / 1e3
+        count[e["name"]] += 1
+    busy_ms = _union((e["ts"], e["ts"] + e["dur"]) for e in dev) / 1e3
+    device_ms = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]
+    ported = {
+        k: round(sum(v for n, v in per_kernel.items() if k in n) / rounds, 4)
+        for k in PORTED
+    }
+    return {
+        "ms_per_round": window_ms / rounds,
+        "device_busy_share": busy_ms / window_ms,
+        "device_idle_share": 1 - busy_ms / window_ms,
+        "device_ms_per_round": device_ms / rounds,
+        "plane_device_ms_per_round": {
+            k: round(v / rounds, 3) for k, v in sorted(per_plane.items())
+        },
+        "device_ops_per_round": sum(count.values()) / rounds,
+        "top_kernels_ms_per_round": [
+            {"name": n[:120], "ms": round(v / rounds, 4), "calls": count[n] / rounds}
+            for n, v in top
+        ],
+        "ported_kernels_ms_per_round": ported,
+        "ported_share_of_device_time": sum(ported.values()) * rounds / max(device_ms, 1e-9),
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--warm", type=int, default=12)
+    ap.add_argument("--rounds", type=int, default=6)
+    ap.add_argument("--out", default="build/torch_round_profile.json")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("torch_round_profile: CUDA is not available", file=_sys.stderr)
+        return 2
+    from corrosion_tpu_torch.models import baselines
+    from corrosion_tpu_torch.ops import gossip, onehot
+    from corrosion_tpu_torch.sim import engine
+
+    cfg, topo, sched = baselines.wan_100k(device="cuda")
+    state, _ = engine.simulate(cfg, topo, sched.slice(0, args.warm), seed=0, device="cuda")
+    torch.cuda.synchronize()
+    gossip.reset_host_syncs()
+    onehot.reset_launches()
+    window = sched.slice(args.warm, args.warm + args.rounds)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        a.record()
+        state, _ = engine.simulate(cfg, topo, window, seed=0, state=state, device="cuda")
+        b.record()
+        b.synchronize()
+    with tempfile.TemporaryDirectory(dir=".") as td:
+        trace = Path(td) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    out = analyse(events, a.elapsed_time(b), args.rounds)
+    out.update(
+        nodes=cfg.n_nodes, writers=cfg.gossip.n_writers, warm=args.warm,
+        rounds=args.rounds, device=torch.cuda.get_device_name(0),
+        host_syncs_per_round={k: v / args.rounds for k, v in gossip.HOST_SYNCS.items()},
+        kernel_launches_per_round={k: v / args.rounds for k, v in onehot.LAUNCHES.items()},
+    )
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text(json.dumps(out, indent=1))
+    print(json.dumps(out, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    _sys.exit(main())

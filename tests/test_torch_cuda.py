@@ -1,0 +1,77 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Marked ``cuda``: they skip where no CUDA device is present and run
+on the chip with
+
+    python -m pytest tests/test_torch_cuda.py -m cuda
+
+(chip_smoke.py runs the same comparisons at the full wan_100k shapes).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from corrosion_tpu_torch.ops import onehot
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(seed, r, m, w, dev):
+    g = np.random.default_rng(seed)
+    idx = torch.as_tensor(g.integers(-3, w + 3, (r, m)), device=dev)
+    val = torch.as_tensor(
+        g.integers(0, 1 << 32, (r, m), dtype=np.uint64).astype(np.int64), device=dev
+    )
+    mask = torch.as_tensor(g.random((r, m)) < 0.7, device=dev)
+    return idx, val, mask
+
+
+SHAPES = [(1, 1, 1), (33, 17, 129), (300, 144, 512), (4, 64, 3000)]
+
+
+@pytest.mark.parametrize("r,m,w", SHAPES)
+def test_kernels_equal_plain(cuda, r, m, w):
+    idx, val, mask = _inputs(r + m + w, r, m, w, cuda)
+    onehot.reset_launches()
+    assert torch.equal(
+        onehot.rowmax(idx, val, mask, w), onehot.rowmax_plain(idx, val, mask, w)
+    )
+    table = val[:, :1].expand(r, w).contiguous() ^ torch.arange(w, device=cuda)
+    assert torch.equal(onehot.rowgather(table, idx), onehot.rowgather_plain(table, idx))
+    seen = table & 0xFFFF
+    d = val & 0xFF
+    applied = mask & (d < 100)
+    for got, want in zip(
+        onehot.delivery_reduce(idx, d, val, applied, mask, seen, w),
+        onehot.delivery_reduce_plain(idx, d, val, applied, mask, seen, w),
+    ):
+        assert torch.equal(got, want)
+    for wk in (32, 64):
+        oo = (table[None] * 2654435761 & 0xFFFFFFFF).expand(wk // 32, r, w).contiguous()
+        adv_m = (val >> 8) & 0x3F
+        for got, want in zip(
+            onehot.window_delivery(oo, idx, d, adv_m, mask, wk, w),
+            onehot.window_delivery_plain(oo, idx, d, adv_m, mask, wk, w),
+        ):
+            assert torch.equal(got, want)
+    torch.cuda.synchronize()
+    assert onehot.LAUNCHES == {
+        "rowmax": 1, "rowgather": 1, "delivery_reduce": 1, "window_delivery": 2,
+    }
+
+
+def test_wrappers_refuse_wrong_inputs(cuda):
+    idx, val, mask = _inputs(0, 8, 9, 10, cuda)
+    with pytest.raises(TypeError):
+        onehot.rowmax(idx.to(torch.int32), val, mask, 10)
+    with pytest.raises(ValueError):
+        onehot.rowmax(idx, val[:, ::2].contiguous(), mask, 10)
+    with pytest.raises(ValueError):
+        onehot.rowmax(idx, val.cpu(), mask, 10)
