@@ -6,21 +6,38 @@
 Phases (each raises on failure; the exit code is nonzero on any fault):
 
 1. the card's name and power limit (nvidia-smi) and torch's device name;
-2. build the four CUDA kernels from ``corrosion_tpu_torch/csrc`` (sm_90a);
+2. build the six CUDA kernels from the five sources in
+   ``corrosion_tpu_torch/csrc`` (sm_90a), one nvcc each, in parallel;
 3. each kernel against its plain PyTorch version on the same CUDA inputs,
-   at the wan_100k shapes and on edge cases — exact equality required —
-   timed with CUDA events (median of 25) beside the plain version, one
-   PyTorch library call where one computes the same function, and the
-   byte/operation bound;
-4. ``wan_100k(n=2000, n_regions=4, n_writers=64, rounds=72)`` on the card
-   (kernels) and on the CPU (plain versions): identical curves and final
-   state;
+   on edge cases (0-width axes, out-of-range indices, bit 31, and widths
+   10,000 and 16,384, which take every row kernel's shared-memory opt-in)
+   and at every shape each main path gives it (wan_100k: the four
+   fast-path kernels; merge_10k: ``rowmax`` and ``rowgather`` in the CRDT
+   merge, ``rowgather`` in the sync grant enumeration, ``delivery_reduce``
+   at W = 10,000, ``rowgather_wide`` and ``rowsum``) — exact equality
+   required — timed with CUDA events (median of 25) beside the plain
+   version, one PyTorch library call where one computes the same function,
+   and the byte/operation bound. At merge_10k ``delivery_reduce`` is also
+   timed against the two-``rowmax`` form of the same function;
+4. small runs on the card (kernels) and on the CPU (plain versions), with
+   identical curves and final state: ``wan_100k(n=2000, ...)``,
+   ``three_node()``, ``churn_32()`` and its wipe variant,
+   ``anti_entropy_1k()``, and a merge_10k burst variant at n=2560 (wider
+   than 2048 writers, so it takes the legacy delivery and launches
+   ``rowgather_wide`` and ``rowsum``);
 5. full-size ``wan_100k()`` (100,000 nodes, 20 regions, 512 writers), all
-   240 rounds in chunks of 12, with every kernel's launch counter > 0 and
-   the watermark invariants.
+   240 rounds in chunks of 12: its four kernels launched, the watermark
+   invariants;
+6. full-size ``merge_10k()`` (10,000 nodes, 10,000 writers), all 120
+   rounds in chunks of 12: ``rowgather_wide``, ``rowmax``, ``rowgather``
+   and ``delivery_reduce`` launched, the watermark invariants.
 
-The last lines are a ``kernels`` JSON line, the nvidia-smi line, and the
-result line ``{"ok": true, "device": {...}}``.
+The launch counts are reset just before each main-path run (phases 5 and
+6) and read just after it. The last lines are a ``kernels`` JSON line, the
+nvidia-smi line, and the result line ``{"ok": true, "device": {...}}``.
+Each kernel's entry carries its launches summed over both paths and, under
+``by_path``, each path's launches and the times and bound of every shape
+measured on it; its top-level times are those of its first shape.
 """
 
 from __future__ import annotations
@@ -49,6 +66,15 @@ KERNELS = {
                         "corrosion_tpu/ops/onehot.py:637"),
     "window_delivery": ("corrosion_tpu_torch/csrc/window_delivery.cu",
                         "corrosion_tpu/ops/onehot.py:729"),
+    "rowgather_wide": ("corrosion_tpu_torch/csrc/rowgather.cu",
+                       "corrosion_tpu/ops/onehot.py:261"),
+    "rowsum": ("corrosion_tpu_torch/csrc/rowsum.cu",
+               "corrosion_tpu/ops/onehot.py:487"),
+}
+# Kernels each main path must launch.
+PATH_KERNELS = {
+    "wan_100k": ("rowmax", "rowgather", "delivery_reduce", "window_delivery"),
+    "merge_10k": ("rowgather_wide", "rowmax", "rowgather", "delivery_reduce"),
 }
 
 
@@ -118,19 +144,31 @@ def _inputs(g, r, m, w, device):
     return idx, val, mask
 
 
-def check_kernels(onehot, device) -> dict:
-    """Exact equality kernel vs plain on edge cases and at wan_100k
-    shapes; returns the per-kernel measurements at the main shapes."""
+def check_kernels(onehot, device) -> list:
+    """Exact equality kernel vs plain on edge cases and at the shapes each
+    main path gives each kernel; returns one measurement per kernel and
+    shape, in path order."""
     g = torch.Generator().manual_seed(0)
-    # Edge cases: 0-width axes, odd small shapes, both window widths.
-    for r, m, w in ((0, 5, 7), (5, 0, 7), (5, 7, 0), (3, 1, 1), (37, 19, 41), (64, 300, 2049)):
+    # Edge cases: 0-width axes, odd small shapes, both window widths, and
+    # widths past every row kernel's 48 KB shared-memory default (16,384
+    # columns: 64 KB for rowmax/rowsum and window_delivery at wk=32, 128 KB
+    # for delivery_reduce and window_delivery at wk=64), one of them not a
+    # multiple of 128.
+    for r, m, w in (
+        (0, 5, 7), (5, 0, 7), (5, 7, 0), (3, 1, 1), (37, 19, 41), (64, 300, 2049),
+        (48, 144, 10_000), (24, 144, 16_384),
+    ):
         idx, val, mask = _inputs(g, r, m, w, device)
         for msk in (mask, None):
             got, want = onehot.rowmax(idx, val, msk, w), onehot.rowmax_plain(idx, val, msk, w)
             assert equal(got, want), f"rowmax differs at {(r, m, w)}"
+            got, want = onehot.rowsum(idx, val, msk, w), onehot.rowsum_plain(idx, val, msk, w)
+            assert equal(got, want), f"rowsum differs at {(r, m, w)}"
         table = torch.randint(0, 1 << 32, (r, w), generator=g).to(device)
         assert equal(onehot.rowgather(table, idx), onehot.rowgather_plain(table, idx)), \
             f"rowgather differs at {(r, m, w)}"
+        assert equal(onehot.rowgather_wide(table, idx), onehot.rowgather_wide_plain(table, idx)), \
+            f"rowgather_wide differs at {(r, m, w)}"
         if r:
             cols = torch.randint(-1, w + 2, (m,), generator=g).to(device)[None, :].expand(r, m)
             assert equal(onehot.rowgather(table, cols), onehot.rowgather_plain(table, cols)), \
@@ -148,89 +186,169 @@ def check_kernels(onehot, device) -> dict:
             got = onehot.window_delivery(oo, idx, dd, adv_m, mask, wk, w)
             want = onehot.window_delivery_plain(oo, idx, dd, adv_m, mask, wk, w)
             assert all(equal(x, y) for x, y in zip(got, want)), f"window_delivery differs at {(r, m, w, wk)}"
-    log("phase 3: edge cases equal (0-width axes, out-of-range, bit 31, wk 32/64)")
+    torch.cuda.synchronize()
+    log("phase 3: edge cases equal (0-width axes, out-of-range, bit 31, wk 32/64, "
+        "W 10,000 and 16,384)")
 
-    # Main shapes (wan_100k): N=100,000 rows, kk=144 messages, W=512
-    # writers, K=256 cells.
+    out = []
+
+    def measure(name, path, shape, kernel, plain, library, in_bytes, ops, **extra):
+        """Exact equality of ``kernel()`` and ``plain()``, then CUDA-event
+        times of both and of ``library()``; the bound counts ``in_bytes``
+        plus the kernel's outputs."""
+        got, want = kernel(), plain()
+        err = max_abs_err(got, want)
+        assert err == 0, f"{name} differs from its plain version at {path} {shape}"
+        outs = got if isinstance(got, tuple) else (got,)
+        del got, want
+        out.append(dict(
+            name=name, path=path, shape=shape, err=err,
+            ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
+            library_ms=None if library is None else cuda_ms(library),
+            bound=bound(in_bytes + nbytes(*outs), ops),
+            **{k: cuda_ms(fn) for k, fn in extra.items()},
+        ))
+
+    # wan_100k: N=100,000 rows, kk=144 messages, W=512 writers, K=256 cells.
     n, kk, w, k = 100_000, 144, 512, 256
-    out = {}
     idx, val, mask = _inputs(g, n, kk, k, device)
     idx = idx.clamp(0, k - 1)  # merge keys are always in range
     val = val & ((1 << 26) - 1)  # packed (cl << 24 | col_version) words
     safe = torch.where(mask, idx, k)
     zeros = torch.zeros((n, k + 1), dtype=torch.int64, device=device)
-    got, want = onehot.rowmax(idx, val, mask, k), onehot.rowmax_plain(idx, val, mask, k)
-    err = max_abs_err(got, want)
-    assert err == 0, "rowmax differs at the merge shape"
-    out["rowmax"] = dict(
-        err=err,
-        shape=f"[{n},{kk}]->[{n},{k}]",
-        ms=cuda_ms(lambda: onehot.rowmax(idx, val, mask, k)),
-        plain_ms=cuda_ms(lambda: onehot.rowmax_plain(idx, val, mask, k)),
+    measure(
+        "rowmax", "wan_100k", f"[{n},{kk}]->[{n},{k}]",
+        lambda: onehot.rowmax(idx, val, mask, k),
+        lambda: onehot.rowmax_plain(idx, val, mask, k),
         # amax is idempotent, so repeating it in place times the call alone.
-        library_ms=cuda_ms(lambda: zeros.scatter_reduce_(1, safe, val, "amax")),
-        bound=bound(nbytes(idx, val, mask, got), 2 * idx.numel()),
+        lambda: zeros.scatter_reduce_(1, safe, val, "amax"),
+        nbytes(idx, val, mask), 2 * idx.numel(),
     )
 
-    table = torch.randint(0, 1 << 24, (n, w), generator=g).to(device)
-    gidx = torch.randint(0, w, (n, kk), generator=g).to(device)
-    got, want = onehot.rowgather(table, gidx), onehot.rowgather_plain(table, gidx)
-    err = max_abs_err(got, want)
-    assert err == 0, "rowgather differs at the delivery shape"
-    touched = torch.zeros((n, w), dtype=torch.bool, device=device)
-    touched.scatter_(1, gidx, True)
-    out["rowgather"] = dict(
-        err=err,
-        shape=f"[{n},{w}]<-[{n},{kk}]",
-        ms=cuda_ms(lambda: onehot.rowgather(table, gidx)),
-        plain_ms=cuda_ms(lambda: onehot.rowgather_plain(table, gidx)),
-        library_ms=cuda_ms(lambda: torch.gather(table, 1, gidx)),
+    def gather_case(path, table, gidx):
         # The gather needs only the table words it addresses.
-        bound=bound(nbytes(gidx, got) + 8 * int(touched.sum()), gidx.numel()),
+        touched = torch.zeros(table.shape, dtype=torch.bool, device=device)
+        touched.scatter_(1, gidx, True)
+        r, m = gidx.shape
+        measure(
+            "rowgather", path, f"[{r},{table.shape[1]}]<-[{r},{m}]",
+            lambda: onehot.rowgather(table, gidx),
+            lambda: onehot.rowgather_plain(table, gidx),
+            lambda: torch.gather(table, 1, gidx),
+            nbytes(gidx) + 8 * int(touched.sum()), gidx.numel(),
+        )
+
+    gather_case(
+        "wan_100k",
+        torch.randint(0, 1 << 24, (n, w), generator=g).to(device),
+        torch.randint(0, w, (n, kk), generator=g).to(device),
     )
 
-    widx = torch.randint(0, w, (n, kk), generator=g).to(device)
-    d = torch.randint(0, 40, (n, kk), generator=g).to(device)
-    v = torch.randint(0, 1 << 20, (n, kk), generator=g).to(device)
-    valid = torch.rand((n, kk), generator=g).to(device) < 0.8
-    applied = valid & (d < 4)
-    seen = torch.randint(0, 1 << 20, (n, w), generator=g).to(device)
-    got = onehot.delivery_reduce(widx, d, v, applied, valid, seen, w)
-    want = onehot.delivery_reduce_plain(widx, d, v, applied, valid, seen, w)
-    err = max_abs_err(got, want)
-    assert err == 0, "delivery_reduce differs"
-    out["delivery_reduce"] = dict(
-        err=err,
-        shape=f"[{n},{kk}]x5,[{n},{w}]->2x[{n},{w}]",
-        ms=cuda_ms(lambda: onehot.delivery_reduce(widx, d, v, applied, valid, seen, w)),
-        plain_ms=cuda_ms(lambda: onehot.delivery_reduce_plain(widx, d, v, applied, valid, seen, w)),
-        library_ms=None,
-        bound=bound(nbytes(widx, d, v, applied, valid, seen, *got), 4 * widx.numel()),
-    )
+    def reduce_case(path, n, w, d_hi, v_hi, **extra_fns):
+        widx = torch.randint(0, w, (n, kk), generator=g).to(device)
+        d = torch.randint(0, d_hi, (n, kk), generator=g).to(device)
+        v = torch.randint(0, v_hi, (n, kk), generator=g).to(device)
+        valid = torch.rand((n, kk), generator=g).to(device) < 0.8
+        applied = valid & (d < d_hi // 10)
+        seen = torch.randint(0, v_hi, (n, w), generator=g).to(device)
+        measure(
+            "delivery_reduce", path, f"[{n},{kk}]x5,[{n},{w}]->2x[{n},{w}]",
+            lambda: onehot.delivery_reduce(widx, d, v, applied, valid, seen, w),
+            lambda: onehot.delivery_reduce_plain(widx, d, v, applied, valid, seen, w),
+            None,
+            nbytes(widx, d, v, applied, valid, seen), 4 * widx.numel(),
+            **{k: fn(widx, d, v, applied, valid, seen, w) for k, fn in extra_fns.items()},
+        )
+        return widx, d, valid
 
+    widx, d, valid = reduce_case("wan_100k", n, w, 40, 1 << 20)
     oo = torch.randint(0, 1 << 32, (1, n, w), generator=g).to(device)
     adv_m = torch.randint(0, 8, (n, kk), generator=g).to(device)
-    got = onehot.window_delivery(oo, widx, d, adv_m, valid, 32, w)
-    want = onehot.window_delivery_plain(oo, widx, d, adv_m, valid, 32, w)
-    err = max_abs_err(got, want)
-    assert err == 0, "window_delivery differs"
     wtouched = torch.zeros((n, w), dtype=torch.bool, device=device)
     wtouched.scatter_(1, widx, valid)
-    out["window_delivery"] = dict(
-        err=err,
-        shape=f"[1,{n},{w}],[{n},{kk}]x4->[{n},{kk}],[1,{n},{w}]",
-        ms=cuda_ms(lambda: onehot.window_delivery(oo, widx, d, adv_m, valid, 32, w)),
-        plain_ms=cuda_ms(lambda: onehot.window_delivery_plain(oo, widx, d, adv_m, valid, 32, w)),
-        library_ms=None,
-        bound=bound(
-            nbytes(widx, d, adv_m, valid, *got) + 8 * int(wtouched.sum()),
-            8 * widx.numel(),
-        ),
+    measure(
+        "window_delivery", "wan_100k", f"[1,{n},{w}],[{n},{kk}]x4->[{n},{kk}],[1,{n},{w}]",
+        lambda: onehot.window_delivery(oo, widx, d, adv_m, valid, 32, w),
+        lambda: onehot.window_delivery_plain(oo, widx, d, adv_m, valid, 32, w),
+        None,
+        nbytes(widx, d, adv_m, valid) + 8 * int(wtouched.sum()), 8 * widx.numel(),
     )
-    for name, row in out.items():
-        log(f"phase 3: {name} {row['shape']} equal; kernel {row['ms']:.4f} ms, "
-            f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']} ms, "
-            f"bound {row['bound'][0]:.4f} ms ({row['bound'][1]})")
+    del idx, val, mask, safe, zeros, widx, d, valid, oo, adv_m, wtouched
+
+    # merge_10k: N = W = 10,000 rows and writers, kk = 144 messages,
+    # K = 1,024 cells, sync cohort R = 2,000 rows with budget 512.
+    n, w, k, r_sync, budget = 10_000, 10_000, 1024, 2_000, 512
+    idx, val, mask = _inputs(g, n, kk, k, device)
+    idx = idx.clamp(0, k - 1)
+    val = val & ((1 << 26) - 1)
+    safe = torch.where(mask, idx, k)
+    zeros = torch.zeros((n, k + 1), dtype=torch.int64, device=device)
+    measure(
+        "rowmax", "merge_10k", f"[{n},{kk}]->[{n},{k}]",
+        lambda: onehot.rowmax(idx, val, mask, k),
+        lambda: onehot.rowmax_plain(idx, val, mask, k),
+        lambda: zeros.scatter_reduce_(1, safe, val, "amax"),
+        nbytes(idx, val, mask), 2 * idx.numel(),
+    )
+    # The CRDT merge's winner check reads the [N, K] packed plane.
+    gather_case("merge_10k", torch.randint(0, 1 << 26, (n, k), generator=g).to(device), idx)
+    del val, mask, safe, zeros
+    # The sync grant enumeration: each cohort row's writer of every granted
+    # unit, ascending along the row.
+    gather_case(
+        "merge_10k",
+        torch.randint(0, 1 << 24, (r_sync, w), generator=g).to(device),
+        torch.sort(torch.randint(0, w, (r_sync, budget), generator=g).to(device), dim=1).values,
+    )
+
+    # The legacy contig_run/seen reductions, and the two-rowmax form of the
+    # same function (two launches and a max pass) timed beside them.
+    def two_rowmax(widx, d, v, applied, valid, seen, w):
+        return lambda: (
+            onehot.rowmax(widx, d, applied, w),
+            torch.maximum(seen, onehot.rowmax(widx, v, valid, w)),
+        )
+
+    reduce_case("merge_10k", n, w, 1 << 20, 1 << 20, two_rowmax_ms=two_rowmax)
+
+    table = torch.randint(0, 1 << 24, (n, w), generator=g).to(device)
+    widx = torch.randint(0, w, (n, kk), generator=g).to(device)
+    touched = torch.zeros((n, w), dtype=torch.bool, device=device)
+    touched.scatter_(1, widx, True)
+    measure(
+        "rowgather_wide", "merge_10k", f"[{n},{w}]<-[{n},{kk}]",
+        lambda: onehot.rowgather_wide(table, widx),
+        lambda: onehot.rowgather_wide_plain(table, widx),
+        # The index is already in range, so gather on it needs no clip.
+        lambda: torch.gather(table, 1, widx),
+        nbytes(widx) + 8 * int(touched.sum()), widx.numel(),
+    )
+    del table, touched
+
+    # The legacy window assembly: one power of two per admitted message.
+    bits = torch.where(
+        torch.rand((n, kk), generator=g).to(device) < 0.5,
+        1 << torch.randint(0, 32, (n, kk), generator=g).to(device), 0,
+    )
+    acc = torch.zeros((n, w + 1), dtype=torch.int64, device=device)
+    measure(
+        "rowsum", "merge_10k", f"[{n},{kk}]->[{n},{w}]",
+        lambda: onehot.rowsum(widx, bits, None, w),
+        lambda: onehot.rowsum_plain(widx, bits, None, w),
+        # In place into a kept buffer: no zero fill of the output plane.
+        lambda: acc.scatter_add_(1, widx, bits),
+        nbytes(widx, bits), widx.numel(),
+    )
+    del acc
+    for row in out:
+        extra = "".join(
+            f", {k} {v:.4f} ms" for k, v in row.items() if k.endswith("_ms") and k not in
+            ("plain_ms", "library_ms")
+        )
+        log(f"phase 3: {row['name']} {row['path']} {row['shape']} equal; kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+            f"{row['library_ms']} ms, bound {row['bound'][0]:.4f} ms "
+            f"({row['bound'][1]}){extra}")
     return out
 
 
@@ -246,38 +364,76 @@ def _flat(tree, prefix=""):
     return {prefix[:-1]: tree}
 
 
-def check_small_run():
-    """wan_100k at n=2000 on the card (kernels) equals the CPU run (plain)."""
+def _burst(sched, schedule_cls):
+    """Two versions per writer per round for rounds 0-11: enough out-of-
+    order arrivals to open the legacy window (merge_10k's 1% rate alone
+    leaves it shut at small sizes)."""
+    writes = sched.writes.copy()
+    writes[:12, :] = 2
+    return schedule_cls(writes=writes).make_samples(256)
+
+
+def _wiped(sched, schedule_cls):
+    """The same churn schedule with every kill a crash-with-state-wipe."""
+    return schedule_cls(
+        writes=sched.writes, kill=sched.kill, revive=sched.revive,
+        wipe=sched.kill.copy(), sample_writer=sched.sample_writer,
+        sample_ver=sched.sample_ver, sample_round=sched.sample_round,
+    )
+
+
+SMALL_RUNS = (
+    # (label, builder, builder kwargs, schedule transform, chunk)
+    ("wan_100k n=2000", "wan_100k", dict(n=2000, n_regions=4, n_writers=64, rounds=72), None, 24),
+    ("three_node", "three_node", {}, None, None),
+    ("churn_32", "churn_32", {}, None, 100),
+    ("churn_32 wipe", "churn_32", {}, _wiped, 100),
+    ("anti_entropy_1k", "anti_entropy_1k", {}, None, 50),
+    ("merge_10k burst n=2560", "merge_10k", dict(n=2560, rounds=48), _burst, 24),
+)
+
+
+def check_small_runs(onehot):
+    """Each small run on the card (kernels) equals the CPU run (plain
+    versions); the merge_10k run launches the two wide-path kernels."""
     from corrosion_tpu_torch import interop
     from corrosion_tpu_torch.models import baselines
     from corrosion_tpu_torch.sim import engine
 
-    kw = dict(n=2000, n_regions=4, n_writers=64, rounds=72)
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        cfg, topo, sched = baselines.wan_100k(device=dev, **kw)
-        t0 = time.perf_counter()
-        final, curves = engine.simulate(cfg, topo, sched, seed=0, max_chunk=24, device=dev)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        runs[dev] = (_flat(interop.to_numpy(final)), curves, time.perf_counter() - t0)
-        log(f"phase 4: n=2000 x 72 rounds on {dev}: {runs[dev][2]:.1f} s")
-    (fa, ca, _), (fb, cb, _) = runs["cuda"], runs["cpu"]
-    bad = [k for k in ca if not np.array_equal(ca[k], cb[k])]
-    bad += [k for k in fa if not np.array_equal(fa[k], fb[k])]
-    assert not bad, f"card run differs from the CPU run in {bad}"
-    assert ca["vis_count"].sum() > 0 and ca["msgs"].sum() > 0
-    log(f"phase 4: card run == CPU run ({len(ca)} curves, {len(fa)} state "
-        f"leaves); need[-1]={int(ca['need'][-1])}")
+    for label, builder, kw, transform, chunk in SMALL_RUNS:
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            cfg, topo, sched = getattr(baselines, builder)(device=dev, **kw)
+            if transform is not None:
+                sched = transform(sched, engine.Schedule)
+            onehot.reset_launches()
+            t0 = time.perf_counter()
+            final, curves = engine.simulate(cfg, topo, sched, seed=0, max_chunk=chunk, device=dev)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = dict(onehot.LAUNCHES)
+            runs[dev] = (_flat(interop.to_numpy(final)), curves, time.perf_counter() - t0)
+        (fa, ca, ta), (fb, cb, tb) = runs["cuda"], runs["cpu"]
+        bad = [k for k in ca if not np.array_equal(ca[k], cb[k])]
+        bad += [k for k in fa if not np.array_equal(fa[k], fb[k])]
+        assert not bad, f"{label}: card run differs from the CPU run in {bad}"
+        assert ca["vis_count"].sum() > 0 and ca["msgs"].sum() > 0, label
+        if builder == "merge_10k":
+            for k in ("rowgather_wide", "rowsum"):
+                assert launches[k] > 0, f"{label}: {k} never launched"
+        log(f"phase 4: {label} ({sched.rounds} rounds): card {ta:.1f} s == CPU "
+            f"{tb:.1f} s ({len(ca)} curves, {len(fa)} state leaves); "
+            f"need[-1]={int(ca['need'][-1])}; launches {json.dumps(launches)}")
 
 
-def full_run(onehot, gossip, chunk: int = 12):
-    """Full-size wan_100k, every round of its schedule, ``chunk`` rounds
-    per ``simulate`` call."""
+def full_run(onehot, gossip, phase: int, builder: str, chunk: int = 12):
+    """A main path at full size, every round of its schedule, ``chunk``
+    rounds per ``simulate`` call, with the launch counts reset just before
+    and read just after."""
     from corrosion_tpu_torch.models import baselines
     from corrosion_tpu_torch.sim import engine
 
-    cfg, topo, sched = baselines.wan_100k(device="cuda")
+    cfg, topo, sched = getattr(baselines, builder)(device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     onehot.reset_launches()
@@ -296,7 +452,7 @@ def full_run(onehot, gossip, chunk: int = 12):
         b.synchronize()
         elapsed += a.elapsed_time(b)
         parts.append(curves)
-        log(f"phase 5: rounds {done}-{stop - 1}: {a.elapsed_time(b) / (stop - done):.1f} ms/round")
+        log(f"phase {phase}: rounds {done}-{stop - 1}: {a.elapsed_time(b) / (stop - done):.1f} ms/round")
         done = stop
     wall = time.perf_counter() - t_wall
     launches = dict(onehot.LAUNCHES)
@@ -308,16 +464,49 @@ def full_run(onehot, gossip, chunk: int = 12):
     for k in ("need", "staleness_sum", "msgs"):
         assert np.isfinite(curves[k].astype(np.float64)).all()
     assert curves["msgs"].sum() > 0 and curves["vis_count"].sum() > 0
-    missing = [k for k, v in launches.items() if v == 0]
-    assert not missing, f"kernels never launched on the main path: {missing}"
+    missing = [k for k in PATH_KERNELS[builder] if launches[k] == 0]
+    assert not missing, f"{builder}: kernels never launched on its path: {missing}"
     peak = torch.cuda.max_memory_allocated()
-    log(f"phase 5: wan_100k N={cfg.n_nodes} W={cfg.gossip.n_writers} "
+    log(f"phase {phase}: {builder} N={cfg.n_nodes} W={cfg.gossip.n_writers} "
         f"{done} rounds: {elapsed / done:.1f} ms/round (CUDA events), "
         f"wall {wall:.1f} s, peak memory {peak / 2**30:.2f} GiB")
-    log(f"phase 5: launches {json.dumps(launches)}; host syncs {json.dumps(syncs)}")
-    log(f"phase 5: need[-1]={int(curves['need'][-1])} "
+    log(f"phase {phase}: launches {json.dumps(launches)}; host syncs {json.dumps(syncs)}")
+    log(f"phase {phase}: need[-1]={int(curves['need'][-1])} "
         f"vis_count={int(curves['vis_count'].sum())} msgs={int(curves['msgs'].sum())}")
-    return launches, done, elapsed / done, peak
+    return launches
+
+
+def kernel_rows(measured: list, by_path: dict) -> list:
+    """The ``kernels`` line: one entry per kernel from phase 3's
+    measurements and the main paths' launch counts."""
+    rows = []
+    for name, (src, replaces) in KERNELS.items():
+        mine = [m for m in measured if m["name"] == name]
+        first = mine[0]
+        rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": sum(p[name] for p in by_path.values()),
+            "max_abs_err": max(m["err"] for m in mine),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound"][0], "bound_by": first["bound"][1],
+            "library_ms": first["library_ms"],
+            # Every path's launches, and every shape measured on it (the
+            # top-level times are the first shape's).
+            "by_path": {
+                path: {"launches": counts[name], "shapes": [
+                    {
+                        "shape": m["shape"], "max_abs_err": m["err"], "ms": m["ms"],
+                        "plain_ms": m["plain_ms"], "bound_ms": m["bound"][0],
+                        "bound_by": m["bound"][1], "library_ms": m["library_ms"],
+                        **{k: v for k, v in m.items() if k.endswith("_ms") and k not in
+                           ("ms", "plain_ms", "library_ms")},
+                    }
+                    for m in mine if m["path"] == path
+                ]}
+                for path, counts in by_path.items()
+            },
+        })
+    return rows
 
 
 def main() -> int:
@@ -331,21 +520,17 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"phase 1: {smi} | torch: {kind} | torch {torch.__version__} cuda {torch.version.cuda}")
     torch.cuda.set_device(0)
-    log(f"phase 2: built {len(cuda_build.SOURCES)} kernels in "
+    t_start = time.perf_counter()
+    log(f"phase 2: built {len(KERNELS)} kernels from {len(cuda_build.SOURCES)} sources in "
         f"{cuda_build.build(verbose=True):.1f} s")
     measured = check_kernels(onehot, "cuda")
-    check_small_run()
-    launches, _, _, _ = full_run(onehot, gossip)
-    rows = []
-    for name, (src, replaces) in KERNELS.items():
-        m = measured[name]
-        rows.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": m["err"],
-            "ms": m["ms"], "plain_ms": m["plain_ms"],
-            "bound_ms": m["bound"][0], "bound_by": m["bound"][1],
-            "library_ms": m["library_ms"],
-        })
+    check_small_runs(onehot)
+    by_path = {
+        path: full_run(onehot, gossip, phase, path)
+        for phase, path in ((5, "wan_100k"), (6, "merge_10k"))
+    }
+    rows = kernel_rows(measured, by_path)
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build to the end")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,13 +13,18 @@
 // reads idx, d, v as int64 and the two masks as bytes (374 MB), reads the
 // int64 seen plane (410 MB) and writes two int64 planes (819 MB): 1.6 GB
 // at 3.35 TB/s is 0.48 ms. 32-bit planes would halve the plane traffic
-// (ROADMAP).
+// (ROADMAP). At merge_10k's legacy delivery (R=10,000, W=10,000) the
+// reductions need 80 KB of shared memory a block, so only two blocks fit
+// an SM; the block then grows with the row (one thread per 8 columns, up
+// to 1,024) so those two blocks still keep enough loads in flight to
+// stream the 2.4 GB of seen/out planes (bound 0.73 ms).
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kMinThreads = 128;
+constexpr int kMaxThreads = 1024;
 
 __global__ void delivery_reduce_kernel(
     const int64_t* __restrict__ idx, const int64_t* __restrict__ d,
@@ -72,7 +77,9 @@ extern "C" int corro_delivery_reduce(const int64_t* idx, const int64_t* d,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  delivery_reduce_kernel<<<static_cast<unsigned int>(rows), kThreads, smem,
+  int threads = kMinThreads;
+  while (threads < kMaxThreads && threads * 8 < width) threads *= 2;
+  delivery_reduce_kernel<<<static_cast<unsigned int>(rows), threads, smem,
                            static_cast<cudaStream_t>(stream)>>>(
       idx, d, v, applied, valid, seen, adv_out, seen_out, m,
       static_cast<int>(width));

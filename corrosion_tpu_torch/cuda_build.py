@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-SOURCES = ("rowmax", "rowgather", "delivery_reduce", "window_delivery")
+# rowgather.cu holds both gathers (rowgather and rowgather_wide).
+SOURCES = ("rowmax", "rowgather", "delivery_reduce", "window_delivery", "rowsum")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -16,13 +16,14 @@ import torch
 from corrosion_tpu_torch import resolve_device
 from corrosion_tpu_torch.ops.crdt import CellState
 from corrosion_tpu_torch.ops.gossip import DataState, Topology
+from corrosion_tpu_torch.ops.swim import SwimState
 from corrosion_tpu_torch.ops.swim_sparse import SparseSwimState
 from corrosion_tpu_torch.sim.engine import ClusterState
 
 # Fields the reference stores as uint32 (everything else integer is int32).
 U32_FIELDS = frozenset({
     "head", "contig", "seen", "oo", "q_ver", "q_gw", "cl", "col_version",
-    "value_rank", "exc_pkd", "incarnation", "susp_inc", "upd_packed",
+    "value_rank", "view", "exc_pkd", "incarnation", "susp_inc", "upd_packed",
     "writer_ids",
 })
 
@@ -41,12 +42,15 @@ def _build(cls, d: dict, device):
 
 
 def cluster_state_from_numpy(d: dict, device=None) -> ClusterState:
-    """ClusterState from the reference's state as nested numpy dicts."""
+    """ClusterState from the reference's state as nested numpy dicts (the
+    dense ``SwimState`` when the swim dict holds a ``view``, else the
+    sparse exception tables)."""
     device = resolve_device(device)
     data = dict(d["data"])
     cells = _build(CellState, data.pop("cells"), device)
+    swim_cls = SwimState if "view" in d["swim"] else SparseSwimState
     return ClusterState(
-        swim=_build(SparseSwimState, d["swim"], device),
+        swim=_build(swim_cls, d["swim"], device),
         data=DataState(
             cells=cells,
             **{f: _tensor(data[f], device) for f in DataState._fields if f != "cells"},

@@ -1,7 +1,9 @@
-"""Builders for the BASELINE scenarios (counterpart of
-corrosion_tpu/models/baselines.py). This slice ports ``wan_100k``, the
-north-star deployment; the other builders need the dense SWIM view,
-churn or the legacy delivery path and come with later slices.
+"""Builders for the five BASELINE scenarios (counterpart of
+corrosion_tpu/models/baselines.py): ``three_node``, ``churn_32``,
+``anti_entropy_1k``, ``merge_10k`` and ``wan_100k``. Each draws what the
+reference draws from the same seed, so both packages build identical
+configs, topologies and schedules; each returns (ClusterConfig,
+Topology, Schedule) with the topology on ``device``.
 """
 
 from __future__ import annotations
@@ -39,6 +41,124 @@ def _cfg(
         sync_interval=g.sync_interval, device=device,
     )
     return ClusterConfig(swim=s, gossip=g), topo
+
+
+def three_node(n_inserts: int = 1000, samples: int = 256, device=None):
+    """Config 1: 3-node local cluster, single-table schema, 1k INSERTs.
+    All three nodes write round-robin, 4 versions per writer per round,
+    then the run drains for 30 rounds."""
+    cfg, topo = _cfg(3, writers=[0, 1, 2], sync_interval=4, n_cells=256,
+                     device=device)
+    per_round = 3 * 4
+    write_rounds = (n_inserts + per_round - 1) // per_round
+    drain = 30
+    writes = np.zeros((write_rounds + drain, 3), np.uint32)
+    writes[:write_rounds, :] = 4
+    # Trim the tail so exactly n_inserts versions commit.
+    extra = write_rounds * per_round - n_inserts
+    w = 2
+    r = write_rounds - 1
+    while extra > 0:
+        take = min(extra, 4)
+        writes[r, w] -= take
+        extra -= take
+        w -= 1
+        if w < 0:
+            w, r = 2, r - 1
+    sched = Schedule(writes=writes).make_samples(samples)
+    return cfg, topo, sched
+
+
+def churn_32(rounds: int = 400, samples: int = 128, seed: int = 1, device=None):
+    """Config 2: 32-node membership churn storm. Ten nodes flap on a
+    staggered cadence (down at 40 + 25 i, back 60 rounds later) under a
+    light 2% write load; dead writers commit nothing."""
+    n = 32
+    cfg, topo = _cfg(n, writers=list(range(n)), sync_interval=8, n_cells=256,
+                     device=device)
+    rng = np.random.default_rng(seed)
+    writes = np.zeros((rounds, n), np.uint32)
+    write_mask = rng.random((rounds, n)) < 0.02
+    writes[write_mask] = 1
+    drain = min(40, max(rounds // 4, 1))
+    writes[rounds - drain :, :] = 0
+    kill = np.zeros((rounds, n), bool)
+    revive = np.zeros((rounds, n), bool)
+    flappers = rng.choice(n, size=10, replace=False)
+    for i, node in enumerate(flappers):
+        down_at = 40 + i * 25
+        up_at = down_at + 60
+        if down_at < rounds:
+            kill[down_at, node] = True
+        if up_at < rounds:
+            revive[up_at, node] = True
+    dead = np.zeros(n, bool)
+    for r in range(rounds):
+        dead |= kill[r]
+        dead &= ~revive[r]
+        writes[r, dead] = 0
+    sched = Schedule(writes=writes, kill=kill, revive=revive).make_samples(samples)
+    return cfg, topo, sched
+
+
+def anti_entropy_1k(n: int = 1000, burst: int = 2000, samples: int = 256,
+                    device=None):
+    """Config 3: 1k-node anti-entropy. A burst of versions from 16 hot
+    writers overwhelms the broadcast budgets; convergence comes through
+    version-vector diff and budgeted sync replay (4 regions, sync budget
+    512, chunk 128)."""
+    writers = list(range(16))
+    cfg, topo = _cfg(
+        n,
+        writers=writers,
+        regions=[n // 4] * 4,
+        sync_interval=8,
+        sync_budget=512,
+        sync_chunk=128,
+        queue=16,
+        n_cells=512,
+        device=device,
+    )
+    per_round = len(writers) * 4
+    burst_rounds = (burst + per_round - 1) // per_round
+    drain = 120
+    writes = np.zeros((burst_rounds + drain, len(writers)), np.uint32)
+    writes[:burst_rounds, :] = 4
+    sched = Schedule(writes=writes).make_samples(samples)
+    return cfg, topo, sched
+
+
+def merge_10k(n: int = 10_000, rounds: int = 120, samples: int = 256,
+              seed: int = 3, device=None):
+    """Config 4: 10k nodes, every node a writer (LWW merge storm), 1% of
+    writers committing a round, 8 regions, 1024-cell CRDT plane with two
+    cells per write, sparse SWIM (``view_capacity=64``), a 40-round drain.
+    W = n > ``_FAST_MAX_WRITERS``, so delivery takes the legacy
+    sort+scatter path."""
+    writers = list(range(n))
+    cfg, topo = _cfg(
+        n,
+        writers=writers,
+        regions=[n // 8] * 8,
+        sync_interval=5,
+        sync_budget=512,
+        sync_chunk=128,
+        fanout_near=3,
+        fanout_far=3,
+        queue=24,
+        max_transmissions=6,
+        rebroadcast_intake=200,
+        n_cells=1024,
+        cells_per_write=2,
+        swim_kw={"view_capacity": 64},
+        device=device,
+    )
+    rng = np.random.default_rng(seed)
+    writes = (rng.random((rounds, n)) < 0.01).astype(np.uint32)
+    drain = min(40, max(rounds // 3, 1))
+    writes[rounds - drain :, :] = 0
+    sched = Schedule(writes=writes).make_samples(samples)
+    return cfg, topo, sched
 
 
 def wan_100k(n: int = 100_000, n_regions: int = 20, n_writers: int = 512,

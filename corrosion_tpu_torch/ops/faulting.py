@@ -1,11 +1,13 @@
-"""Loss injection shared by the kernel planes (counterpart of
-corrosion_tpu/ops/faulting.py ``apply_loss``; ``wipe_nodes`` comes with
-the churn slice).
+"""Fault injection shared by the kernel planes (counterpart of
+corrosion_tpu/ops/faulting.py).
 
-Receiver-side independent drop; a static config probability and a
-dynamic per-round one compose as independent processes
+``apply_loss``: receiver-side independent drop; a static config
+probability and a dynamic per-round one compose as independent processes
 (``p = a + b - a*b``). With no loss configured the mask passes through and
 no random numbers are drawn — the reference's static zero-cost skip.
+
+``wipe_nodes``: crash-with-state-wipe on the data plane; the membership
+twin is ``swim.apply_churn(..., wipe=...)``.
 """
 
 from __future__ import annotations
@@ -27,3 +29,31 @@ def apply_loss(key, ok, static_prob: float, dyn_prob=None):
         p = p + d - p * d
     lost = ok & (u < p)
     return ok & ~lost, lost.sum()
+
+
+def wipe_nodes(data, wipe, cfg):
+    """Reset the wiped nodes' replica state as a restart from an empty
+    disk would: ``contig``/``seen`` rows, window words, pending queue
+    entries, duplicate counters and the CRDT cell shard. ``head`` — the
+    cluster's ledger of committed versions — survives. Returns the new
+    DataState."""
+    w = wipe[:, None]
+    oo, oo_any = data.oo, data.oo_any
+    if oo.shape[0] > 0:
+        oo = torch.where(wipe[None, :, None], 0, oo)
+        # The reference recomputes the flag only when it was set (a
+        # ``lax.cond``); AND-ing gives the same value without a host read.
+        oo_any = oo_any & oo.any()
+    cells = data.cells
+    if cfg.n_cells > 0:
+        keep = (~wipe).repeat_interleave(cfg.n_cells)
+        cells = type(cells)(*(torch.where(keep, c, 0) for c in cells))
+    return data._replace(
+        contig=torch.where(w, 0, data.contig),
+        seen=torch.where(w, 0, data.seen),
+        oo=oo, oo_any=oo_any,
+        q_writer=torch.where(w, -1, data.q_writer),
+        q_tx=torch.where(w, 0, data.q_tx),
+        q_dup=torch.where(w, 0, data.q_dup),
+        cells=cells,
+    )

@@ -1,17 +1,18 @@
 """Changeset broadcast + anti-entropy sync (the data plane), in PyTorch.
 
 Counterpart of corrosion_tpu/ops/gossip.py for the dense engine's main
-path: the fast one-hot delivery path of ``_broadcast_round`` (W <=
-``_FAST_MAX_WRITERS``, fresh per-holder budgets, no stale re-admission,
-unsharded), the anti-entropy sessions of ``_sync_round``/``_sync_rows``
-with exact and digest candidate scoring and the W < 2048 grant
-enumeration, the out-of-order possession window, and the tracking reads
-(``visibility``, ``total_need``, ``staleness``, ``queue_backlog``). The
-module docstring of the reference describes the model.
+path, unsharded: both delivery paths of ``_broadcast_round`` (the fast
+one-hot path for W <= ``_FAST_MAX_WRITERS`` under fresh per-holder
+budgets, and the legacy sort+scatter path for wider writer axes, stale
+re-admission or inherited budgets), the anti-entropy sessions of
+``_sync_round``/``_sync_rows`` with exact and digest candidate scoring,
+``revive_sync``, the out-of-order possession window, and the tracking
+reads (``visibility``, ``total_need``, ``staleness``, ``queue_backlog``).
+The module docstring of the reference describes the model.
 
-Options this slice does not port (the legacy sort+scatter delivery, the
-adaptive-dissemination mechanisms, rotating writer slots, propagation
-observables, sketches, revive sync) raise ``NotImplementedError``.
+Options this slice does not port (the adaptive-dissemination mechanisms,
+rotating writer slots, propagation observables, sketches) raise
+``NotImplementedError``.
 
 Data-dependent ``lax.cond`` branches become Python ``if`` on a 0-d
 tensor: one device-to-host sync each, counted in ``HOST_SYNCS`` together
@@ -33,12 +34,10 @@ from corrosion_tpu_torch.ops import crdt, faulting, onehot, routing
 
 MASK = 0xFFFFFFFF
 
-# Writer-axis width above which the reference switches to the legacy
-# sort+scatter delivery (not ported yet).
+# Writer-axis width above which delivery switches from the fast one-hot
+# path to the legacy sort+scatter path (module-level so tests can force
+# either path at small sizes).
 _FAST_MAX_WRITERS = 2048
-# Writer-axis width at which the reference's grant enumeration switches
-# to the block decomposition (not ported yet).
-_BLOCK_ENUM_MIN_WRITERS = 2048
 # Row x writer x candidate volume above which candidate scoring falls
 # back from the exact per-writer deficit to the total-progress digest
 # (module-level so tests can force digest mode at small sizes).
@@ -140,15 +139,6 @@ def _check_slice(cfg: GossipConfig) -> None:
         "pull_switch_age": cfg.pull_switch_age > 0,
         "age_forward": cfg.age_forward,
         "sync_sketch_buckets": cfg.sync_sketch_buckets > 0,
-        "legacy delivery (stale re-admission, inherited budgets or "
-        f"W > {_FAST_MAX_WRITERS})": not (
-            cfg.rebroadcast_fresh_budget
-            and not cfg.rebroadcast_stale
-            and cfg.n_writers <= _FAST_MAX_WRITERS
-        ),
-        f"block grant enumeration (W >= {_BLOCK_ENUM_MIN_WRITERS})": (
-            cfg.n_cells > 0 and cfg.n_writers >= _BLOCK_ENUM_MIN_WRITERS
-        ),
     }
     on = [k for k, v in unported.items() if v]
     if on:
@@ -392,11 +382,199 @@ def _merge_versions_dense(cells, rows, writer, version, mask, row_ok, n_nodes: i
     return crdt.CellState(*out), n_merges
 
 
+def _fast_delivery(data, contig, cells, m_w, m_v, m_ok, k_in, cfg):
+    """Delta-packed one-hot delivery (reference ``_broadcast_round`` 3a and
+    the intake step 4) for writer axes up to ``_FAST_MAX_WRITERS`` with
+    fresh-budget, fresh-only intake. Returns what ``_legacy_delivery``
+    returns."""
+    w_count = cfg.n_writers
+    n, kk = m_w.shape
+    dev = m_w.device
+    wk = cfg.window_k
+    mw_safe = torch.clamp(m_w, min=0)
+    contig_pre = contig
+    base_m = onehot.rowgather(contig_pre, mw_safe)  # [N, kk]
+    lim = max(kk, wk)
+    k2 = lim + 3
+    sent_key = w_count * k2
+    # The reference sorts (pkd, v) with two u32 keys; here they ride
+    # ONE int64 key pkd << 32 | v, which needs pkd < 2^31.
+    if sent_key >= (1 << 31):
+        raise ValueError("packed delivery key overflow")
+    useful = m_ok & (m_v > base_m)
+    d_raw = torch.where(useful, m_v - base_m, 0)
+    dc = torch.clamp(d_raw, max=lim + 1)
+    pkd = torch.where(useful, m_w * k2 + dc, sent_key)
+    skey64 = torch.sort((pkd << 32) | m_v, dim=1, stable=True).values
+    skey = skey64 >> 32
+    v2 = skey64 & MASK
+    valid2 = skey < sent_key
+    w2 = torch.clamp(skey // k2, max=w_count - 1)
+    d2 = skey % k2
+    ones_col = torch.ones((n, 1), dtype=torch.bool, device=dev)
+    zeros_col = torch.zeros((n, 1), dtype=torch.int64, device=dev)
+    seg_start = torch.cat([ones_col, w2[:, 1:] != w2[:, :-1]], dim=1)
+    prev_d = torch.cat([zeros_col, d2[:, :-1]], dim=1)
+    ok_link = torch.where(seg_start, d2 == 1, d2 <= prev_d + 1) & (d2 <= kk)
+    run = routing.segmented_prefix_and_rows(ok_link & valid2, seg_start)
+    applied = run & valid2
+    adv, seen = onehot.delivery_reduce(w2, d2, v2, applied, valid2, data.seen, w_count)
+    first_copy = ~((~seg_start) & (d2 == prev_d))
+    fresh_run = applied & first_copy
+    prev_v2 = torch.cat([zeros_col, v2[:, :-1]], dim=1)
+    same_copy = (~seg_start) & (d2 == prev_d) & (v2 == prev_v2)
+    n_degraded = (valid2 & (d2 == lim + 1) & ~same_copy).sum()
+    if wk:
+        oo_pred = data.oo_any | (valid2 & ~applied & (d2 <= lim)).any()
+        if _branch(oo_pred):
+            adv_m = routing.segmented_running_max(
+                torch.where(applied, d2, 0), seg_start, lim + 2
+            )
+            admit = valid2 & first_copy & (d2 <= lim)
+            contig, oo_new, new_poss = _window_admit(
+                data.oo, contig_pre, adv, adv_m, d2, admit, wk, w2, w_count
+            )
+            near_deg = (admit & (d2 > adv_m) & (((d2 - adv_m) & MASK) > wk)).sum()
+            fresh = fresh_run | new_poss
+            oo_any_new = oo_new.any()
+            n_degraded = n_degraded + near_deg
+        else:
+            contig = contig_pre + adv
+            oo_new = data.oo
+            fresh = fresh_run
+            oo_any_new = torch.zeros((), dtype=torch.bool, device=dev)
+    else:
+        contig = contig_pre + adv
+        oo_new, oo_any_new = data.oo, data.oo_any
+        fresh = fresh_run
+        n_degraded = (valid2 & ~applied & ~same_copy).sum()
+    n_merges = torch.zeros((), dtype=torch.int64, device=dev)
+    if cfg.n_cells > 0:
+        cells, n_merges = _merge_versions_dense(cells, None, w2, v2, fresh, None, n, cfg)
+    in_mask, (in_w, in_v) = routing.rebuild_bounded_queue(fresh, -v2, (w2, v2), k_in)
+    in_tx = torch.full(in_w.shape, cfg.max_transmissions, dtype=torch.int64, device=dev)
+    in_w = torch.where(in_mask, in_w, -1)
+    return (
+        contig, seen, oo_new, oo_any_new, n_degraded, cells, n_merges,
+        in_mask, in_w, in_v, in_tx,
+    )
+
+
+def _legacy_delivery(data, contig, cells, m_w, m_v, m_tx, m_ok, k_in, cfg):
+    """Legacy sort+scatter delivery (reference ``_broadcast_round`` 3b and
+    the intake step 4): needed for writer axes wider than
+    ``_FAST_MAX_WRITERS``, stale re-admission and inherited budgets.
+    Returns (contig, seen, oo, oo_any, n_degraded, cells, n_merges,
+    in_mask, in_w, in_v, in_tx)."""
+    w_count = cfg.n_writers
+    n, kk = m_w.shape
+    dev = m_w.device
+    wk = cfg.window_k
+    # The reference sorts (wkey, m_v, -m_tx) as three keys. Every operand
+    # is a key, so tied entries are identical tuples and any order of them
+    # gives the same result: here the three ride one int64 key,
+    # wkey << 40 | v << 8 | (255 - tx) (wkey <= W < 2^23, v a u32, tx in
+    # [0, 255]), through one sort.
+    if w_count >= (1 << 23) or cfg.max_transmissions > 255:
+        raise ValueError("legacy delivery key overflow")
+    torch._assert_async(((m_tx >= 0) & (m_tx <= 255)).all())
+    wkey = torch.where(m_ok, m_w, w_count)
+    skey = torch.sort((wkey << 40) | (m_v << 8) | (255 - m_tx), dim=1).values
+    w2 = skey >> 40
+    v2 = (skey >> 8) & MASK
+    tx2 = 255 - (skey & 255)
+    valid2 = w2 < w_count
+    ones_col = torch.ones((n, 1), dtype=torch.bool, device=dev)
+    zeros_col = torch.zeros((n, 1), dtype=torch.int64, device=dev)
+    seg_start = torch.cat([ones_col, w2[:, 1:] != w2[:, :-1]], dim=1)
+    w2c = torch.clamp(w2, max=w_count - 1)
+    base = onehot.rowgather_wide(contig, w2c)
+    prev_v = torch.cat([zeros_col, v2[:, :-1]], dim=1)
+    # A message extends the run when it lands at or below one past the
+    # better of (previous message in segment, already-held watermark).
+    ok_link = torch.where(
+        seg_start,
+        v2 <= ((base + 1) & MASK),
+        v2 <= ((torch.maximum(prev_v, base) + 1) & MASK),
+    )
+    run = routing.segmented_prefix_and_rows(ok_link & valid2, seg_start)
+    applied = run & valid2
+    contig_pre = contig
+    # The reference's two flat [N*W] scatter-maxes (applied versions into
+    # contig, heard-of versions into seen) are row-local: one fused
+    # delivery_reduce computes both, bit for bit.
+    applied_max, seen = onehot.delivery_reduce(
+        w2c, v2, v2, applied, valid2, data.seen, w_count
+    )
+    contig_run = torch.maximum(contig, applied_max)
+    prev_same = (~seg_start) & (v2 == prev_v)
+    newer = v2 > base
+
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    extra_poss = torch.zeros_like(valid2)
+    if wk:
+        adv = contig_run - contig_pre
+        oo_pred = data.oo_any | (valid2 & ~run & newer).any()
+        if _branch(oo_pred):
+            d_m = torch.where(valid2, (v2 - base) & MASK, 0)
+            adv_m = routing.segmented_running_max(
+                torch.where(applied & newer, d_m, 0), seg_start, 1 << 24
+            )
+            # The reference's generic admission: the wide-table gather reads
+            # each message's old word, the row sum assembles the new bits.
+            extra_poss, words = onehot.window_compose(
+                data.oo, w2c, d_m, adv_m, valid2 & ~prev_same, wk, w_count,
+                lambda word: onehot.rowgather_wide(word, w2c),
+                lambda contrib: onehot.rowsum(w2c, contrib, None, w_count),
+            )
+            contig, oo_new = window_absorb(contig_pre, data.oo, adv, words)
+            n_degraded = (
+                valid2 & ~prev_same & newer & (d_m > adv_m)
+                & (((d_m - adv_m) & MASK) > wk)
+            ).sum()
+            oo_any_new = oo_new.any()
+        else:
+            contig = contig_run
+            oo_new = data.oo
+            oo_any_new = torch.zeros((), dtype=torch.bool, device=dev)
+            n_degraded = zero
+    else:
+        contig = contig_run
+        oo_new, oo_any_new = data.oo, data.oo_any
+        n_degraded = (valid2 & ~run & newer & ~prev_same).sum()
+
+    n_merges = zero
+    if cfg.n_cells > 0:
+        cells, n_merges = _merge_versions_dense(
+            cells, None, w2c, v2, applied | extra_poss, None, n, cfg
+        )
+
+    # ---- 4. rebroadcast intake ----------------------------------------------
+    fresh = applied & ~prev_same
+    if not cfg.rebroadcast_stale:
+        fresh = fresh & newer
+    fresh = fresh | extra_poss
+    if cfg.rebroadcast_fresh_budget:
+        intake_ok = fresh
+        in_budget = torch.full_like(tx2, cfg.max_transmissions)
+    else:
+        intake_ok = fresh & (tx2 > 1)
+        in_budget = tx2 - 1
+    in_mask, (in_w, in_v, in_tx) = routing.rebuild_bounded_queue(
+        intake_ok, -v2, (w2c, v2, in_budget), k_in
+    )
+    in_w = torch.where(in_mask, in_w, -1)
+    return (
+        contig, seen, oo_new, oo_any_new, n_degraded, cells, n_merges,
+        in_mask, in_w, in_v, in_tx,
+    )
+
+
 def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
-    """One broadcast-plane round (reference ``_broadcast_round``, fast
-    path, unsharded): local writes, source sampling, queue gather, loss,
-    the packed row sort, delivery reductions, window admission, the CRDT
-    merge and the queue rebuild. Returns (DataState, stats)."""
+    """One broadcast-plane round (reference ``_broadcast_round``,
+    unsharded): local writes, source sampling, queue gather, loss, the
+    row sort, delivery reductions, window admission, the CRDT merge and
+    the queue rebuild. Returns (DataState, stats)."""
     _check_slice(cfg)
     w_count, q_cap = cfg.n_writers, cfg.queue
     n = data.contig.shape[0]
@@ -413,8 +591,6 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
     wi = torch.arange(w_count, device=dev)
     contig = data.contig.clone()
     contig[topo.writer_nodes, wi] = torch.maximum(contig[topo.writer_nodes, wi], head)
-    seen = data.seen.clone()
-    seen[topo.writer_nodes, wi] = torch.maximum(seen[topo.writer_nodes, wi], head)
     contig_before = contig
 
     mw = cfg.max_writes_per_round
@@ -463,78 +639,23 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
         m_ok, n_lost = faulting.apply_loss(k_loss, m_ok, cfg.loss_prob, dyn_loss)
         n_msgs = m_ok.sum()
         k_in = cfg.rebroadcast_intake or cfg.fanout * 2
-        wk = cfg.window_k
-
-        # ---- 3a. delta-packed delivery -------------------------------------
-        mw_safe = torch.clamp(m_w, min=0)
-        contig_pre = contig
-        base_m = onehot.rowgather(contig_pre, mw_safe)  # [N, kk]
-        lim = max(kk, wk)
-        k2 = lim + 3
-        sent_key = w_count * k2
-        # The reference sorts (pkd, v) with two u32 keys; here they ride
-        # ONE int64 key pkd << 32 | v, which needs pkd < 2^31.
-        if sent_key >= (1 << 31):
-            raise ValueError("packed delivery key overflow")
-        useful = m_ok & (m_v > base_m)
-        d_raw = torch.where(useful, m_v - base_m, 0)
-        dc = torch.clamp(d_raw, max=lim + 1)
-        pkd = torch.where(useful, m_w * k2 + dc, sent_key)
-        skey64 = torch.sort((pkd << 32) | m_v, dim=1, stable=True).values
-        skey = skey64 >> 32
-        v2 = skey64 & MASK
-        valid2 = skey < sent_key
-        w2 = torch.clamp(skey // k2, max=w_count - 1)
-        d2 = skey % k2
-        ones_col = torch.ones((n, 1), dtype=torch.bool, device=dev)
-        zeros_col = torch.zeros((n, 1), dtype=torch.int64, device=dev)
-        seg_start = torch.cat([ones_col, w2[:, 1:] != w2[:, :-1]], dim=1)
-        prev_d = torch.cat([zeros_col, d2[:, :-1]], dim=1)
-        ok_link = torch.where(seg_start, d2 == 1, d2 <= prev_d + 1) & (d2 <= kk)
-        run = routing.segmented_prefix_and_rows(ok_link & valid2, seg_start)
-        applied = run & valid2
-        adv, seen = onehot.delivery_reduce(
-            w2, d2, v2, applied, valid2, seen, w_count
+        fast = (
+            cfg.rebroadcast_fresh_budget
+            and not cfg.rebroadcast_stale
+            and w_count <= _FAST_MAX_WRITERS
         )
-        first_copy = ~((~seg_start) & (d2 == prev_d))
-        fresh_run = applied & first_copy
-        prev_v2 = torch.cat([zeros_col, v2[:, :-1]], dim=1)
-        same_copy = (~seg_start) & (d2 == prev_d) & (v2 == prev_v2)
-        n_degraded = (valid2 & (d2 == lim + 1) & ~same_copy).sum()
-        if wk:
-            oo_pred = data.oo_any | (valid2 & ~applied & (d2 <= lim)).any()
-            if _branch(oo_pred):
-                adv_m = routing.segmented_running_max(
-                    torch.where(applied, d2, 0), seg_start, lim + 2
-                )
-                admit = valid2 & first_copy & (d2 <= lim)
-                contig, oo_new, new_poss = _window_admit(
-                    data.oo, contig_pre, adv, adv_m, d2, admit, wk, w2, w_count
-                )
-                near_deg = (
-                    admit & (d2 > adv_m) & (((d2 - adv_m) & MASK) > wk)
-                ).sum()
-                fresh = fresh_run | new_poss
-                oo_any_new = oo_new.any()
-                n_degraded = n_degraded + near_deg
-            else:
-                contig = contig_pre + adv
-                oo_new = data.oo
-                fresh = fresh_run
-                oo_any_new = torch.zeros((), dtype=torch.bool, device=dev)
+        if fast:
+            # ---- 3a. delta-packed delivery ---------------------------------
+            out = _fast_delivery(data, contig, cells, m_w, m_v, m_ok, k_in, cfg)
         else:
-            contig = contig_pre + adv
-            oo_new, oo_any_new = data.oo, data.oo_any
-            fresh = fresh_run
-            n_degraded = (valid2 & ~applied & ~same_copy).sum()
-        if cfg.n_cells > 0:
-            cells, m = _merge_versions_dense(cells, None, w2, v2, fresh, None, n, cfg)
-            n_merges = n_merges + m
-        in_mask, (in_w, in_v) = routing.rebuild_bounded_queue(
-            fresh, -v2, (w2, v2), k_in
-        )
-        in_tx = torch.full(in_w.shape, cfg.max_transmissions, dtype=torch.int64, device=dev)
-        in_w = torch.where(in_mask, in_w, -1)
+            # ---- 3b. legacy sort+scatter delivery --------------------------
+            m_tx = data.q_tx[src].reshape(n, kk)
+            out = _legacy_delivery(
+                data, contig, cells, m_w, m_v, m_tx, m_ok, k_in, cfg
+            )
+        (contig, seen, oo_new, oo_any_new, n_degraded, cells, m, in_mask,
+         in_w, in_v, in_tx) = out
+        n_merges = n_merges + m
         # A source's budgets burn when at least one receiver pulled it.
         pulled = torch.bincount(
             torch.where(link_ok, src, n).reshape(-1), minlength=n + 1
@@ -547,9 +668,14 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
         in_v = in_w.clone()
         in_tx = in_w.clone()
         sent_any = torch.zeros((n,), dtype=torch.bool, device=dev)
+        seen = data.seen.clone()
         oo_new, oo_any_new = data.oo, data.oo_any
         n_degraded = zero
         n_lost = zero
+
+    # Each writer's own column of seen rises to its new head. max commutes,
+    # so this can follow the delivery reductions, which return a new plane.
+    seen[topo.writer_nodes, wi] = torch.maximum(seen[topo.writer_nodes, wi], head)
 
     # ---- 5. queue rebuild --------------------------------------------------
     occ = data.q_writer >= 0
@@ -720,7 +846,9 @@ def _sync_rows(data, topo, alive, partition, rows, row_ok, rng, cfg):
         total_g = cum_g[:, -1]
         e = torch.arange(cfg.sync_budget, device=dev)
         # Writer owning granted unit e: the count of span ends <= e (the
-        # reference's CPU searchsorted form; identical to its dense count).
+        # reference's CPU searchsorted form, at every writer width; it
+        # enumerates exactly what the reference's dense count and its
+        # wide-writer block decomposition do).
         w_idx = torch.searchsorted(
             cum_g, e[None, :].expand(r, -1).contiguous(), right=True
         )
@@ -753,6 +881,24 @@ def _sync_rows(data, topo, alive, partition, rows, row_ok, rng, cfg):
         ),
         stats,
     )
+
+
+def revive_sync(data, topo, alive, partition, revived, rng, cfg):
+    """Immediate anti-entropy for nodes that just rejoined (or restarted
+    from a wipe), instead of waiting out their cohort slot: one
+    ``_sync_rows`` session over every node, with only the revived live
+    rows taking part. Rounds without a revival skip it (the reference's
+    ``lax.cond``). Reference ``revive_sync``."""
+    _check_slice(cfg)
+    row_ok = revived & alive
+    if not _branch(row_ok.any()):
+        zero = torch.zeros((), dtype=torch.int64, device=alive.device)
+        return data, {
+            "applied_sync": zero, "sessions": zero, "cell_merges": zero,
+            "sync_regrant": zero,
+        }
+    nodes = torch.arange(cfg.n_nodes, device=alive.device)
+    return _sync_rows(data, topo, alive, partition, nodes, row_ok, rng, cfg)
 
 
 def total_need(data: DataState) -> torch.Tensor:

@@ -9,8 +9,9 @@ Pallas); all three are bit-identical. Here each primitive has:
   form — a scatter or gather with a sentinel column for masked and
   out-of-range entries. It runs for CPU tensors and is what the CUDA
   kernels are held against;
-- a **CUDA kernel** (``csrc/<name>.cu``) launched for CUDA tensors. There
-  is no fallback: a CUDA tensor launches the kernel or raises.
+- a **CUDA kernel** (in ``csrc/``, named in ``_SIGNATURES``) launched for
+  CUDA tensors. There is no fallback: a CUDA tensor launches the kernel or
+  raises.
 
 ``LAUNCHES`` counts kernel launches per primitive (never plain calls), so
 a run can show that its main path went through the kernels.
@@ -33,21 +34,33 @@ LAUNCHES = {
     "rowgather": 0,
     "delivery_reduce": 0,
     "window_delivery": 0,
+    "rowgather_wide": 0,
+    "rowsum": 0,
 }
+
+# Shared memory one block may use on Hopper (227 KB of the SM's 256 KB,
+# above 48 KB only by opt-in). The row kernels keep their [W] u32
+# accumulators there; wider rows raise instead of failing at launch.
+SMEM_LIMIT = 232_448
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
+# kernel: (source in csrc/, C symbol, argument types)
 _SIGNATURES = {
-    "rowmax": ("corro_rowmax", (_P, _P, _P, _P, _I, _I, _I, _P)),
-    "rowgather": ("corro_rowgather", (_P, _P, _P, _I, _I, _I, _I, _P)),
+    "rowmax": ("rowmax", "corro_rowmax", (_P, _P, _P, _P, _I, _I, _I, _P)),
+    "rowgather": ("rowgather", "corro_rowgather", (_P, _P, _P, _I, _I, _I, _I, _P)),
     "delivery_reduce": (
-        "corro_delivery_reduce",
+        "delivery_reduce", "corro_delivery_reduce",
         (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     ),
     "window_delivery": (
-        "corro_window_delivery",
+        "window_delivery", "corro_window_delivery",
         (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     ),
+    "rowgather_wide": (
+        "rowgather", "corro_rowgather_wide", (_P, _P, _P, _I, _I, _I, _P),
+    ),
+    "rowsum": ("rowsum", "corro_rowsum", (_P, _P, _P, _P, _I, _I, _I, _P)),
 }
 _fns: dict = {}
 
@@ -60,8 +73,8 @@ def reset_launches() -> None:
 def _kernel(name: str):
     fn = _fns.get(name)
     if fn is None:
-        sym, argtypes = _SIGNATURES[name]
-        fn = getattr(cuda_build.library(name), sym)
+        source, sym, argtypes = _SIGNATURES[name]
+        fn = getattr(cuda_build.library(source), sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -98,6 +111,14 @@ def _check(t: torch.Tensor, name: str, dtype, shape=None) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _check_smem(name: str, n_bytes: int) -> None:
+    if n_bytes > SMEM_LIMIT:
+        raise ValueError(
+            f"{name}: row accumulators need {n_bytes} bytes of shared memory, "
+            f"above the {SMEM_LIMIT}-byte limit of one block"
+        )
+
+
 def _sentinel(idx: torch.Tensor, width: int) -> torch.Tensor:
     return torch.where((idx >= 0) & (idx < width), idx, width)
 
@@ -130,6 +151,7 @@ def rowmax(idx, val, mask, width: int) -> torch.Tensor:
     _check(val, "val", torch.int64, idx.shape)
     if mask is not None:
         _check(mask, "mask", torch.bool, idx.shape)
+    _check_smem("rowmax", 4 * width)
     out = torch.empty((r, width), dtype=torch.int64, device=idx.device)
     _launch(
         "rowmax", idx.data_ptr(), val.data_ptr(),
@@ -138,13 +160,12 @@ def rowmax(idx, val, mask, width: int) -> torch.Tensor:
     return out
 
 
-# -- rowsum (plain helper of the window composition) ---------------------------
+# -- rowsum -------------------------------------------------------------------
 
 
 def rowsum_plain(idx, val, mask, width: int) -> torch.Tensor:
     """out[r, x] = sum (mod 2^32) over masked m with idx[r, m] == x of
-    val[r, m]. Only the plain window composition uses it; its TPU kernel
-    is still to be ported (ROADMAP)."""
+    val[r, m] (scatter-add into a sentinel-extended row)."""
     r, m = idx.shape
     if r == 0 or m == 0 or width == 0:
         return torch.zeros((r, width), dtype=torch.int64, device=idx.device)
@@ -154,6 +175,28 @@ def rowsum_plain(idx, val, mask, width: int) -> torch.Tensor:
     out = torch.zeros((r, width + 1), dtype=torch.int64, device=idx.device)
     out.scatter_add_(1, _sentinel(idx, width), val)
     return (out[:, :width] & MASK).contiguous()
+
+
+def rowsum(idx, val, mask, width: int) -> torch.Tensor:
+    """Row-local scatter-add mod 2^32 (reference ``onehot.rowsum``).
+    Masked and out-of-range entries add nothing; int64[R, width]."""
+    r, m = idx.shape
+    if r == 0 or m == 0 or width == 0:
+        return torch.zeros((r, width), dtype=torch.int64, device=idx.device)
+    ts = (idx, val) if mask is None else (idx, val, mask)
+    if not _on_cuda(*ts):
+        return rowsum_plain(idx, val, mask, width)
+    _check(idx, "idx", torch.int64)
+    _check(val, "val", torch.int64, idx.shape)
+    if mask is not None:
+        _check(mask, "mask", torch.bool, idx.shape)
+    _check_smem("rowsum", 4 * width)
+    out = torch.empty((r, width), dtype=torch.int64, device=idx.device)
+    _launch(
+        "rowsum", idx.data_ptr(), val.data_ptr(),
+        None if mask is None else mask.data_ptr(), out.data_ptr(), r, m, width,
+    )
+    return out
 
 
 # -- rowgather ----------------------------------------------------------------
@@ -194,6 +237,38 @@ def rowgather(table, idx) -> torch.Tensor:
     return out
 
 
+# -- rowgather_wide -----------------------------------------------------------
+
+
+def rowgather_wide_plain(table, idx) -> torch.Tensor:
+    """out[r, m] = table[r, clip(idx[r, m], 0, W - 1)] (the reference's
+    native ``take_along_axis`` on the clipped index)."""
+    r, width = table.shape
+    if r == 0 or idx.shape[1] == 0 or width == 0:
+        return torch.zeros((r, idx.shape[1]), dtype=torch.int64, device=table.device)
+    return torch.gather(table, 1, torch.clamp(idx, 0, width - 1))
+
+
+def rowgather_wide(table, idx) -> torch.Tensor:
+    """Per-row gather from a wide table (reference
+    ``onehot.rowgather_wide``). Out-of-range indices CLIP to the edge
+    columns, where ``rowgather`` reads 0."""
+    r, width = table.shape
+    m = idx.shape[1]
+    if r == 0 or m == 0 or width == 0:
+        return torch.zeros((r, m), dtype=torch.int64, device=table.device)
+    if not _on_cuda(table, idx):
+        return rowgather_wide_plain(table, idx)
+    _check(table, "table", torch.int64)
+    _check(idx, "idx", torch.int64, (r, m))
+    out = torch.empty((r, m), dtype=torch.int64, device=table.device)
+    _launch(
+        "rowgather_wide", table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+        r, m, width,
+    )
+    return out
+
+
 # -- delivery_reduce ----------------------------------------------------------
 
 
@@ -204,12 +279,13 @@ def delivery_reduce_plain(idx, d, v, applied, valid, seen, width: int):
 
 def delivery_reduce(idx, d, v, applied, valid, seen, width: int):
     """Fused delivery reductions (reference ``onehot.delivery_reduce``):
-    ``(rowmax(idx, d, applied), max(seen, rowmax(idx, v, valid)))``."""
+    ``(rowmax(idx, d, applied), max(seen, rowmax(idx, v, valid)))``. Both
+    are new tensors, never ``seen`` itself."""
     r, m = idx.shape
     if r == 0 or m == 0 or width == 0:
         return (
             torch.zeros((r, width), dtype=torch.int64, device=idx.device),
-            seen,
+            seen.clone(),
         )
     if not _on_cuda(idx, d, v, applied, valid, seen):
         return delivery_reduce_plain(idx, d, v, applied, valid, seen, width)
@@ -219,6 +295,7 @@ def delivery_reduce(idx, d, v, applied, valid, seen, width: int):
     for t, name in ((applied, "applied"), (valid, "valid")):
         _check(t, name, torch.bool, idx.shape)
     _check(seen, "seen", torch.int64, (r, width))
+    _check_smem("delivery_reduce", 8 * width)
     adv = torch.empty((r, width), dtype=torch.int64, device=idx.device)
     seen2 = torch.empty_like(adv)
     _launch(
@@ -240,31 +317,41 @@ def _window_empty(oo, idx):
     )
 
 
-def window_delivery_plain(oo, idx, d, adv_m, valid, wk: int, width: int):
-    """The rowgather/rowsum composition of the reference's non-Pallas
-    branch, with u32 wraparound made explicit."""
-    b_words = oo.shape[0]
-    if min(idx.shape) == 0 or width == 0:
-        return _window_empty(oo, idx)
+def window_compose(oo, idx, d, adv_m, valid, wk: int, width: int, gather, assemble):
+    """Out-of-order admission as a gather/sum composition (the reference's
+    non-Pallas ``window_delivery`` and ``gossip._window_admit`` generic
+    branch), u32 wraparound made explicit. ``gather(word_plane)`` reads
+    each message's word ([R, W] -> [R, M]); ``assemble(contrib)`` sums the
+    per-message bits into their columns ([R, M] -> [R, W])."""
     d_rel = (d - adv_m) & MASK
     in_win = valid & (d > adv_m) & (d_rel <= wk)
     bit_old = (d - 1) & MASK
     prev = torch.zeros_like(in_win)
-    for b in range(b_words):
-        word = rowgather_plain(oo[b], idx)
+    for b in range(oo.shape[0]):
+        word = gather(oo[b])
         sh = torch.clamp((bit_old - 32 * b) & MASK, max=31)
         inb = (bit_old >= 32 * b) & (bit_old < 32 * (b + 1))
         prev = prev | (inb & (((word >> sh) & 1) == 1))
     new_poss = in_win & ~prev
     bit_new = (d_rel - 1) & MASK
     words = []
-    for b in range(b_words):
+    for b in range(oo.shape[0]):
         sh = torch.clamp((bit_new - 32 * b) & MASK, max=31)
         inb = new_poss & (bit_new >= 32 * b) & (bit_new < 32 * (b + 1))
-        words.append(
-            rowsum_plain(idx, torch.where(inb, 1 << sh, 0), None, width)
-        )
+        words.append(assemble(torch.where(inb, 1 << sh, 0)))
     return new_poss, torch.stack(words)
+
+
+def window_delivery_plain(oo, idx, d, adv_m, valid, wk: int, width: int):
+    """The rowgather/rowsum composition of the reference's non-Pallas
+    branch."""
+    if min(idx.shape) == 0 or width == 0:
+        return _window_empty(oo, idx)
+    return window_compose(
+        oo, idx, d, adv_m, valid, wk, width,
+        lambda word: rowgather_plain(word, idx),
+        lambda contrib: rowsum_plain(idx, contrib, None, width),
+    )
 
 
 def window_delivery(oo, idx, d, adv_m, valid, wk: int, width: int):
@@ -281,6 +368,7 @@ def window_delivery(oo, idx, d, adv_m, valid, wk: int, width: int):
     for t, name in ((d, "d"), (adv_m, "adv_m")):
         _check(t, name, torch.int64, idx.shape)
     _check(valid, "valid", torch.bool, idx.shape)
+    _check_smem("window_delivery", 4 * b_words * width)
     poss = torch.empty((r, m), dtype=torch.bool, device=idx.device)
     words = torch.empty((b_words, r, width), dtype=torch.int64, device=idx.device)
     _launch(

@@ -4,8 +4,8 @@ Counterpart of corrosion_tpu/ops/swim_sparse.py (its module docstring
 describes the model): each node stores up to K (target, packed belief)
 exceptions above the all-alive@inc0 baseline; probes, suspect->down
 timers, bounded piggyback dissemination and refutation run as batched
-table merges (``_merge_scan``). ``apply_churn`` comes with the churn
-slice.
+table merges (``_merge_scan``); ``apply_churn`` applies kills, revivals
+and wipes between rounds.
 """
 
 from __future__ import annotations
@@ -22,6 +22,8 @@ from corrosion_tpu_torch.ops.swim import (
     SEV_DOWN,
     SEV_SUSPECT,
     SwimConfig,
+    _queue_announce,
+    _seed_pick,
     pack,
     packed_inc,
     packed_sev,
@@ -287,6 +289,44 @@ def swim_round(state: SparseSwimState, rng, round_idx, cfg: SwimConfig, probe_lo
         exc_tgt=exc_tgt, exc_pkd=exc_pkd, incarnation=new_inc, alive=alive,
         susp_target=susp_target, susp_inc=susp_inc, susp_started=susp_started,
         upd_target=upd_target, upd_packed=upd_packed, upd_tx=upd_tx2,
+    )
+
+
+def apply_churn(state: SparseSwimState, kill, revive, rng=None,
+                max_transmissions: int = 6, wipe=None) -> SparseSwimState:
+    """Ground-truth churn between rounds (reference
+    ``swim_sparse.apply_churn``), mirroring the dense kernel: a revived
+    node bumps its incarnation, repairs its self-belief, queues a
+    self-announce and, when ``rng`` is given, bootstrap-pulls one random
+    alive peer's exception table. ``wipe`` resets the wiped nodes'
+    tables, timers and queues; incarnations are kept."""
+    if wipe is not None:
+        w = wipe[:, None]
+        state = state._replace(
+            exc_tgt=torch.where(w, -1, state.exc_tgt),
+            exc_pkd=torch.where(w, 0, state.exc_pkd),
+            susp_target=torch.where(w, -1, state.susp_target),
+            upd_target=torch.where(w, -1, state.upd_target),
+            upd_tx=torch.where(w, 0, state.upd_tx),
+        )
+    alive = (state.alive & ~kill) | revive
+    inc = torch.where(revive, (state.incarnation + 1) & 0xFFFFFFFF, state.incarnation)
+    nodes = torch.arange(alive.shape[0], device=alive.device)
+    self_pkd = pack(inc, SEV_ALIVE)
+    exc_tgt, exc_pkd, _ = _merge_one(state.exc_tgt, state.exc_pkd, nodes, self_pkd, revive)
+    if rng is not None:
+        seed = _seed_pick(rng, alive, revive)
+        pull_ok = revive & (seed != nodes)
+        exc_tgt, exc_pkd, _ = _merge_scan(
+            exc_tgt, exc_pkd, exc_tgt[seed], exc_pkd[seed],
+            pull_ok[:, None] & (exc_tgt[seed] >= 0),
+        )
+    upd_target, upd_packed, upd_tx = _queue_announce(
+        state, revive, self_pkd, max_transmissions
+    )
+    return state._replace(
+        alive=alive, incarnation=inc, exc_tgt=exc_tgt, exc_pkd=exc_pkd,
+        upd_target=upd_target, upd_packed=upd_packed, upd_tx=upd_tx,
     )
 
 

@@ -6,9 +6,9 @@ round curves into one bulk-synchronous round, and ``simulate`` runs it
 over a scripted ``Schedule`` (a Python loop where the reference has
 ``lax.scan``). Per-round keys fold the absolute round index into the
 seed's key, so chunked runs (``max_chunk``) equal unchunked ones bit for
-bit, and a run equals the reference's at the same seed.
-
-Churn (kill/revive/wipe masks) comes with a later slice and raises here.
+bit, and a run equals the reference's at the same seed. Schedules with
+churn (kill/revive masks, optionally wipe) take the reference's churn
+branch: a 5-way key split, wipe before churn, and a rejoin sync.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from torch.profiler import record_function
 
 from corrosion_tpu_torch import resolve_device
 from corrosion_tpu_torch import rng as rng_mod
+from corrosion_tpu_torch.ops import faulting
 from corrosion_tpu_torch.ops import gossip as gossip_ops
 from corrosion_tpu_torch.ops import swim as swim_ops
 from corrosion_tpu_torch.ops.gossip import DataState, GossipConfig, Topology
@@ -41,7 +42,7 @@ class ClusterConfig:
 
 
 class ClusterState(NamedTuple):
-    swim: NamedTuple  # SparseSwimState (swim_ops.impl(cfg.swim))
+    swim: NamedTuple  # SwimState or SparseSwimState (swim_ops.impl(cfg.swim))
     data: DataState
     round: torch.Tensor  # int64[] round counter
     vis_round: torch.Tensor  # [S, N] first round sample s visible at node, -1
@@ -126,23 +127,42 @@ def cluster_round(
     cfg: ClusterConfig,
     loss=None,  # float32[R] chaos receiver-region loss
     probe_loss=None,  # float32[] chaos probe/ack loss
+    kill=None,  # bool[N] churn: processes that die this round
+    revive=None,  # bool[N] churn: processes that come back
+    wipe=None,  # bool[N] crash-with-state-wipe (needs kill/revive)
 ) -> tuple[ClusterState, dict]:
-    """One bulk-synchronous cluster round (churn-free). Returns the next
-    state and the round's stats dict (``ROUND_CURVE_KEYS``)."""
-    keys = rng_mod.split(rng, 4)
-    k_bcast, k_swim, k_sync = keys[1], keys[2], keys[3]
+    """One bulk-synchronous cluster round. Returns the next state and the
+    round's stats dict (``ROUND_CURVE_KEYS``). Passing ``kill`` and
+    ``revive`` selects the churn branch, whose 5-way key split differs
+    from the churn-free 4-way one, as in the reference."""
+    has_churn = kill is not None
+    if (revive is not None) != has_churn:
+        raise ValueError("kill and revive masks go together")
+    if wipe is not None and not has_churn:
+        raise ValueError("wipe masks require a churn schedule")
+    keys = rng_mod.split(rng, 5 if has_churn else 4)
+    k_churn, k_bcast, k_swim, k_sync = keys[0], keys[1], keys[2], keys[3]
     swim_impl = swim_ops.impl(cfg.swim)
     sw = state.swim
+    data_pre = state.data
+    if wipe is not None:
+        # The replica state resets BEFORE this round's protocol work.
+        data_pre = faulting.wipe_nodes(data_pre, wipe, cfg.gossip)
+    if has_churn:
+        sw = swim_impl.apply_churn(
+            sw, kill, revive, k_churn, cfg.swim.max_transmissions, wipe=wipe
+        )
     alive = sw.alive
 
     # Profiler ranges named like the reference's jax.named_scope blocks
     # (scripts/torch_round_profile.py attributes device time by them).
     with record_function("corro_broadcast"):
         data, bstats = gossip_ops.broadcast_round(
-            state.data, topo, alive, partition, writes, k_bcast, cfg.gossip,
+            data_pre, topo, alive, partition, writes, k_bcast, cfg.gossip,
             loss=loss,
         )
     with record_function("corro_swim"):
+        # Incarnations after churn: revive bumps are rejoins, not flaps.
         inc_pre = sw.incarnation
         sw = swim_impl.swim_round(
             sw, k_swim, state.round, cfg.swim, probe_loss=probe_loss
@@ -151,6 +171,14 @@ def cluster_round(
         data, sstats = gossip_ops.sync_round(
             data, topo, alive, partition, state.round, k_sync, cfg.gossip
         )
+        if has_churn:
+            # Rejoining nodes pull at once instead of waiting for their
+            # cohort slot.
+            k_rejoin = keys[4]
+            data, rstats = gossip_ops.revive_sync(
+                data, topo, alive, partition, revive, k_rejoin, cfg.gossip
+            )
+            sstats = {k: sstats[k] + rstats[k] for k in sstats}
 
     with record_function("corro_track"):
         active = state.round >= sample_round  # [S]
@@ -188,6 +216,7 @@ def cluster_round(
         swim_flaps=(sw.incarnation != inc_pre).sum(),
         queue_backlog=backlog,
         chaos_lost_msgs=bstats["lost_msgs"],
+        chaos_wiped=0 if wipe is None else wipe.sum(),
         **lat_hist,
         **prop_stats,
     )
@@ -213,11 +242,6 @@ def simulate(
     with identical results. Runs on ``device`` (default CUDA; raises when
     CUDA is absent and no device is given)."""
     device = resolve_device(device)
-    if (
-        schedule.kill is not None or schedule.revive is not None
-        or schedule.wipe is not None
-    ):
-        raise NotImplementedError("churn schedules are not ported yet")
     start_round = 0 if state is None else int(state.round)
     max_head = (start_round + schedule.rounds) * max(
         cfg.gossip.max_writes_per_round, 1
@@ -258,6 +282,19 @@ def simulate(
         None if schedule.probe_loss is None
         else dev(schedule.probe_loss, torch.float32)
     )
+    # A wipe mask implies churn (the wipe applies at the kill round).
+    kill = revive = wipe = None
+    if (
+        schedule.kill is not None or schedule.revive is not None
+        or schedule.wipe is not None
+    ):
+        quiet = np.zeros((rounds, cfg.n_nodes), bool)
+        kill = dev(quiet if schedule.kill is None else schedule.kill, torch.bool)
+        revive = dev(
+            quiet if schedule.revive is None else schedule.revive, torch.bool
+        )
+        if schedule.wipe is not None:
+            wipe = dev(schedule.wipe, torch.bool)
     s_writer = dev(schedule.sample_writer, torch.int64)
     s_ver = dev(schedule.sample_ver, torch.int64)
     s_round = dev(schedule.sample_round, torch.int64)
@@ -273,6 +310,9 @@ def simulate(
             key, cfg,
             loss=None if loss is None else loss[i],
             probe_loss=None if probe_loss is None else probe_loss[i],
+            kill=None if kill is None else kill[i],
+            revive=None if revive is None else revive[i],
+            wipe=None if wipe is None else wipe[i],
         )
         rows.append(stats)
     return state, telemetry_mod.stack_curves(rows)

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Where a full-size wan_100k round of the PyTorch/CUDA port spends its
-time on the card.
+"""Where a full-size round of the PyTorch/CUDA port spends its time on
+the card.
 
-    python3 scripts/torch_round_profile.py [--warm 12] [--rounds 6]
-        [--out build/torch_round_profile.json]
+    python3 scripts/torch_round_profile.py [--config wan_100k|merge_10k]
+        [--warm 12] [--rounds 6] [--out build/torch_round_profile.json]
 
-Runs ``wan_100k()`` at full size for ``--warm`` rounds, then profiles
+Runs the ``--config`` builder (``wan_100k()`` by default, or
+``merge_10k()``) at full size for ``--warm`` rounds, then profiles
 ``--rounds`` more with ``torch.profiler`` (CPU + CUDA activities) and
 prints, from the exported trace:
 
@@ -15,11 +16,12 @@ prints, from the exported trace:
 - device time per plane: kernels whose launch falls inside each
   ``corro_*`` profiler range of ``cluster_round``, plus ``other`` (keys,
   curve stacking, chunk set-up);
-- the top kernels by device time and the four ported kernels' share;
+- the top kernels by device time and the ported kernels' share;
 - host syncs per round (``gossip.HOST_SYNCS``) and kernel launches per
   round.
 
-Needs one CUDA device. Writes the summary as JSON to ``--out``.
+Needs one CUDA device. Writes the summary as JSON to ``--out``, with the
+card's name and power limit (nvidia-smi).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)
 
 import argparse
 import json
+import subprocess
 import tempfile
 from collections import defaultdict
 from pathlib import Path
@@ -39,8 +42,13 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 PLANES = ("corro_broadcast", "corro_swim", "corro_sync", "corro_track", "corro_health")
-PORTED = ("rowmax_kernel", "rowgather_kernel", "delivery_reduce_kernel",
-          "window_delivery_kernel")
+# kernel: the substring of its device-side name in the trace
+PORTED = {
+    "rowmax": "rowmax_kernel", "rowgather": "rowgather_kernel<false>",
+    "delivery_reduce": "delivery_reduce_kernel",
+    "window_delivery": "window_delivery_kernel",
+    "rowgather_wide": "rowgather_kernel<true>", "rowsum": "rowsum_kernel",
+}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -84,8 +92,8 @@ def analyse(events: list, window_ms: float, rounds: int) -> dict:
     device_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]
     ported = {
-        k: round(sum(v for n, v in per_kernel.items() if k in n) / rounds, 4)
-        for k in PORTED
+        k: round(sum(v for n, v in per_kernel.items() if sub in n) / rounds, 4)
+        for k, sub in PORTED.items()
     }
     return {
         "ms_per_round": window_ms / rounds,
@@ -107,6 +115,7 @@ def analyse(events: list, window_ms: float, rounds: int) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=("wan_100k", "merge_10k"), default="wan_100k")
     ap.add_argument("--warm", type=int, default=12)
     ap.add_argument("--rounds", type=int, default=6)
     ap.add_argument("--out", default="build/torch_round_profile.json")
@@ -118,7 +127,7 @@ def main(argv=None) -> int:
     from corrosion_tpu_torch.ops import gossip, onehot
     from corrosion_tpu_torch.sim import engine
 
-    cfg, topo, sched = baselines.wan_100k(device="cuda")
+    cfg, topo, sched = getattr(baselines, args.config)(device="cuda")
     state, _ = engine.simulate(cfg, topo, sched.slice(0, args.warm), seed=0, device="cuda")
     torch.cuda.synchronize()
     gossip.reset_host_syncs()
@@ -136,9 +145,14 @@ def main(argv=None) -> int:
         prof.export_chrome_trace(str(trace))
         events = json.loads(trace.read_text())["traceEvents"]
     out = analyse(events, a.elapsed_time(b), args.rounds)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
     out.update(
-        nodes=cfg.n_nodes, writers=cfg.gossip.n_writers, warm=args.warm,
-        rounds=args.rounds, device=torch.cuda.get_device_name(0),
+        config=args.config, card=smi, nodes=cfg.n_nodes,
+        writers=cfg.gossip.n_writers, warm=args.warm, rounds=args.rounds,
+        device=torch.cuda.get_device_name(0),
         host_syncs_per_round={k: v / args.rounds for k, v in gossip.HOST_SYNCS.items()},
         kernel_launches_per_round={k: v / args.rounds for k, v in onehot.LAUNCHES.items()},
     )

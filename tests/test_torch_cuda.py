@@ -4,7 +4,7 @@ on the chip with
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
-(chip_smoke.py runs the same comparisons at the full wan_100k shapes).
+(chip_smoke.py runs the same comparisons at the main paths' full shapes).
 """
 
 import numpy as np
@@ -33,7 +33,12 @@ def _inputs(seed, r, m, w, dev):
     return idx, val, mask
 
 
-SHAPES = [(1, 1, 1), (33, 17, 129), (300, 144, 512), (4, 64, 3000)]
+# The last two widths take the shared-memory opt-in branch of every row
+# kernel (rowmax/rowsum above 12,288 columns, delivery_reduce above 6,144).
+SHAPES = [
+    (1, 1, 1), (33, 17, 129), (300, 144, 512), (4, 64, 3000), (6, 144, 10_000),
+    (3, 50, 16_384),
+]
 
 
 @pytest.mark.parametrize("r,m,w", SHAPES)
@@ -61,9 +66,16 @@ def test_kernels_equal_plain(cuda, r, m, w):
             onehot.window_delivery_plain(oo, idx, d, adv_m, mask, wk, w),
         ):
             assert torch.equal(got, want)
+    assert torch.equal(
+        onehot.rowsum(idx, val, mask, w), onehot.rowsum_plain(idx, val, mask, w)
+    )
+    assert torch.equal(
+        onehot.rowgather_wide(table, idx), onehot.rowgather_wide_plain(table, idx)
+    )
     torch.cuda.synchronize()
     assert onehot.LAUNCHES == {
         "rowmax": 1, "rowgather": 1, "delivery_reduce": 1, "window_delivery": 2,
+        "rowgather_wide": 1, "rowsum": 1,
     }
 
 
@@ -75,3 +87,7 @@ def test_wrappers_refuse_wrong_inputs(cuda):
         onehot.rowmax(idx, val[:, ::2].contiguous(), mask, 10)
     with pytest.raises(ValueError):
         onehot.rowmax(idx, val.cpu(), mask, 10)
+    with pytest.raises(ValueError, match="shared memory"):
+        onehot.rowsum(idx, val, mask, onehot.SMEM_LIMIT // 4 + 1)
+    with pytest.raises(ValueError):
+        onehot.rowgather_wide(val, idx[:, :1].expand(8, 9))

@@ -1,6 +1,6 @@
-"""The port's plain versions of the four kernelised primitives are
-bit-equal to the JAX reference under its Pallas kernels (interpret mode
-on the CPU) and its native scatter/gather backend.
+"""The port's plain versions of the fast path's four kernelised
+primitives are bit-equal to the JAX reference under its Pallas kernels
+(interpret mode on the CPU) and its native scatter/gather backend.
 
 Inputs come from a numpy seed: masked, negative and out-of-range
 indices, u32 values with bit 31 set, 0-width axes, window_k 32 and 64.
