@@ -6,38 +6,46 @@
 Phases (each raises on failure; the exit code is nonzero on any fault):
 
 1. the card's name and power limit (nvidia-smi) and torch's device name;
-2. build the six CUDA kernels from the five sources in
+2. build the seven CUDA kernels from the six sources in
    ``corrosion_tpu_torch/csrc`` (sm_90a), one nvcc each, in parallel;
 3. each kernel against its plain PyTorch version on the same CUDA inputs,
    on edge cases (0-width axes, out-of-range indices, bit 31, and widths
-   10,000 and 16,384, which take every row kernel's shared-memory opt-in)
-   and at every shape each main path gives it (wan_100k: the four
-   fast-path kernels; merge_10k: ``rowmax`` and ``rowgather`` in the CRDT
-   merge, ``rowgather`` in the sync grant enumeration, ``delivery_reduce``
-   at W = 10,000, ``rowgather_wide`` and ``rowsum``) — exact equality
-   required — timed with CUDA events (median of 25) beside the plain
-   version, one PyTorch library call where one computes the same function,
-   and the byte/operation bound. At merge_10k ``delivery_reduce`` is also
-   timed against the two-``rowmax`` form of the same function;
+   10,000 and 16,384, which take every row kernel's shared-memory opt-in;
+   ``table_gather`` also at W = 100,000, read from global memory) and at
+   every shape each main path gives it (wan_100k: the four fast-path
+   kernels; merge_10k: ``rowmax`` and ``rowgather`` in the CRDT merge,
+   ``rowgather`` in the sync grant enumeration, ``delivery_reduce`` at
+   W = 10,000, ``rowgather_wide`` and ``rowsum``; anywrite_sparse:
+   ``table_gather`` in the sync grant enumeration and in ``rotate``) —
+   exact equality required — timed with CUDA events (median of 25) beside
+   the plain version, one PyTorch library call where one computes the same
+   function, and the byte/operation bound. At merge_10k ``delivery_reduce``
+   is also timed against the two-``rowmax`` form of the same function;
 4. small runs on the card (kernels) and on the CPU (plain versions), with
    identical curves and final state: ``wan_100k(n=2000, ...)``,
    ``three_node()``, ``churn_32()`` and its wipe variant,
-   ``anti_entropy_1k()``, and a merge_10k burst variant at n=2560 (wider
-   than 2048 writers, so it takes the legacy delivery and launches
-   ``rowgather_wide`` and ``rowsum``);
+   ``anti_entropy_1k()``, a merge_10k burst variant at n=2560 (wider than
+   2048 writers, so it takes the legacy delivery and launches
+   ``rowgather_wide`` and ``rowsum``), and ``anywrite_sparse(n=2000, ...)``
+   with fewer hot slots than active writers under a partition (forced
+   demotions, cold healing, ``table_gather``);
 5. full-size ``wan_100k()`` (100,000 nodes, 20 regions, 512 writers), all
    240 rounds in chunks of 12: its four kernels launched, the watermark
    invariants;
 6. full-size ``merge_10k()`` (10,000 nodes, 10,000 writers), all 120
    rounds in chunks of 12: ``rowgather_wide``, ``rowmax``, ``rowgather``
+   and ``delivery_reduce`` launched, the watermark invariants;
+7. full-size ``anywrite_sparse()`` (100,000 nodes, any of them a writer,
+   2,048 hot slots), all 320 rounds, epoch by epoch: converged, no
+   deviation entry dropped, ``table_gather``, ``rowmax``, ``rowgather``
    and ``delivery_reduce`` launched, the watermark invariants.
 
-The launch counts are reset just before each main-path run (phases 5 and
-6) and read just after it. The last lines are a ``kernels`` JSON line, the
-nvidia-smi line, and the result line ``{"ok": true, "device": {...}}``.
-Each kernel's entry carries its launches summed over both paths and, under
-``by_path``, each path's launches and the times and bound of every shape
-measured on it; its top-level times are those of its first shape.
+The launch counts are reset just before each main-path run (phases 5, 6
+and 7) and read just after it. The last lines are a ``kernels`` JSON line,
+the nvidia-smi line, and the result line ``{"ok": true, "device": {...}}``.
+Each kernel's entry carries its launches summed over the three paths and,
+under ``by_path``, each path's launches and the times and bound of every
+shape measured on it; its top-level times are those of its first shape.
 """
 
 from __future__ import annotations
@@ -70,11 +78,14 @@ KERNELS = {
                        "corrosion_tpu/ops/onehot.py:261"),
     "rowsum": ("corrosion_tpu_torch/csrc/rowsum.cu",
                "corrosion_tpu/ops/onehot.py:487"),
+    "table_gather": ("corrosion_tpu_torch/csrc/table_gather.cu",
+                     "corrosion_tpu/ops/onehot.py:383"),
 }
 # Kernels each main path must launch.
 PATH_KERNELS = {
     "wan_100k": ("rowmax", "rowgather", "delivery_reduce", "window_delivery"),
     "merge_10k": ("rowgather_wide", "rowmax", "rowgather", "delivery_reduce"),
+    "anywrite_sparse": ("table_gather", "rowmax", "rowgather", "delivery_reduce"),
 }
 
 
@@ -186,9 +197,20 @@ def check_kernels(onehot, device) -> list:
             got = onehot.window_delivery(oo, idx, dd, adv_m, mask, wk, w)
             want = onehot.window_delivery_plain(oo, idx, dd, adv_m, mask, wk, w)
             assert all(equal(x, y) for x, y in zip(got, want)), f"window_delivery differs at {(r, m, w, wk)}"
+    # table_gather: an empty table or index, widths off multiples of 128,
+    # the shared-memory opt-in (16,384 entries, 128 KB) and a table read
+    # from global memory (100,000 entries), indices past both ends.
+    for w, shape in (
+        (0, (4, 5)), (9, (0,)), (9, (3, 0)), (1, (7,)), (37, (19, 41)),
+        (2049, (64, 300)), (16_384, (24, 144)), (100_000, (3, 50, 200)),
+    ):
+        table = torch.randint(0, 1 << 32, (w,), generator=g).to(device)
+        idx = torch.randint(-w - 3, 2 * w + 3, shape, generator=g).to(device)
+        assert equal(onehot.table_gather(table, idx), onehot.table_gather_plain(table, idx)), \
+            f"table_gather differs at W={w}, idx {shape}"
     torch.cuda.synchronize()
     log("phase 3: edge cases equal (0-width axes, out-of-range, bit 31, wk 32/64, "
-        "W 10,000 and 16,384)")
+        "W 10,000 and 16,384; table_gather W 0 to 100,000)")
 
     out = []
 
@@ -209,21 +231,21 @@ def check_kernels(onehot, device) -> list:
             **{k: cuda_ms(fn) for k, fn in extra.items()},
         ))
 
-    # wan_100k: N=100,000 rows, kk=144 messages, W=512 writers, K=256 cells.
-    n, kk, w, k = 100_000, 144, 512, 256
-    idx, val, mask = _inputs(g, n, kk, k, device)
-    idx = idx.clamp(0, k - 1)  # merge keys are always in range
-    val = val & ((1 << 26) - 1)  # packed (cl << 24 | col_version) words
-    safe = torch.where(mask, idx, k)
-    zeros = torch.zeros((n, k + 1), dtype=torch.int64, device=device)
-    measure(
-        "rowmax", "wan_100k", f"[{n},{kk}]->[{n},{k}]",
-        lambda: onehot.rowmax(idx, val, mask, k),
-        lambda: onehot.rowmax_plain(idx, val, mask, k),
-        # amax is idempotent, so repeating it in place times the call alone.
-        lambda: zeros.scatter_reduce_(1, safe, val, "amax"),
-        nbytes(idx, val, mask), 2 * idx.numel(),
-    )
+    def rowmax_case(path, n, kk, k):
+        idx, val, mask = _inputs(g, n, kk, k, device)
+        idx = idx.clamp(0, k - 1)  # merge keys are always in range
+        val = val & ((1 << 26) - 1)  # packed (cl << 24 | col_version) words
+        safe = torch.where(mask, idx, k)
+        zeros = torch.zeros((n, k + 1), dtype=torch.int64, device=device)
+        measure(
+            "rowmax", path, f"[{n},{kk}]->[{n},{k}]",
+            lambda: onehot.rowmax(idx, val, mask, k),
+            lambda: onehot.rowmax_plain(idx, val, mask, k),
+            # amax is idempotent, so repeating it in place times the call alone.
+            lambda: zeros.scatter_reduce_(1, safe, val, "amax"),
+            nbytes(idx, val, mask), 2 * idx.numel(),
+        )
+        return idx
 
     def gather_case(path, table, gidx):
         # The gather needs only the table words it addresses.
@@ -238,13 +260,7 @@ def check_kernels(onehot, device) -> list:
             nbytes(gidx) + 8 * int(touched.sum()), gidx.numel(),
         )
 
-    gather_case(
-        "wan_100k",
-        torch.randint(0, 1 << 24, (n, w), generator=g).to(device),
-        torch.randint(0, w, (n, kk), generator=g).to(device),
-    )
-
-    def reduce_case(path, n, w, d_hi, v_hi, **extra_fns):
+    def reduce_case(path, n, kk, w, d_hi, v_hi, **extra_fns):
         widx = torch.randint(0, w, (n, kk), generator=g).to(device)
         d = torch.randint(0, d_hi, (n, kk), generator=g).to(device)
         v = torch.randint(0, v_hi, (n, kk), generator=g).to(device)
@@ -261,45 +277,48 @@ def check_kernels(onehot, device) -> list:
         )
         return widx, d, valid
 
-    widx, d, valid = reduce_case("wan_100k", n, w, 40, 1 << 20)
-    oo = torch.randint(0, 1 << 32, (1, n, w), generator=g).to(device)
-    adv_m = torch.randint(0, 8, (n, kk), generator=g).to(device)
-    wtouched = torch.zeros((n, w), dtype=torch.bool, device=device)
-    wtouched.scatter_(1, widx, valid)
-    measure(
-        "window_delivery", "wan_100k", f"[1,{n},{w}],[{n},{kk}]x4->[{n},{kk}],[1,{n},{w}]",
-        lambda: onehot.window_delivery(oo, widx, d, adv_m, valid, 32, w),
-        lambda: onehot.window_delivery_plain(oo, widx, d, adv_m, valid, 32, w),
-        None,
-        nbytes(widx, d, adv_m, valid) + 8 * int(wtouched.sum()), 8 * widx.numel(),
-    )
-    del idx, val, mask, safe, zeros, widx, d, valid, oo, adv_m, wtouched
+    def fast_path(path, n, kk, w, k):
+        """The fast delivery path's four kernels: the CRDT merge's rowmax,
+        the base gather, the delivery reductions and the window."""
+        rowmax_case(path, n, kk, k)
+        gather_case(
+            path,
+            torch.randint(0, 1 << 24, (n, w), generator=g).to(device),
+            torch.randint(0, w, (n, kk), generator=g).to(device),
+        )
+        widx, d, valid = reduce_case(path, n, kk, w, 40, 1 << 20)
+        oo = torch.randint(0, 1 << 32, (1, n, w), generator=g).to(device)
+        adv_m = torch.randint(0, 8, (n, kk), generator=g).to(device)
+        wtouched = torch.zeros((n, w), dtype=torch.bool, device=device)
+        wtouched.scatter_(1, widx, valid)
+        measure(
+            "window_delivery", path, f"[1,{n},{w}],[{n},{kk}]x4->[{n},{kk}],[1,{n},{w}]",
+            lambda: onehot.window_delivery(oo, widx, d, adv_m, valid, 32, w),
+            lambda: onehot.window_delivery_plain(oo, widx, d, adv_m, valid, 32, w),
+            None,
+            nbytes(widx, d, adv_m, valid) + 8 * int(wtouched.sum()), 8 * widx.numel(),
+        )
+
+    def grants_case(path, r_sync, w, budget):
+        # The sync grant enumeration: each cohort row's writer of every
+        # granted unit, ascending along the row.
+        gather_case(
+            path,
+            torch.randint(0, 1 << 24, (r_sync, w), generator=g).to(device),
+            torch.sort(torch.randint(0, w, (r_sync, budget), generator=g).to(device),
+                       dim=1).values,
+        )
+
+    # wan_100k: N=100,000 rows, kk=144 messages, W=512 writers, K=256 cells.
+    fast_path("wan_100k", 100_000, 144, 512, 256)
 
     # merge_10k: N = W = 10,000 rows and writers, kk = 144 messages,
     # K = 1,024 cells, sync cohort R = 2,000 rows with budget 512.
-    n, w, k, r_sync, budget = 10_000, 10_000, 1024, 2_000, 512
-    idx, val, mask = _inputs(g, n, kk, k, device)
-    idx = idx.clamp(0, k - 1)
-    val = val & ((1 << 26) - 1)
-    safe = torch.where(mask, idx, k)
-    zeros = torch.zeros((n, k + 1), dtype=torch.int64, device=device)
-    measure(
-        "rowmax", "merge_10k", f"[{n},{kk}]->[{n},{k}]",
-        lambda: onehot.rowmax(idx, val, mask, k),
-        lambda: onehot.rowmax_plain(idx, val, mask, k),
-        lambda: zeros.scatter_reduce_(1, safe, val, "amax"),
-        nbytes(idx, val, mask), 2 * idx.numel(),
-    )
+    n, kk, w, k, r_sync, budget = 10_000, 144, 10_000, 1024, 2_000, 512
+    idx = rowmax_case("merge_10k", n, kk, k)
     # The CRDT merge's winner check reads the [N, K] packed plane.
     gather_case("merge_10k", torch.randint(0, 1 << 26, (n, k), generator=g).to(device), idx)
-    del val, mask, safe, zeros
-    # The sync grant enumeration: each cohort row's writer of every granted
-    # unit, ascending along the row.
-    gather_case(
-        "merge_10k",
-        torch.randint(0, 1 << 24, (r_sync, w), generator=g).to(device),
-        torch.sort(torch.randint(0, w, (r_sync, budget), generator=g).to(device), dim=1).values,
-    )
+    grants_case("merge_10k", r_sync, w, budget)
 
     # The legacy contig_run/seen reductions, and the two-rowmax form of the
     # same function (two launches and a max pass) timed beside them.
@@ -309,7 +328,7 @@ def check_kernels(onehot, device) -> list:
             torch.maximum(seen, onehot.rowmax(widx, v, valid, w)),
         )
 
-    reduce_case("merge_10k", n, w, 1 << 20, 1 << 20, two_rowmax_ms=two_rowmax)
+    reduce_case("merge_10k", n, kk, w, 1 << 20, 1 << 20, two_rowmax_ms=two_rowmax)
 
     table = torch.randint(0, 1 << 24, (n, w), generator=g).to(device)
     widx = torch.randint(0, w, (n, kk), generator=g).to(device)
@@ -339,7 +358,36 @@ def check_kernels(onehot, device) -> list:
         lambda: acc.scatter_add_(1, widx, bits),
         nbytes(widx, bits), widx.numel(),
     )
-    del acc
+    del acc, widx, bits, idx
+
+    # anywrite_sparse: N = 100,000 rows, kk = 320 messages (fanout 5 x queue
+    # 64), W = 2,048 hot slots, K = 256 cells, sync cohort 16,667 rows with
+    # budget 512. The fast path's four kernels, the sync grant gather, then
+    # table_gather: the grant enumeration maps each granted unit's slot to
+    # its global writer, rotate maps every queue entry's slot through the
+    # reset-slot mask.
+    w_hot, r_sync, n, q = 2048, 16_667, 100_000, 64
+    fast_path("anywrite_sparse", n, 5 * q, w_hot, 256)
+    grants_case("anywrite_sparse", r_sync, w_hot, budget)
+    for table, tidx in (
+        (
+            torch.randint(0, n, (w_hot,), generator=g).to(device),
+            torch.sort(torch.randint(0, w_hot, (r_sync, budget), generator=g).to(device),
+                       dim=1).values,
+        ),
+        (
+            (torch.rand((w_hot,), generator=g) < 0.4).to(torch.int64).to(device),
+            torch.randint(0, w_hot, (n, q), generator=g).to(device),
+        ),
+    ):
+        measure(
+            "table_gather", "anywrite_sparse", f"[{w_hot}]<-{list(tidx.shape)}",
+            lambda: onehot.table_gather(table, tidx),
+            lambda: onehot.table_gather_plain(table, tidx),
+            # The index is already in range, so take on it needs no clip.
+            lambda: torch.take(table, tidx),
+            nbytes(table, tidx), tidx.numel(),
+        )
     for row in out:
         extra = "".join(
             f", {k} {v:.4f} ms" for k, v in row.items() if k.endswith("_ms") and k not in
@@ -382,6 +430,10 @@ def _wiped(sched, schedule_cls):
     )
 
 
+# Fewer hot slots (56) than an epoch's writers need under a partition:
+# forced demotions, deviation entries and cold healing.
+SPARSE_SMALL = dict(n=2000, w_hot=56, rounds=64, n_regions=4, epoch_rounds=8,
+                    cohort=32, k_dev=96, partition=True, samples=64)
 SMALL_RUNS = (
     # (label, builder, builder kwargs, schedule transform, chunk)
     ("wan_100k n=2000", "wan_100k", dict(n=2000, n_regions=4, n_writers=64, rounds=72), None, 24),
@@ -390,74 +442,131 @@ SMALL_RUNS = (
     ("churn_32 wipe", "churn_32", {}, _wiped, 100),
     ("anti_entropy_1k", "anti_entropy_1k", {}, None, 50),
     ("merge_10k burst n=2560", "merge_10k", dict(n=2560, rounds=48), _burst, 24),
+    ("anywrite_sparse n=2000", "anywrite_sparse", SPARSE_SMALL, None, None),
 )
+
+
+def _small_run(builder, kw, transform, chunk, dev):
+    """One small run on ``dev``: its flattened final state, curves and
+    info (the sparse engine's, without the resume point; {} otherwise)."""
+    from corrosion_tpu_torch import interop
+    from corrosion_tpu_torch.models import baselines
+    from corrosion_tpu_torch.sim import engine, sparse_engine
+
+    cfg, topo, sched = getattr(baselines, builder)(device=dev, **kw)
+    if transform is not None:
+        sched = transform(sched, engine.Schedule)
+    if builder != "anywrite_sparse":
+        final, curves = engine.simulate(cfg, topo, sched, seed=0, max_chunk=chunk, device=dev)
+        return _flat(interop.to_numpy(final)), curves, {}, sched.rounds
+    sstate, swim, vis, curves, info = sparse_engine.simulate_sparse(
+        cfg, topo, sched, seed=0, device=dev
+    )
+    assert sparse_engine.converged_sparse(sstate)
+    flat = _flat(interop.to_numpy(sstate))
+    flat.update(_flat(interop.to_numpy(swim), "swim."))
+    flat["vis_round"] = vis.cpu().numpy()
+    info.pop("resume")
+    return flat, curves, info, sched.rounds
 
 
 def check_small_runs(onehot):
     """Each small run on the card (kernels) equals the CPU run (plain
-    versions); the merge_10k run launches the two wide-path kernels."""
-    from corrosion_tpu_torch import interop
-    from corrosion_tpu_torch.models import baselines
-    from corrosion_tpu_torch.sim import engine
-
+    versions); the merge_10k run launches the two wide-path kernels, the
+    anywrite run demotes, heals and launches ``table_gather``."""
     for label, builder, kw, transform, chunk in SMALL_RUNS:
         runs = {}
         for dev in ("cuda", "cpu"):
-            cfg, topo, sched = getattr(baselines, builder)(device=dev, **kw)
-            if transform is not None:
-                sched = transform(sched, engine.Schedule)
             onehot.reset_launches()
             t0 = time.perf_counter()
-            final, curves = engine.simulate(cfg, topo, sched, seed=0, max_chunk=chunk, device=dev)
+            out = _small_run(builder, kw, transform, chunk, dev)
             if dev == "cuda":
                 torch.cuda.synchronize()
                 launches = dict(onehot.LAUNCHES)
-            runs[dev] = (_flat(interop.to_numpy(final)), curves, time.perf_counter() - t0)
-        (fa, ca, ta), (fb, cb, tb) = runs["cuda"], runs["cpu"]
+            runs[dev] = (*out, time.perf_counter() - t0)
+        (fa, ca, ia, rounds, ta), (fb, cb, ib, _, tb) = runs["cuda"], runs["cpu"]
         bad = [k for k in ca if not np.array_equal(ca[k], cb[k])]
         bad += [k for k in fa if not np.array_equal(fa[k], fb[k])]
-        assert not bad, f"{label}: card run differs from the CPU run in {bad}"
+        assert not bad and ia == ib, f"{label}: card run differs from the CPU run in {bad}"
         assert ca["vis_count"].sum() > 0 and ca["msgs"].sum() > 0, label
         if builder == "merge_10k":
             for k in ("rowgather_wide", "rowsum"):
                 assert launches[k] > 0, f"{label}: {k} never launched"
-        log(f"phase 4: {label} ({sched.rounds} rounds): card {ta:.1f} s == CPU "
+        if builder == "anywrite_sparse":
+            assert ia["max_dev_entries"] > 0 and ca["cold_healed"].sum() > 0, ia
+            assert launches["table_gather"] > 0, launches
+        extra = f"; info {json.dumps(ia)}; cold_healed={int(ca['cold_healed'].sum())}" if ia else ""
+        log(f"phase 4: {label} ({rounds} rounds): card {ta:.1f} s == CPU "
             f"{tb:.1f} s ({len(ca)} curves, {len(fa)} state leaves); "
-            f"need[-1]={int(ca['need'][-1])}; launches {json.dumps(launches)}")
+            f"need[-1]={int(ca['need'][-1])}{extra}; launches {json.dumps(launches)}")
 
 
-def full_run(onehot, gossip, phase: int, builder: str, chunk: int = 12):
-    """A main path at full size, every round of its schedule, ``chunk``
-    rounds per ``simulate`` call, with the launch counts reset just before
-    and read just after."""
-    from corrosion_tpu_torch.models import baselines
+def dense_chunks(cfg, topo, sched, chunk: int = 12):
+    """``engine.simulate`` over ``chunk`` rounds at a time, each call
+    resuming the last; yields (state, curves, info) per call."""
     from corrosion_tpu_torch.sim import engine
 
+    state, done = None, 0
+    while done < sched.rounds:
+        stop = min(done + chunk, sched.rounds)
+        state, curves = engine.simulate(cfg, topo, sched.slice(done, stop), seed=0,
+                                        state=state, device="cuda")
+        done = stop
+        yield state, curves, {}
+
+
+def sparse_epochs(cfg, topo, sched):
+    """``simulate_sparse`` one epoch at a time, each call resuming the last;
+    yields (SparseState, curves, info) per epoch."""
+    from corrosion_tpu_torch.sim import sparse_engine
+
+    resume = None
+    for epoch in range(-(-sched.rounds // cfg.sparse.epoch_rounds)):
+        sstate, _, vis, curves, info = sparse_engine.simulate_sparse(
+            cfg, topo, sched, seed=0, resume=resume, stop_after_epoch=epoch, device="cuda"
+        )
+        resume = info.pop("resume")  # only the latest state stays alive
+        yield sstate, curves, dict(info, unseen=int((vis < 0).sum()))
+
+
+def full_run(onehot, gossip, phase: int, builder: str):
+    """A main path at full size, every round of its schedule, one call per
+    chunk (dense engine) or epoch (sparse engine), with the launch counts
+    reset just before and read just after."""
+    from corrosion_tpu_torch.models import baselines
+    from corrosion_tpu_torch.sim import sparse_engine
+
     cfg, topo, sched = getattr(baselines, builder)(device="cuda")
+    sparse = builder == "anywrite_sparse"
+    chunks = (sparse_epochs if sparse else dense_chunks)(cfg, topo, sched)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     onehot.reset_launches()
     gossip.reset_host_syncs()
-    state, parts, done = None, [], 0
-    elapsed = 0.0
+    parts, infos, done, elapsed = [], [], 0, 0.0
     t_wall = time.perf_counter()
-    while done < sched.rounds:
-        stop = min(done + chunk, sched.rounds)
+    while True:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        state, curves = engine.simulate(cfg, topo, sched.slice(done, stop), seed=0,
-                                        state=state, device="cuda")
+        step = next(chunks, None)
+        if step is None:
+            break
         b.record()
         b.synchronize()
-        elapsed += a.elapsed_time(b)
+        state, curves, info = step
+        ms, rounds = a.elapsed_time(b), len(curves["need"])
+        elapsed += ms
         parts.append(curves)
-        log(f"phase {phase}: rounds {done}-{stop - 1}: {a.elapsed_time(b) / (stop - done):.1f} ms/round")
-        done = stop
+        infos.append(info)
+        log(f"phase {phase}: rounds {done}-{done + rounds - 1}: {ms / rounds:.1f} ms/round"
+            + "".join(f", {k} {v}" for k, v in info.items()))
+        done += rounds
     wall = time.perf_counter() - t_wall
     launches = dict(onehot.LAUNCHES)
     syncs = dict(gossip.HOST_SYNCS)
     curves = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    assert done == sched.rounds
     d = state.data
     assert bool((d.contig <= d.head[None, :]).all()), "contig > head"
     assert bool((d.seen >= d.contig).all()), "seen < contig"
@@ -470,6 +579,16 @@ def full_run(onehot, gossip, phase: int, builder: str, chunk: int = 12):
     log(f"phase {phase}: {builder} N={cfg.n_nodes} W={cfg.gossip.n_writers} "
         f"{done} rounds: {elapsed / done:.1f} ms/round (CUDA events), "
         f"wall {wall:.1f} s, peak memory {peak / 2**30:.2f} GiB")
+    if sparse:
+        assert sum(i["dev_dropped"] for i in infos) == 0, "deviation entries dropped"
+        assert sparse_engine.converged_sparse(state), "anywrite_sparse did not converge"
+        conv = np.nonzero(curves["need"] != 0)[0]
+        log(f"phase {phase}: converged (need 0 from round "
+            f"{int(conv[-1]) + 1 if len(conv) else 0}), unseen sample pairs "
+            f"{infos[-1]['unseen']}, retired {sum(i['retired'] for i in infos)}, promoted "
+            f"{sum(i['promoted'] for i in infos)}, max dev entries "
+            f"{max(i['max_dev_entries'] for i in infos)}, cold_healed "
+            f"{int(curves['cold_healed'].sum())}")
     log(f"phase {phase}: launches {json.dumps(launches)}; host syncs {json.dumps(syncs)}")
     log(f"phase {phase}: need[-1]={int(curves['need'][-1])} "
         f"vis_count={int(curves['vis_count'].sum())} msgs={int(curves['msgs'].sum())}")
@@ -527,7 +646,7 @@ def main() -> int:
     check_small_runs(onehot)
     by_path = {
         path: full_run(onehot, gossip, phase, path)
-        for phase, path in ((5, "wan_100k"), (6, "merge_10k"))
+        for phase, path in ((5, "wan_100k"), (6, "merge_10k"), (7, "anywrite_sparse"))
     }
     rows = kernel_rows(measured, by_path)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build to the end")

@@ -22,7 +22,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 # rowgather.cu holds both gathers (rowgather and rowgather_wide).
-SOURCES = ("rowmax", "rowgather", "delivery_reduce", "window_delivery", "rowsum")
+SOURCES = (
+    "rowmax", "rowgather", "delivery_reduce", "window_delivery", "rowsum",
+    "table_gather",
+)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _loaded: dict[str, ctypes.CDLL] = {}

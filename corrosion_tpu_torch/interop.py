@@ -2,7 +2,9 @@
 
 The reference's state and topology travel as nested dicts of numpy
 arrays keyed by the reference's field names (``{"swim": {...}, "data":
-{..., "cells": {...}}, "round": ..., "vis_round": ...}``). These helpers
+{..., "cells": {...}}, "round": ..., "vis_round": ...}``, or a sparse
+engine's ``{"data": {...}, "head_full": ..., "slot_writer": ...,
+"dev_writer": ..., "dev_contig": ..., "dev_any": ...}``). These helpers
 turn such dicts into the port's tensors and back, without importing
 JAX: the caller flattens the reference's NamedTuples (``_asdict``) and
 hands over numpy arrays.
@@ -16,6 +18,7 @@ import torch
 from corrosion_tpu_torch import resolve_device
 from corrosion_tpu_torch.ops.crdt import CellState
 from corrosion_tpu_torch.ops.gossip import DataState, Topology
+from corrosion_tpu_torch.ops.sparse_writers import SparseState
 from corrosion_tpu_torch.ops.swim import SwimState
 from corrosion_tpu_torch.ops.swim_sparse import SparseSwimState
 from corrosion_tpu_torch.sim.engine import ClusterState
@@ -24,7 +27,7 @@ from corrosion_tpu_torch.sim.engine import ClusterState
 U32_FIELDS = frozenset({
     "head", "contig", "seen", "oo", "q_ver", "q_gw", "cl", "col_version",
     "value_rank", "view", "exc_pkd", "incarnation", "susp_inc", "upd_packed",
-    "writer_ids",
+    "writer_ids", "head_full", "dev_contig",
 })
 
 
@@ -41,22 +44,34 @@ def _build(cls, d: dict, device):
     return cls(**{f: _tensor(d[f], device) for f in cls._fields})
 
 
+def _data_state(d: dict, device) -> DataState:
+    return DataState(
+        cells=_build(CellState, d["cells"], device),
+        **{f: _tensor(d[f], device) for f in DataState._fields if f != "cells"},
+    )
+
+
 def cluster_state_from_numpy(d: dict, device=None) -> ClusterState:
     """ClusterState from the reference's state as nested numpy dicts (the
     dense ``SwimState`` when the swim dict holds a ``view``, else the
     sparse exception tables)."""
     device = resolve_device(device)
-    data = dict(d["data"])
-    cells = _build(CellState, data.pop("cells"), device)
     swim_cls = SwimState if "view" in d["swim"] else SparseSwimState
     return ClusterState(
         swim=_build(swim_cls, d["swim"], device),
-        data=DataState(
-            cells=cells,
-            **{f: _tensor(data[f], device) for f in DataState._fields if f != "cells"},
-        ),
+        data=_data_state(d["data"], device),
         round=_tensor(d["round"], device),
         vis_round=_tensor(d["vis_round"], device),
+    )
+
+
+def sparse_state_from_numpy(d: dict, device=None) -> SparseState:
+    """SparseState (any-node-writes engine) from the reference's as nested
+    numpy dicts."""
+    device = resolve_device(device)
+    return SparseState(
+        data=_data_state(d["data"], device),
+        **{f: _tensor(d[f], device) for f in SparseState._fields if f != "data"},
     )
 
 

@@ -1,9 +1,10 @@
-"""Builders for the five BASELINE scenarios (counterpart of
-corrosion_tpu/models/baselines.py): ``three_node``, ``churn_32``,
-``anti_entropy_1k``, ``merge_10k`` and ``wan_100k``. Each draws what the
-reference draws from the same seed, so both packages build identical
-configs, topologies and schedules; each returns (ClusterConfig,
-Topology, Schedule) with the topology on ``device``.
+"""Builders for the five BASELINE scenarios and the any-node-writes
+variant (counterpart of corrosion_tpu/models/baselines.py):
+``three_node``, ``churn_32``, ``anti_entropy_1k``, ``merge_10k``,
+``wan_100k`` and ``anywrite_sparse``. Each draws what the reference draws
+from the same seed, so both packages build identical configs, topologies
+and schedules; each returns (config, Topology, Schedule) with the
+topology on ``device``.
 """
 
 from __future__ import annotations
@@ -203,3 +204,86 @@ def wan_100k(n: int = 100_000, n_regions: int = 20, n_writers: int = 512,
         part[60:120, 0, 0] = False
     sched = Schedule(writes=writes, partition=part).make_samples(samples)
     return cfg, topo, sched
+
+
+def anywrite_sparse(
+    n: int = 100_000, w_hot: int = 2048, rounds: int = 320,
+    n_regions: int = 20, epoch_rounds: int = 16, cohort: int = 768,
+    burst_writes: int = 2, samples: int = 256, seed: int = 7,
+    k_dev: int = 256, demote_after: int = 1, partition: bool = False,
+    device=None,
+):
+    """Config 5s: any-node-writes at scale over the rotating-slot sparse
+    writer plane. Every node may write; each epoch a fresh cohort of
+    ``cohort`` random nodes commits ``burst_writes`` versions at distinct
+    rounds of its first epoch, then goes quiescent, and the planner rotates
+    them through ``w_hot`` hot slots. The last third of the epochs (at
+    least two) drain. ``partition=True`` cuts region 0 off for a stretch
+    from a quarter of the run. Returns (SparseClusterConfig, Topology,
+    Schedule), same draws as the reference."""
+    from corrosion_tpu_torch.ops.sparse_writers import SparseConfig
+    from corrosion_tpu_torch.sim.sparse_engine import SparseClusterConfig
+
+    rng = np.random.default_rng(seed)
+    region_size = n // n_regions
+    g = GossipConfig(
+        n_nodes=n,
+        n_writers=w_hot,
+        track_writer_ids=True,
+        sync_interval=6,
+        sync_budget=512,
+        sync_chunk=64,
+        fanout_near=3,
+        fanout_far=2,
+        queue=64,
+        max_transmissions=_max_tx(n),
+        rebroadcast_intake=8 + cohort * burst_writes // epoch_rounds,
+        rebroadcast_fresh_budget=True,
+        rebroadcast_stale=False,
+        queue_priority="budget",
+        n_cells=256,
+    )
+    s = SwimConfig(
+        n_nodes=n,
+        max_transmissions=_max_tx(n),
+        suspect_rounds=3,
+        gossip_fanout=3,
+        view_capacity=64,
+    )
+    sp = SparseConfig(
+        epoch_rounds=epoch_rounds, k_dev=k_dev,
+        d_max=max(256, cohort + cohort // 2),
+        p_max=max(256, cohort + cohort // 2),
+        demote_after=demote_after,
+    )
+    topo = make_topology(
+        [region_size] * n_regions,
+        np.zeros(w_hot, np.int64),  # slots; rebound per epoch by the engine
+        region_rtt="geo",
+        sync_interval=g.sync_interval,
+        device=device,
+    )
+    n_epochs = rounds // epoch_rounds
+    drain_epochs = max(2, n_epochs // 3)
+    writes = np.zeros((rounds, n), np.uint32)
+    pool = rng.permutation(n)
+    used = 0
+    for e in range(n_epochs - drain_epochs):
+        take = min(cohort, n - used)
+        writers = pool[used:used + take]
+        used += take
+        for w in writers:
+            rs = rng.choice(
+                epoch_rounds, size=min(burst_writes, epoch_rounds), replace=False,
+            )
+            writes[e * epoch_rounds + rs, w] = 1
+    part = None
+    if partition:
+        part = np.zeros((rounds, n_regions, n_regions), bool)
+        p0 = rounds // 4
+        p1 = p0 + min(60, max(rounds // 4, epoch_rounds))
+        part[p0:p1, 0, :] = True
+        part[p0:p1, :, 0] = True
+        part[p0:p1, 0, 0] = False
+    sched = Schedule(writes=writes, partition=part).make_samples(samples)
+    return SparseClusterConfig(swim=s, gossip=g, sparse=sp), topo, sched

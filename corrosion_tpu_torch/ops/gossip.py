@@ -8,11 +8,12 @@ re-admission or inherited budgets), the anti-entropy sessions of
 ``_sync_round``/``_sync_rows`` with exact and digest candidate scoring,
 ``revive_sync``, the out-of-order possession window, and the tracking
 reads (``visibility``, ``total_need``, ``staleness``, ``queue_backlog``).
+``track_writer_ids`` carries each queued version's global writer id beside
+its slot, for the rotating writer slots of ``ops/sparse_writers.py``.
 The module docstring of the reference describes the model.
 
-Options this slice does not port (the adaptive-dissemination mechanisms,
-rotating writer slots, propagation observables, sketches) raise
-``NotImplementedError``.
+Options not ported yet (the adaptive-dissemination mechanisms,
+propagation observables, sketches) raise ``NotImplementedError``.
 
 Data-dependent ``lax.cond`` branches become Python ``if`` on a 0-d
 tensor: one device-to-host sync each, counted in ``HOST_SYNCS`` together
@@ -133,7 +134,6 @@ class GossipConfig:
 def _check_slice(cfg: GossipConfig) -> None:
     """Raise for the options whose code paths later slices port."""
     unported = {
-        "track_writer_ids": cfg.track_writer_ids,
         "prop_observe": cfg.prop_observe,
         "rumor_kill_k": cfg.rumor_kill_k > 0,
         "pull_switch_age": cfg.pull_switch_age > 0,
@@ -235,7 +235,7 @@ class DataState(NamedTuple):
     q_writer: torch.Tensor  # [N, Q] (-1 = empty)
     q_ver: torch.Tensor  # [N, Q]
     q_tx: torch.Tensor  # [N, Q] transmissions left
-    q_gw: torch.Tensor  # [N, 0] (rotating writer slots not ported)
+    q_gw: torch.Tensor  # [N, Q] global writer id (Q=0 unless track_writer_ids)
     q_dup: torch.Tensor  # [N, 0] (rumor death not ported)
     cells: crdt.CellState  # [N * K] x3 per-node registers
 
@@ -382,7 +382,7 @@ def _merge_versions_dense(cells, rows, writer, version, mask, row_ok, n_nodes: i
     return crdt.CellState(*out), n_merges
 
 
-def _fast_delivery(data, contig, cells, m_w, m_v, m_ok, k_in, cfg):
+def _fast_delivery(data, contig, cells, m_w, m_v, m_gw, m_ok, k_in, cfg):
     """Delta-packed one-hot delivery (reference ``_broadcast_round`` 3a and
     the intake step 4) for writer axes up to ``_FAST_MAX_WRITERS`` with
     fresh-budget, fresh-only intake. Returns what ``_legacy_delivery``
@@ -405,7 +405,9 @@ def _fast_delivery(data, contig, cells, m_w, m_v, m_ok, k_in, cfg):
     d_raw = torch.where(useful, m_v - base_m, 0)
     dc = torch.clamp(d_raw, max=lim + 1)
     pkd = torch.where(useful, m_w * k2 + dc, sent_key)
-    skey64 = torch.sort((pkd << 32) | m_v, dim=1, stable=True).values
+    skey64, order = torch.sort((pkd << 32) | m_v, dim=1, stable=True)
+    # Global writer ids ride as a payload (see broadcast_round).
+    gw2 = None if m_gw is None else torch.gather(m_gw, 1, order)
     skey = skey64 >> 32
     v2 = skey64 & MASK
     valid2 = skey < sent_key
@@ -450,22 +452,28 @@ def _fast_delivery(data, contig, cells, m_w, m_v, m_ok, k_in, cfg):
         n_degraded = (valid2 & ~applied & ~same_copy).sum()
     n_merges = torch.zeros((), dtype=torch.int64, device=dev)
     if cfg.n_cells > 0:
-        cells, n_merges = _merge_versions_dense(cells, None, w2, v2, fresh, None, n, cfg)
-    in_mask, (in_w, in_v) = routing.rebuild_bounded_queue(fresh, -v2, (w2, v2), k_in)
+        cells, n_merges = _merge_versions_dense(
+            cells, None, w2 if gw2 is None else gw2, v2, fresh, None, n, cfg
+        )
+    in_mask, ins = routing.rebuild_bounded_queue(
+        fresh, -v2, (w2, v2) if gw2 is None else (w2, v2, gw2), k_in
+    )
+    in_w, in_v = ins[0], ins[1]
     in_tx = torch.full(in_w.shape, cfg.max_transmissions, dtype=torch.int64, device=dev)
     in_w = torch.where(in_mask, in_w, -1)
     return (
         contig, seen, oo_new, oo_any_new, n_degraded, cells, n_merges,
-        in_mask, in_w, in_v, in_tx,
+        in_mask, in_w, in_v, in_tx, None if gw2 is None else ins[2],
     )
 
 
-def _legacy_delivery(data, contig, cells, m_w, m_v, m_tx, m_ok, k_in, cfg):
+def _legacy_delivery(data, contig, cells, m_w, m_v, m_tx, m_gw, m_ok, k_in, cfg):
     """Legacy sort+scatter delivery (reference ``_broadcast_round`` 3b and
     the intake step 4): needed for writer axes wider than
     ``_FAST_MAX_WRITERS``, stale re-admission and inherited budgets.
     Returns (contig, seen, oo, oo_any, n_degraded, cells, n_merges,
-    in_mask, in_w, in_v, in_tx)."""
+    in_mask, in_w, in_v, in_tx, in_gw); ``in_gw`` is None unless ``m_gw``
+    carries global writer ids."""
     w_count = cfg.n_writers
     n, kk = m_w.shape
     dev = m_w.device
@@ -479,7 +487,8 @@ def _legacy_delivery(data, contig, cells, m_w, m_v, m_tx, m_ok, k_in, cfg):
         raise ValueError("legacy delivery key overflow")
     torch._assert_async(((m_tx >= 0) & (m_tx <= 255)).all())
     wkey = torch.where(m_ok, m_w, w_count)
-    skey = torch.sort((wkey << 40) | (m_v << 8) | (255 - m_tx), dim=1).values
+    skey, order = torch.sort((wkey << 40) | (m_v << 8) | (255 - m_tx), dim=1)
+    gw2 = None if m_gw is None else torch.gather(m_gw, 1, order)
     w2 = skey >> 40
     v2 = (skey >> 8) & MASK
     tx2 = 255 - (skey & 255)
@@ -546,7 +555,8 @@ def _legacy_delivery(data, contig, cells, m_w, m_v, m_tx, m_ok, k_in, cfg):
     n_merges = zero
     if cfg.n_cells > 0:
         cells, n_merges = _merge_versions_dense(
-            cells, None, w2c, v2, applied | extra_poss, None, n, cfg
+            cells, None, w2c if gw2 is None else gw2, v2, applied | extra_poss,
+            None, n, cfg,
         )
 
     # ---- 4. rebroadcast intake ----------------------------------------------
@@ -560,13 +570,15 @@ def _legacy_delivery(data, contig, cells, m_w, m_v, m_tx, m_ok, k_in, cfg):
     else:
         intake_ok = fresh & (tx2 > 1)
         in_budget = tx2 - 1
-    in_mask, (in_w, in_v, in_tx) = routing.rebuild_bounded_queue(
-        intake_ok, -v2, (w2c, v2, in_budget), k_in
+    in_mask, ins = routing.rebuild_bounded_queue(
+        intake_ok, -v2,
+        (w2c, v2, in_budget) if gw2 is None else (w2c, v2, in_budget, gw2), k_in,
     )
+    in_w, in_v, in_tx = ins[:3]
     in_w = torch.where(in_mask, in_w, -1)
     return (
         contig, seen, oo_new, oo_any_new, n_degraded, cells, n_merges,
-        in_mask, in_w, in_v, in_tx,
+        in_mask, in_w, in_v, in_tx, None if gw2 is None else ins[3],
     )
 
 
@@ -576,6 +588,9 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
     row sort, delivery reductions, window admission, the CRDT merge and
     the queue rebuild. Returns (DataState, stats)."""
     _check_slice(cfg)
+    track = cfg.track_writer_ids
+    if track and topo.writer_ids is None:
+        raise ValueError("track_writer_ids requires topo.writer_ids")
     w_count, q_cap = cfg.n_writers, cfg.queue
     n = data.contig.shape[0]
     dev = data.contig.device
@@ -602,13 +617,16 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
     new_ver = head_old_n[:, None] + 1 + ar_mw[None, :]
     new_valid = (ar_mw[None, :] < nw[:, None]) & alive[:, None]
     new_writer = won[:, None].expand(n, mw)
+    # Under rotating slots a node's global writer id IS its node id, so the
+    # writer's own enqueue needs no table lookup.
+    new_gw = nodes[:, None].expand(n, mw) if track else None
 
     cells = data.cells
     n_merges = torch.zeros((), dtype=torch.int64, device=dev)
     if cfg.n_cells > 0:
         cells, m = _merge_versions_dense(
-            cells, None, torch.clamp(new_writer, min=0), new_ver, new_valid,
-            None, n, cfg,
+            cells, None, new_gw if track else torch.clamp(new_writer, min=0),
+            new_ver, new_valid, None, n, cfg,
         )
         n_merges = n_merges + m
 
@@ -632,6 +650,15 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
         kk = f * q_cap
         m_w = data.q_writer[src].reshape(n, kk)
         m_v = data.q_ver[src].reshape(n, kk)
+        # The global writer id of each message rides the delivery sorts as
+        # a payload: the port's int64 sort keys have no room for it, and
+        # need none. Within an epoch a slot has exactly one global writer,
+        # and sparse_writers.rotate kills every queue entry of a reset slot,
+        # so valid messages tied on (slot, version) carry equal ids. Ties
+        # among invalid messages may order differently from the reference's
+        # sort, but no mask admits them and the queue rebuild keeps none of
+        # them (the old queue's own empty entries fill its tail first).
+        m_gw = data.q_gw[src].reshape(n, kk) if track else None
         m_ok = (
             link_ok[:, :, None].expand(n, f, q_cap).reshape(n, kk) & (m_w >= 0)
         )
@@ -646,15 +673,15 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
         )
         if fast:
             # ---- 3a. delta-packed delivery ---------------------------------
-            out = _fast_delivery(data, contig, cells, m_w, m_v, m_ok, k_in, cfg)
+            out = _fast_delivery(data, contig, cells, m_w, m_v, m_gw, m_ok, k_in, cfg)
         else:
             # ---- 3b. legacy sort+scatter delivery --------------------------
             m_tx = data.q_tx[src].reshape(n, kk)
             out = _legacy_delivery(
-                data, contig, cells, m_w, m_v, m_tx, m_ok, k_in, cfg
+                data, contig, cells, m_w, m_v, m_tx, m_gw, m_ok, k_in, cfg
             )
         (contig, seen, oo_new, oo_any_new, n_degraded, cells, m, in_mask,
-         in_w, in_v, in_tx) = out
+         in_w, in_v, in_tx, in_gw) = out
         n_merges = n_merges + m
         # A source's budgets burn when at least one receiver pulled it.
         pulled = torch.bincount(
@@ -667,6 +694,7 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
         in_w = torch.zeros((n, 0), dtype=torch.int64, device=dev)
         in_v = in_w.clone()
         in_tx = in_w.clone()
+        in_gw = in_w.clone() if track else None
         sent_any = torch.zeros((n,), dtype=torch.bool, device=dev)
         seen = data.seen.clone()
         oo_new, oo_any_new = data.oo, data.oo_any
@@ -695,9 +723,12 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
     )
     cand_ok = torch.cat([old_live, new_valid, in_mask], dim=1)
     prio = cand_tx if cfg.queue_priority == "budget" else -cand_v
-    keep, (q_writer, q_ver, q_tx) = routing.rebuild_bounded_queue(
-        cand_ok, prio, (cand_w, cand_v, cand_tx), q_cap
-    )
+    payloads = (cand_w, cand_v, cand_tx)
+    if track:
+        payloads += (torch.cat([data.q_gw, new_gw, in_gw], dim=1),)
+    keep, out = routing.rebuild_bounded_queue(cand_ok, prio, payloads, q_cap)
+    q_writer, q_ver, q_tx = out[:3]
+    q_gw = out[3] if track else data.q_gw
     q_writer = torch.where(keep, q_writer, -1)
 
     stats = {
@@ -710,7 +741,7 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
     return (
         DataState(
             head=head, contig=contig, seen=seen, oo=oo_new, oo_any=oo_any_new,
-            q_writer=q_writer, q_ver=q_ver, q_tx=q_tx, q_gw=data.q_gw,
+            q_writer=q_writer, q_ver=q_ver, q_tx=q_tx, q_gw=q_gw,
             q_dup=data.q_dup, cells=cells,
         ),
         stats,
@@ -858,8 +889,13 @@ def _sync_rows(data, topo, alive, partition, rows, row_ok, rng, cfg):
         )
         ver = (onehot.rowgather(contig0, w_idx) + 1 + (e[None, :] - prev)) & MASK
         mask = e[None, :] < total_g[:, None]
+        # Under rotating slots the merge keys on each slot's global writer.
+        w_merge = (
+            onehot.table_gather(topo.writer_ids, w_idx)
+            if cfg.track_writer_ids else w_idx
+        )
         cells, n_merges = _merge_versions_dense(
-            cells, rows, w_idx, ver, mask, row_ok, n, cfg
+            cells, rows, w_merge, ver, mask, row_ok, n, cfg
         )
 
     sel_rows = _ok_rows(rows, row_ok)
@@ -924,6 +960,16 @@ def staleness(data: DataState) -> tuple[torch.Tensor, torch.Tensor]:
 def queue_backlog(data: DataState) -> torch.Tensor:
     """Occupied pending-broadcast queue slots cluster-wide."""
     return (data.q_writer >= 0).sum()
+
+
+def node_cells(data: DataState, cfg: GossipConfig) -> crdt.CellState:
+    """The flat cell plane as per-node [N, K] register arrays."""
+    n, k = cfg.n_nodes, cfg.n_cells
+    return crdt.CellState(
+        cl=data.cells.cl.reshape(n, k),
+        col_version=data.cells.col_version.reshape(n, k),
+        value_rank=data.cells.value_rank.reshape(n, k),
+    )
 
 
 def visibility(data: DataState, sample_writer, sample_ver) -> torch.Tensor:

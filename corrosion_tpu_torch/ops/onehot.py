@@ -36,6 +36,7 @@ LAUNCHES = {
     "window_delivery": 0,
     "rowgather_wide": 0,
     "rowsum": 0,
+    "table_gather": 0,
 }
 
 # Shared memory one block may use on Hopper (227 KB of the SM's 256 KB,
@@ -61,6 +62,9 @@ _SIGNATURES = {
         "rowgather", "corro_rowgather_wide", (_P, _P, _P, _I, _I, _I, _P),
     ),
     "rowsum": ("rowsum", "corro_rowsum", (_P, _P, _P, _P, _I, _I, _I, _P)),
+    "table_gather": (
+        "table_gather", "corro_table_gather", (_P, _P, _P, _I, _I, _P),
+    ),
 }
 _fns: dict = {}
 
@@ -265,6 +269,37 @@ def rowgather_wide(table, idx) -> torch.Tensor:
     _launch(
         "rowgather_wide", table.data_ptr(), idx.data_ptr(), out.data_ptr(),
         r, m, width,
+    )
+    return out
+
+
+# -- table_gather -------------------------------------------------------------
+
+
+def table_gather_plain(table, idx) -> torch.Tensor:
+    """out[...] = table[clip(idx[...], 0, W - 1)]; zeros of ``idx``'s shape
+    when W == 0 or ``idx`` is empty."""
+    width = table.shape[0]
+    if width == 0 or idx.numel() == 0:
+        return torch.zeros(idx.shape, dtype=torch.int64, device=idx.device)
+    return table[torch.clamp(idx, 0, width - 1)]
+
+
+def table_gather(table, idx) -> torch.Tensor:
+    """Gather from one shared 1-D table (reference
+    ``onehot.table_gather_u32``, its Pallas and native semantics): indices
+    CLIP to the table's ends. int64 of ``idx``'s shape."""
+    width = table.shape[0]
+    if width == 0 or idx.numel() == 0:
+        return torch.zeros(idx.shape, dtype=torch.int64, device=idx.device)
+    if not _on_cuda(table, idx):
+        return table_gather_plain(table, idx)
+    _check(table, "table", torch.int64, (width,))
+    _check(idx, "idx", torch.int64)
+    out = torch.empty(idx.shape, dtype=torch.int64, device=idx.device)
+    _launch(
+        "table_gather", table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+        idx.numel(), width,
     )
     return out
 

@@ -2,13 +2,16 @@
 """Where a full-size round of the PyTorch/CUDA port spends its time on
 the card.
 
-    python3 scripts/torch_round_profile.py [--config wan_100k|merge_10k]
+    python3 scripts/torch_round_profile.py
+        [--config wan_100k|merge_10k|anywrite_sparse]
         [--warm 12] [--rounds 6] [--out build/torch_round_profile.json]
 
-Runs the ``--config`` builder (``wan_100k()`` by default, or
-``merge_10k()``) at full size for ``--warm`` rounds, then profiles
-``--rounds`` more with ``torch.profiler`` (CPU + CUDA activities) and
-prints, from the exported trace:
+Runs the ``--config`` builder (``wan_100k()`` by default) at full size for
+``--warm`` rounds, then profiles ``--rounds`` more with ``torch.profiler``
+(CPU + CUDA activities). ``anywrite_sparse()`` runs whole epochs of 16
+rounds (each with its rotation), so there both counts must be multiples
+of 16: ``--warm 128 --rounds 16`` profiles write epoch 8. It prints, from
+the exported trace:
 
 - ms/round over the profiled window (CUDA events) and the device's busy
   and idle share (union of kernel/memcpy/memset intervals over the
@@ -48,6 +51,7 @@ PORTED = {
     "delivery_reduce": "delivery_reduce_kernel",
     "window_delivery": "window_delivery_kernel",
     "rowgather_wide": "rowgather_kernel<true>", "rowsum": "rowsum_kernel",
+    "table_gather": "table_gather_kernel",
 }
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -115,7 +119,8 @@ def analyse(events: list, window_ms: float, rounds: int) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("wan_100k", "merge_10k"), default="wan_100k")
+    ap.add_argument("--config", choices=("wan_100k", "merge_10k", "anywrite_sparse"),
+                    default="wan_100k")
     ap.add_argument("--warm", type=int, default=12)
     ap.add_argument("--rounds", type=int, default=6)
     ap.add_argument("--out", default="build/torch_round_profile.json")
@@ -125,10 +130,25 @@ def main(argv=None) -> int:
         return 2
     from corrosion_tpu_torch.models import baselines
     from corrosion_tpu_torch.ops import gossip, onehot
-    from corrosion_tpu_torch.sim import engine
+    from corrosion_tpu_torch.sim import engine, sparse_engine
 
     cfg, topo, sched = getattr(baselines, args.config)(device="cuda")
-    state, _ = engine.simulate(cfg, topo, sched.slice(0, args.warm), seed=0, device="cuda")
+    sparse = args.config == "anywrite_sparse"
+    if sparse:
+        e_len = cfg.sparse.epoch_rounds
+        if args.warm % e_len or args.rounds % e_len or not args.rounds:
+            ap.error(f"anywrite_sparse runs whole epochs: --warm and --rounds must be "
+                     f"multiples of {e_len} (--rounds at least one epoch)")
+
+        def run(resume, rounds_end):
+            return sparse_engine.simulate_sparse(
+                cfg, topo, sched, seed=0, resume=resume,
+                stop_after_epoch=rounds_end // e_len - 1, device="cuda",
+            )[4]["resume"]
+
+        state = run(None, args.warm) if args.warm else None
+    else:
+        state, _ = engine.simulate(cfg, topo, sched.slice(0, args.warm), seed=0, device="cuda")
     torch.cuda.synchronize()
     gossip.reset_host_syncs()
     onehot.reset_launches()
@@ -137,7 +157,10 @@ def main(argv=None) -> int:
     b = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         a.record()
-        state, _ = engine.simulate(cfg, topo, window, seed=0, state=state, device="cuda")
+        if sparse:
+            run(state, args.warm + args.rounds)
+        else:
+            engine.simulate(cfg, topo, window, seed=0, state=state, device="cuda")
         b.record()
         b.synchronize()
     with tempfile.TemporaryDirectory(dir=".") as td:
@@ -152,6 +175,7 @@ def main(argv=None) -> int:
     out.update(
         config=args.config, card=smi, nodes=cfg.n_nodes,
         writers=cfg.gossip.n_writers, warm=args.warm, rounds=args.rounds,
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
         device=torch.cuda.get_device_name(0),
         host_syncs_per_round={k: v / args.rounds for k, v in gossip.HOST_SYNCS.items()},
         kernel_launches_per_round={k: v / args.rounds for k, v in onehot.LAUNCHES.items()},

@@ -72,11 +72,32 @@ def test_kernels_equal_plain(cuda, r, m, w):
     assert torch.equal(
         onehot.rowgather_wide(table, idx), onehot.rowgather_wide_plain(table, idx)
     )
+    assert torch.equal(
+        onehot.table_gather(val[0], idx), onehot.table_gather_plain(val[0], idx)
+    )
     torch.cuda.synchronize()
     assert onehot.LAUNCHES == {
         "rowmax": 1, "rowgather": 1, "delivery_reduce": 1, "window_delivery": 2,
-        "rowgather_wide": 1, "rowsum": 1,
+        "rowgather_wide": 1, "rowsum": 1, "table_gather": 1,
     }
+
+
+# Shared-memory staging (16 KB, 128 KB by opt-in) and the global-memory
+# path (800 KB); W not a multiple of 128; 1-D to 3-D indices.
+@pytest.mark.parametrize(
+    "w,shape", [(1, (5,)), (300, (7, 9)), (2048, (16_667, 512)), (16_384, (3, 50, 20)),
+                (100_000, (1000, 64))],
+)
+def test_table_gather_equals_plain(cuda, w, shape):
+    g = np.random.default_rng(w)
+    table = torch.as_tensor(
+        g.integers(0, 1 << 32, w, dtype=np.uint64).astype(np.int64), device=cuda
+    )
+    idx = torch.as_tensor(g.integers(-w - 3, 2 * w + 3, shape), device=cuda)
+    onehot.reset_launches()
+    assert torch.equal(onehot.table_gather(table, idx), onehot.table_gather_plain(table, idx))
+    torch.cuda.synchronize()
+    assert onehot.LAUNCHES["table_gather"] == 1
 
 
 def test_wrappers_refuse_wrong_inputs(cuda):
@@ -91,3 +112,7 @@ def test_wrappers_refuse_wrong_inputs(cuda):
         onehot.rowsum(idx, val, mask, onehot.SMEM_LIMIT // 4 + 1)
     with pytest.raises(ValueError):
         onehot.rowgather_wide(val, idx[:, :1].expand(8, 9))
+    with pytest.raises(ValueError):
+        onehot.table_gather(val, idx)
+    with pytest.raises(ValueError):
+        onehot.table_gather(val[0], idx[:, ::2])

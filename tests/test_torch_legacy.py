@@ -11,7 +11,8 @@ state is a lossy mid-run state of a shrunken merge_10k carried through
 ``corrosion_tpu_torch.interop``; every output leaf and stat must be
 bit-equal.
 
-Also: ``_check_slice`` still refuses the options no slice has ported.
+Also: ``_check_slice`` still refuses the options no slice has ported, and
+takes ``track_writer_ids``.
 """
 
 import dataclasses
@@ -202,14 +203,16 @@ def _gossip(**kw):
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(track_writer_ids=True), dict(prop_observe=True),
+        dict(prop_observe=True, track_writer_ids=True), dict(prop_observe=True),
         dict(rumor_kill_k=2), dict(pull_switch_age=3), dict(age_forward=True),
         dict(sync_sketch_buckets=4),
     ],
 )
 def test_check_slice_refuses_unported_options(kw):
-    with pytest.raises(NotImplementedError, match=next(iter(kw))):
+    # The first key names the refused option (track_writer_ids is ported).
+    with pytest.raises(NotImplementedError, match=next(iter(kw))) as err:
         tg._check_slice(_gossip(**kw))
+    assert "track_writer_ids" not in str(err.value)
 
 
 @pytest.mark.parametrize(
@@ -217,7 +220,7 @@ def test_check_slice_refuses_unported_options(kw):
     [
         dict(), dict(rebroadcast_fresh_budget=False),
         dict(rebroadcast_fresh_budget=False, rebroadcast_stale=True),
-        dict(n_writers=10_000, n_cells=64),
+        dict(n_writers=10_000, n_cells=64), dict(track_writer_ids=True),
     ],
 )
 def test_check_slice_takes_wide_writers_and_legacy_intake(kw):
