@@ -11,16 +11,29 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
 3. each kernel against its plain PyTorch version on the same CUDA inputs,
    on edge cases (0-width axes, out-of-range indices, bit 31, and widths
    10,000 and 16,384, which take every row kernel's shared-memory opt-in;
-   ``table_gather`` also at W = 100,000, read from global memory) and at
-   every shape each main path gives it (wan_100k: the four fast-path
-   kernels; merge_10k: ``rowmax`` and ``rowgather`` in the CRDT merge,
-   ``rowgather`` in the sync grant enumeration, ``delivery_reduce`` at
-   W = 10,000, ``rowgather_wide`` and ``rowsum``; anywrite_sparse:
-   ``table_gather`` in the sync grant enumeration and in ``rotate``) —
-   exact equality required — timed with CUDA events (median of 25) beside
-   the plain version, one PyTorch library call where one computes the same
-   function, and the byte/operation bound. At merge_10k ``delivery_reduce``
-   is also timed against the two-``rowmax`` form of the same function;
+   the row gathers in each form and both semantics, with a broadcast
+   index, odd M and W, an index at an odd storage offset and M either side
+   of the form rule; ``table_gather`` also at W = 100,000, read
+   from global memory) and at every shape each main path gives it
+   (wan_100k and anywrite_sparse: the fast path's kernels with every
+   ``rowgather`` site — base gather, CRDT winner check, sync grants,
+   ``visibility``, and anywrite's ``cold_sync`` grants; merge_10k:
+   ``rowmax`` and ``rowgather`` in the CRDT merge, ``rowgather`` in the
+   sync grants and ``visibility``, ``delivery_reduce`` at W = 10,000,
+   ``rowgather_wide`` and ``rowsum``; anywrite_sparse also ``table_gather``
+   in the sync grants and in ``rotate``) — exact equality required. Each is
+   timed beside its plain version, one PyTorch library call where one
+   computes the same function, and the byte/operation bound: CUDA events
+   around runs of back-to-back calls (at least 50 and 20 ms) rotating over
+   input copies that together exceed the 50 MB L2 (``ms``, median of three
+   such runs taken in turns with the other functions timed at that shape),
+   the host's enqueue time a call
+   (``host_ms``), torch.profiler's device time a call (``device_ms``) and
+   the old single-call window (``single_ms``). The row gathers are also
+   timed in each form (``scalar_ms``, ``pairs_ms``), ``delivery_reduce``
+   at merge_10k against two ``rowmax`` and a max pass, and ``rowsum``
+   against ``torch.zeros`` + ``scatter_add_`` (no single call makes its
+   fresh plane);
 4. small runs on the card (kernels) and on the CPU (plain versions), with
    identical curves and final state: ``wan_100k(n=2000, ...)``,
    ``three_node()``, ``churn_32()`` and its wipe variant,
@@ -50,7 +63,9 @@ shape measured on it; its top-level times are those of its first shape.
 
 from __future__ import annotations
 
+import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -63,6 +78,10 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 # INT32 outside the tensor cores: half the data sheet's 67 TFLOP/s float32,
 # since a Hopper SM issues 64 INT32 lanes a clock against 128 FP32 lanes.
 H100_INT_OPS_PER_S = 33.5e12
+L2_BYTES = 50 * 2**20  # H100 L2 cache
+RUN_CALLS = 50  # back-to-back calls a timed run at least (in whole cycles of copies)
+MIN_RUN_MS = 20.0  # and at least this long
+RUNS = 3  # timed runs a function, in turns with the others; the median counts
 
 KERNELS = {
     # name: (source, the TPU kernel it replaces)
@@ -102,7 +121,8 @@ def smi_line() -> str:
 
 
 def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` CUDA-event windows."""
+    """Median milliseconds of ``fn()`` over ``reps`` CUDA-event windows of
+    one call each: what the host does before the launch falls inside."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -116,6 +136,94 @@ def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _prefix(key: str) -> str:
+    return key[: -len("ms")]  # "ms" -> "", "plain_ms" -> "plain_"
+
+
+def run_ms(fns: dict, inputs: tuple, bytes_per_call: int) -> dict:
+    """Milliseconds a call of each ``fns[key](*inputs)``, four ways:
+
+    - ``key``: CUDA events around a run of back-to-back calls (at least
+      ``RUN_CALLS`` and ``MIN_RUN_MS``), divided by the count; the median
+      of ``RUNS`` such runs, taken in turns over the functions. The calls
+      rotate over enough copies of ``inputs`` that one cycle moves more
+      than the L2 holds, so each finds its data cold;
+    - ``<prefix>host_ms``: host time a call to enqueue those runs (median;
+      a function of one launch never waits on the card here, one of many
+      may once the launch queue fills);
+    - ``<prefix>device_ms``: device time a call (every kernel, copy and
+      set it launches) from torch.profiler over one more run;
+    - ``<prefix>single_ms``: the median single-call window (``cuda_ms``).
+
+    Where ``key`` exceeds ``device_ms`` and meets ``host_ms``, the host
+    sets the pace."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from corrosion_tpu_torch.profiling import device_events_by_range, trace_events
+
+    copies = [inputs] + [
+        tuple(t.clone() for t in inputs) for _ in range(L2_BYTES // max(bytes_per_call, 1))
+    ]
+
+    def run(fn, calls):
+        for i in range(calls):
+            fn(*copies[i % len(copies)])
+
+    # The warm-up run (allocator, clocks, caches) also sizes each function's
+    # timed runs: at least RUN_CALLS calls and MIN_RUN_MS of events, in whole
+    # cycles of the copies, so one host hiccup moves a run little.
+    calls = {}
+    for key, fn in fns.items():
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run(fn, RUN_CALLS)
+        b.record()
+        b.synchronize()
+        want = max(RUN_CALLS, math.ceil(MIN_RUN_MS * RUN_CALLS / max(a.elapsed_time(b), 1e-3)))
+        calls[key] = len(copies) * -(-want // len(copies))
+    runs = {key: [] for key in fns}
+    for _ in range(RUNS):
+        for key, fn in fns.items():
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            gc.collect()
+            gc.disable()  # no collector pause inside a timed run (as timeit)
+            try:
+                a.record()
+                t0 = time.perf_counter()
+                run(fn, calls[key])
+                host = time.perf_counter() - t0
+                b.record()
+                b.synchronize()
+            finally:
+                gc.enable()
+            runs[key].append((a.elapsed_time(b) / calls[key], host * 1e3 / calls[key]))
+    out = {}
+    for key, fn in fns.items():
+        out[key] = statistics.median(t for t, _ in runs[key])
+        out[_prefix(key) + "host_ms"] = statistics.median(h for _, h in runs[key])
+        out[_prefix(key) + "single_ms"] = cuda_ms(lambda: fn(*inputs))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # The first ranges of a session can lose device events while tracing
+        # starts: a full untimed run of every function goes first.
+        with record_function("warm-up"):
+            for key, fn in fns.items():
+                run(fn, calls[key])
+            torch.cuda.synchronize()
+        for key, fn in fns.items():
+            with record_function(key):
+                run(fn, calls[key])
+                torch.cuda.synchronize()
+    device = dict.fromkeys(fns, 0.0)
+    for key, e in device_events_by_range(trace_events(prof), fns, by_own_start=True):
+        if key is not None:
+            device[key] += e["dur"] / 1e3
+    for key in fns:
+        out[_prefix(key) + "device_ms"] = device[key] / calls[key]
+    return out
 
 
 def nbytes(*ts) -> int:
@@ -155,6 +263,37 @@ def _inputs(g, r, m, w, device):
     return idx, val, mask
 
 
+GATHER_EDGES = (
+    (1, 1, 1), (37, 19, 41), (33, 17, 130), (1001, 144, 512), (2001, 36, 256),
+    (40, 128, 511), (40, 127, 512), (40, 255, 512), (40, 256, 512), (40, 257, 512),
+    (9, 144, 10_000), (3, 50, 16_384),
+)
+
+
+def check_gathers(onehot, table, idx, where: str) -> None:
+    """``rowgather`` and ``rowgather_wide`` equal their plain versions
+    through the public wrappers (the rule's form) and in each form forced
+    (``onehot._gather``, on non-empty inputs), with ``idx`` and with its
+    first row broadcast (row stride 0) as ``[1, M]`` and as an expanded
+    view."""
+    r, w = table.shape
+    forms = onehot.GATHER_FORMS if idx.numel() and w else ()
+    bcast = idx[:1]
+    for ix in (idx, bcast, bcast.expand(r, -1)) if r else (idx,):
+        want = onehot.rowgather_plain(table, ix)
+        assert equal(onehot.rowgather(table, ix), want), \
+            f"rowgather differs at {where}, idx strides {ix.stride()}"
+        for f in forms:
+            assert equal(onehot._gather("rowgather", table, ix, False, f), want), \
+                f"rowgather ({f}) differs at {where}, idx strides {ix.stride()}"
+        if ix is idx:  # rowgather_wide takes a contiguous [R, M] index only
+            want = onehot.rowgather_wide_plain(table, ix)
+            assert equal(onehot.rowgather_wide(table, ix), want), f"rowgather_wide differs at {where}"
+            for f in forms:
+                assert equal(onehot._gather("rowgather_wide", table, ix, True, f), want), \
+                    f"rowgather_wide ({f}) differs at {where}"
+
+
 def check_kernels(onehot, device) -> list:
     """Exact equality kernel vs plain on edge cases and at the shapes each
     main path gives each kernel; returns one measurement per kernel and
@@ -176,14 +315,7 @@ def check_kernels(onehot, device) -> list:
             got, want = onehot.rowsum(idx, val, msk, w), onehot.rowsum_plain(idx, val, msk, w)
             assert equal(got, want), f"rowsum differs at {(r, m, w)}"
         table = torch.randint(0, 1 << 32, (r, w), generator=g).to(device)
-        assert equal(onehot.rowgather(table, idx), onehot.rowgather_plain(table, idx)), \
-            f"rowgather differs at {(r, m, w)}"
-        assert equal(onehot.rowgather_wide(table, idx), onehot.rowgather_wide_plain(table, idx)), \
-            f"rowgather_wide differs at {(r, m, w)}"
-        if r:
-            cols = torch.randint(-1, w + 2, (m,), generator=g).to(device)[None, :].expand(r, m)
-            assert equal(onehot.rowgather(table, cols), onehot.rowgather_plain(table, cols)), \
-                f"rowgather (broadcast idx) differs at {(r, m, w)}"
+        check_gathers(onehot, table, idx, f"{(r, m, w)}")
         seen = torch.randint(0, 1 << 32, (r, w), generator=g).to(device)
         d = torch.randint(0, 200, (r, m), generator=g).to(device)
         applied = mask & (d < 150)
@@ -197,6 +329,15 @@ def check_kernels(onehot, device) -> list:
             got = onehot.window_delivery(oo, idx, dd, adv_m, mask, wk, w)
             want = onehot.window_delivery_plain(oo, idx, dd, adv_m, mask, wk, w)
             assert all(equal(x, y) for x, y in zip(got, want)), f"window_delivery differs at {(r, m, w, wk)}"
+    # The row gathers' forms: odd m (scalar pair tails), odd W, row counts
+    # off the tiles, m at the form rule's threshold (W/2) and one either
+    # side, W = 10,000 and 16,384.
+    for r, m, w in GATHER_EDGES:
+        table = torch.randint(0, 1 << 32, (r, w), generator=g).to(device)
+        flat = torch.randint(-3, w + 3, (r * m + 1,), generator=g).to(device)
+        check_gathers(onehot, table, flat[:-1].view(r, m), f"{(r, m, w)}")
+        # A view at an odd storage offset: idx not 16-byte aligned.
+        check_gathers(onehot, table, flat[1:].view(r, m), f"{(r, m, w)} offset idx")
     # table_gather: an empty table or index, widths off multiples of 128,
     # the shared-memory opt-in (16,384 entries, 128 KB) and a table read
     # from global memory (100,000 entries), indices past both ends.
@@ -210,26 +351,29 @@ def check_kernels(onehot, device) -> list:
             f"table_gather differs at W={w}, idx {shape}"
     torch.cuda.synchronize()
     log("phase 3: edge cases equal (0-width axes, out-of-range, bit 31, wk 32/64, "
-        "W 10,000 and 16,384; table_gather W 0 to 100,000)")
+        "W 10,000 and 16,384; every gather form and semantics, row stride 0 and M, "
+        "odd m and W, offset idx; table_gather W 0 to 100,000)")
 
     out = []
 
-    def measure(name, path, shape, kernel, plain, library, in_bytes, ops, **extra):
-        """Exact equality of ``kernel()`` and ``plain()``, then CUDA-event
-        times of both and of ``library()``; the bound counts ``in_bytes``
-        plus the kernel's outputs."""
-        got, want = kernel(), plain()
+    def measure(name, path, shape, inputs, kernel, plain, library, in_bytes, ops, **extra):
+        """Exact equality of ``kernel(*inputs)`` and ``plain(*inputs)``, then
+        the times of both, of ``library`` and of each ``extra`` function
+        (``run_ms``); the bound counts ``in_bytes`` plus the kernel's
+        outputs."""
+        got, want = kernel(*inputs), plain(*inputs)
         err = max_abs_err(got, want)
         assert err == 0, f"{name} differs from its plain version at {path} {shape}"
         outs = got if isinstance(got, tuple) else (got,)
         del got, want
-        out.append(dict(
-            name=name, path=path, shape=shape, err=err,
-            ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
-            library_ms=None if library is None else cuda_ms(library),
-            bound=bound(in_bytes + nbytes(*outs), ops),
-            **{k: cuda_ms(fn) for k, fn in extra.items()},
-        ))
+        moved = in_bytes + nbytes(*outs)
+        fns = {"ms": kernel, "plain_ms": plain, **extra}
+        if library is not None:
+            fns["library_ms"] = library
+        times = run_ms(fns, inputs, moved)
+        times.setdefault("library_ms", None)
+        out.append(dict(name=name, path=path, shape=shape, err=err,
+                        bound=bound(moved, ops), **times))
 
     def rowmax_case(path, n, kk, k):
         idx, val, mask = _inputs(g, n, kk, k, device)
@@ -238,27 +382,56 @@ def check_kernels(onehot, device) -> list:
         safe = torch.where(mask, idx, k)
         zeros = torch.zeros((n, k + 1), dtype=torch.int64, device=device)
         measure(
-            "rowmax", path, f"[{n},{kk}]->[{n},{k}]",
-            lambda: onehot.rowmax(idx, val, mask, k),
-            lambda: onehot.rowmax_plain(idx, val, mask, k),
+            "rowmax", path, f"[{n},{kk}]->[{n},{k}]", (idx, val, mask, safe, zeros),
+            lambda idx, val, mask, safe, zeros: onehot.rowmax(idx, val, mask, k),
+            lambda idx, val, mask, safe, zeros: onehot.rowmax_plain(idx, val, mask, k),
             # amax is idempotent, so repeating it in place times the call alone.
-            lambda: zeros.scatter_reduce_(1, safe, val, "amax"),
+            lambda idx, val, mask, safe, zeros: zeros.scatter_reduce_(1, safe, val, "amax"),
             nbytes(idx, val, mask), 2 * idx.numel(),
         )
         return idx
 
-    def gather_case(path, table, gidx):
-        # The gather needs only the table words it addresses.
+    def gather_case(path, site, table, gidx, wide=False):
+        """One row gather at ``site``; ``gidx`` 1-D is one column list
+        broadcast over every row (row stride 0, as ``visibility`` passes
+        it). The bound reads only the table words the gather addresses."""
+        r, w = table.shape
+        m = gidx.shape[-1]
+        full = gidx.expand(r, m)
         touched = torch.zeros(table.shape, dtype=torch.bool, device=device)
-        touched.scatter_(1, gidx, True)
-        r, m = gidx.shape
+        touched.scatter_(1, full, True)
+        name = "rowgather_wide" if wide else "rowgather"
+        kern = onehot.rowgather_wide if wide else onehot.rowgather
+        plain = onehot.rowgather_wide_plain if wide else onehot.rowgather_plain
+        # Each form forced through the wrappers' launcher (no input checks,
+        # so its host time is below the wrapper's), each exact as well; the
+        # kernel's own entry is the public wrapper, in the form the rule picks.
+        forms = {}
+        want = plain(table, full)
+        for f in onehot.GATHER_FORMS:
+            got = onehot._gather(name, table, full, wide, f)
+            assert equal(got, want), f"{name} {f} differs at {site}"
+            forms[f"{f}_ms"] = lambda t, i, f=f: onehot._gather(name, t, i.expand(r, m), wide, f)
+        del want, got
         measure(
-            "rowgather", path, f"[{r},{table.shape[1]}]<-[{r},{m}]",
-            lambda: onehot.rowgather(table, gidx),
-            lambda: onehot.rowgather_plain(table, gidx),
-            lambda: torch.gather(table, 1, gidx),
-            nbytes(gidx) + 8 * int(touched.sum()), gidx.numel(),
+            name, path, f"{site} [{r},{w}]<-"
+            + (f"[{m}] broadcast" if gidx.dim() == 1 else f"[{r},{m}]")
+            + f" ({onehot.gather_form(w, m, gidx.dim() == 1)})",
+            (table, gidx),
+            lambda t, i: kern(t, i.expand(r, m)),
+            lambda t, i: plain(t, i.expand(r, m)),
+            # Every index is in range, so gather on it needs no mask or clip.
+            lambda t, i: torch.gather(t, 1, i.expand(r, m)),
+            nbytes(gidx) + 8 * int(touched.sum()), r * m,
+            **forms,
         )
+
+    def u24(*shape):
+        return torch.randint(0, 1 << 24, shape, generator=g).to(device)
+
+    def sorted_idx(r, budget, w):
+        # A grant enumeration's columns: ascending along each row.
+        return torch.sort(torch.randint(0, w, (r, budget), generator=g).to(device), dim=1).values
 
     def reduce_case(path, n, kk, w, d_hi, v_hi, **extra_fns):
         widx = torch.randint(0, w, (n, kk), generator=g).to(device)
@@ -269,23 +442,24 @@ def check_kernels(onehot, device) -> list:
         seen = torch.randint(0, v_hi, (n, w), generator=g).to(device)
         measure(
             "delivery_reduce", path, f"[{n},{kk}]x5,[{n},{w}]->2x[{n},{w}]",
-            lambda: onehot.delivery_reduce(widx, d, v, applied, valid, seen, w),
-            lambda: onehot.delivery_reduce_plain(widx, d, v, applied, valid, seen, w),
+            (widx, d, v, applied, valid, seen),
+            lambda *a: onehot.delivery_reduce(*a, w),
+            lambda *a: onehot.delivery_reduce_plain(*a, w),
             None,
             nbytes(widx, d, v, applied, valid, seen), 4 * widx.numel(),
-            **{k: fn(widx, d, v, applied, valid, seen, w) for k, fn in extra_fns.items()},
+            **extra_fns,
         )
         return widx, d, valid
 
-    def fast_path(path, n, kk, w, k):
-        """The fast delivery path's four kernels: the CRDT merge's rowmax,
-        the base gather, the delivery reductions and the window."""
-        rowmax_case(path, n, kk, k)
-        gather_case(
-            path,
-            torch.randint(0, 1 << 24, (n, w), generator=g).to(device),
-            torch.randint(0, w, (n, kk), generator=g).to(device),
-        )
+    def fast_path(path, n, kk, w, k, samples, r_sync, budget):
+        """The fast delivery path's kernels at one path's shapes: the CRDT
+        merge's rowmax, every rowgather site, the delivery reductions and
+        the window."""
+        idx = rowmax_case(path, n, kk, k)
+        gather_case(path, "base gather", u24(n, w), torch.randint(0, w, (n, kk), generator=g).to(device))
+        gather_case(path, "CRDT winner check", u24(n, k), idx)
+        gather_case(path, "sync grants", u24(r_sync, w), sorted_idx(r_sync, budget, w))
+        gather_case(path, "visibility", u24(n, w), torch.randint(0, w, (samples,), generator=g).to(device))
         widx, d, valid = reduce_case(path, n, kk, w, 40, 1 << 20)
         oo = torch.randint(0, 1 << 32, (1, n, w), generator=g).to(device)
         adv_m = torch.randint(0, 8, (n, kk), generator=g).to(device)
@@ -293,87 +467,70 @@ def check_kernels(onehot, device) -> list:
         wtouched.scatter_(1, widx, valid)
         measure(
             "window_delivery", path, f"[1,{n},{w}],[{n},{kk}]x4->[{n},{kk}],[1,{n},{w}]",
-            lambda: onehot.window_delivery(oo, widx, d, adv_m, valid, 32, w),
-            lambda: onehot.window_delivery_plain(oo, widx, d, adv_m, valid, 32, w),
+            (oo, widx, d, adv_m, valid),
+            lambda *a: onehot.window_delivery(*a, 32, w),
+            lambda *a: onehot.window_delivery_plain(*a, 32, w),
             None,
             nbytes(widx, d, adv_m, valid) + 8 * int(wtouched.sum()), 8 * widx.numel(),
         )
 
-    def grants_case(path, r_sync, w, budget):
-        # The sync grant enumeration: each cohort row's writer of every
-        # granted unit, ascending along the row.
-        gather_case(
-            path,
-            torch.randint(0, 1 << 24, (r_sync, w), generator=g).to(device),
-            torch.sort(torch.randint(0, w, (r_sync, budget), generator=g).to(device),
-                       dim=1).values,
-        )
-
-    # wan_100k: N=100,000 rows, kk=144 messages, W=512 writers, K=256 cells.
-    fast_path("wan_100k", 100_000, 144, 512, 256)
+    # wan_100k: N=100,000 rows, kk=144 messages, W=512 writers, K=256 cells,
+    # S=128 samples, sync cohort 16,667 rows (interval 6) with budget 512.
+    fast_path("wan_100k", 100_000, 144, 512, 256, 128, 16_667, 512)
 
     # merge_10k: N = W = 10,000 rows and writers, kk = 144 messages,
-    # K = 1,024 cells, sync cohort R = 2,000 rows with budget 512.
+    # K = 1,024 cells, S = 256 samples, sync cohort R = 2,000 rows with
+    # budget 512.
     n, kk, w, k, r_sync, budget = 10_000, 144, 10_000, 1024, 2_000, 512
     idx = rowmax_case("merge_10k", n, kk, k)
-    # The CRDT merge's winner check reads the [N, K] packed plane.
-    gather_case("merge_10k", torch.randint(0, 1 << 26, (n, k), generator=g).to(device), idx)
-    grants_case("merge_10k", r_sync, w, budget)
+    gather_case("merge_10k", "CRDT winner check", torch.randint(0, 1 << 26, (n, k), generator=g).to(device), idx)
+    gather_case("merge_10k", "sync grants", u24(r_sync, w), sorted_idx(r_sync, budget, w))
+    gather_case("merge_10k", "visibility", u24(n, w), torch.randint(0, w, (256,), generator=g).to(device))
 
     # The legacy contig_run/seen reductions, and the two-rowmax form of the
     # same function (two launches and a max pass) timed beside them.
-    def two_rowmax(widx, d, v, applied, valid, seen, w):
-        return lambda: (
-            onehot.rowmax(widx, d, applied, w),
-            torch.maximum(seen, onehot.rowmax(widx, v, valid, w)),
-        )
+    def two_rowmax(widx, d, v, applied, valid, seen):
+        return (onehot.rowmax(widx, d, applied, w),
+                torch.maximum(seen, onehot.rowmax(widx, v, valid, w)))
 
     reduce_case("merge_10k", n, kk, w, 1 << 20, 1 << 20, two_rowmax_ms=two_rowmax)
 
-    table = torch.randint(0, 1 << 24, (n, w), generator=g).to(device)
+    # The legacy base gather (and the window's word reads, same shape).
     widx = torch.randint(0, w, (n, kk), generator=g).to(device)
-    touched = torch.zeros((n, w), dtype=torch.bool, device=device)
-    touched.scatter_(1, widx, True)
-    measure(
-        "rowgather_wide", "merge_10k", f"[{n},{w}]<-[{n},{kk}]",
-        lambda: onehot.rowgather_wide(table, widx),
-        lambda: onehot.rowgather_wide_plain(table, widx),
-        # The index is already in range, so gather on it needs no clip.
-        lambda: torch.gather(table, 1, widx),
-        nbytes(widx) + 8 * int(touched.sum()), widx.numel(),
-    )
-    del table, touched
+    gather_case("merge_10k", "legacy base gather", u24(n, w), widx, wide=True)
 
     # The legacy window assembly: one power of two per admitted message.
     bits = torch.where(
         torch.rand((n, kk), generator=g).to(device) < 0.5,
         1 << torch.randint(0, 32, (n, kk), generator=g).to(device), 0,
     )
-    acc = torch.zeros((n, w + 1), dtype=torch.int64, device=device)
     measure(
-        "rowsum", "merge_10k", f"[{n},{kk}]->[{n},{w}]",
-        lambda: onehot.rowsum(widx, bits, None, w),
-        lambda: onehot.rowsum_plain(widx, bits, None, w),
-        # In place into a kept buffer: no zero fill of the output plane.
-        lambda: acc.scatter_add_(1, widx, bits),
+        "rowsum", "merge_10k", f"[{n},{kk}]->[{n},{w}]", (widx, bits),
+        lambda widx, bits: onehot.rowsum(widx, bits, None, w),
+        lambda widx, bits: onehot.rowsum_plain(widx, bits, None, w),
+        # No one PyTorch call makes a fresh zero-filled plane holding the
+        # sums: the two-call composition is timed beside it.
+        None,
         nbytes(widx, bits), widx.numel(),
+        zeros_scatter_add_ms=lambda widx, bits: torch.zeros(
+            (n, w), dtype=torch.int64, device=device).scatter_add_(1, widx, bits),
     )
-    del acc, widx, bits, idx
+    del widx, bits, idx
 
     # anywrite_sparse: N = 100,000 rows, kk = 320 messages (fanout 5 x queue
-    # 64), W = 2,048 hot slots, K = 256 cells, sync cohort 16,667 rows with
-    # budget 512. The fast path's four kernels, the sync grant gather, then
-    # table_gather: the grant enumeration maps each granted unit's slot to
-    # its global writer, rotate maps every queue entry's slot through the
+    # 64), W = 2,048 hot slots, K = 256 cells, S = 256 samples, sync cohort
+    # 16,667 rows with budget 512. The fast path's kernels, cold_sync's
+    # grant gathers ([N, k_dev = 256] deviation tables, 64 units a node),
+    # then table_gather: the grant enumeration maps each granted unit's slot
+    # to its global writer, rotate maps every queue entry's slot through the
     # reset-slot mask.
     w_hot, r_sync, n, q = 2048, 16_667, 100_000, 64
-    fast_path("anywrite_sparse", n, 5 * q, w_hot, 256)
-    grants_case("anywrite_sparse", r_sync, w_hot, budget)
+    fast_path("anywrite_sparse", n, 5 * q, w_hot, 256, 256, r_sync, budget)
+    gather_case("anywrite_sparse", "cold_sync grants", u24(n, 256), sorted_idx(n, 64, 256))
     for table, tidx in (
         (
             torch.randint(0, n, (w_hot,), generator=g).to(device),
-            torch.sort(torch.randint(0, w_hot, (r_sync, budget), generator=g).to(device),
-                       dim=1).values,
+            sorted_idx(r_sync, budget, w_hot),
         ),
         (
             (torch.rand((w_hot,), generator=g) < 0.4).to(torch.int64).to(device),
@@ -381,22 +538,18 @@ def check_kernels(onehot, device) -> list:
         ),
     ):
         measure(
-            "table_gather", "anywrite_sparse", f"[{w_hot}]<-{list(tidx.shape)}",
-            lambda: onehot.table_gather(table, tidx),
-            lambda: onehot.table_gather_plain(table, tidx),
+            "table_gather", "anywrite_sparse", f"[{w_hot}]<-{list(tidx.shape)}", (table, tidx),
+            onehot.table_gather, onehot.table_gather_plain,
             # The index is already in range, so take on it needs no clip.
-            lambda: torch.take(table, tidx),
+            torch.take,
             nbytes(table, tidx), tidx.numel(),
         )
     for row in out:
-        extra = "".join(
-            f", {k} {v:.4f} ms" for k, v in row.items() if k.endswith("_ms") and k not in
-            ("plain_ms", "library_ms")
+        times = ", ".join(
+            f"{k} {v:.4f}" for k, v in row.items() if k.endswith("ms") and v is not None
         )
-        log(f"phase 3: {row['name']} {row['path']} {row['shape']} equal; kernel "
-            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
-            f"{row['library_ms']} ms, bound {row['bound'][0]:.4f} ms "
-            f"({row['bound'][1]}){extra}")
+        log(f"phase 3: {row['name']} {row['path']} {row['shape']} equal; {times}; bound "
+            f"{row['bound'][0]:.4f} ms ({row['bound'][1]})")
     return out
 
 

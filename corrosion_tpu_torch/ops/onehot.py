@@ -49,7 +49,7 @@ _I = ctypes.c_int64
 # kernel: (source in csrc/, C symbol, argument types)
 _SIGNATURES = {
     "rowmax": ("rowmax", "corro_rowmax", (_P, _P, _P, _P, _I, _I, _I, _P)),
-    "rowgather": ("rowgather", "corro_rowgather", (_P, _P, _P, _I, _I, _I, _I, _P)),
+    "rowgather": ("rowgather", "corro_rowgather", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "delivery_reduce": (
         "delivery_reduce", "corro_delivery_reduce",
         (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -58,8 +58,9 @@ _SIGNATURES = {
         "window_delivery", "corro_window_delivery",
         (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     ),
+    # One C entry point serves both gathers (a semantics flag).
     "rowgather_wide": (
-        "rowgather", "corro_rowgather_wide", (_P, _P, _P, _I, _I, _I, _P),
+        "rowgather", "corro_rowgather", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     ),
     "rowsum": ("rowsum", "corro_rowsum", (_P, _P, _P, _P, _I, _I, _I, _P)),
     "table_gather": (
@@ -85,8 +86,17 @@ def _kernel(name: str):
     return fn
 
 
+# The raw handle of PyTorch's current stream (an int), without building a
+# torch.cuda.Stream object each launch; absent from CPU-only builds.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def _launch(name: str, *args) -> None:
-    stream = torch.cuda.current_stream().cuda_stream
+    """Launch kernel ``name`` on the current device's current stream."""
+    stream = (
+        torch.cuda.current_stream().cuda_stream if _raw_stream is None
+        else _raw_stream(torch._C._cuda_getDevice())
+    )
     err = _kernel(name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
@@ -96,14 +106,17 @@ def _launch(name: str, *args) -> None:
 def _on_cuda(*ts: torch.Tensor) -> bool:
     """True for CUDA tensors (kernel), False for CPU tensors (plain
     version); raises on any other device or a device mix."""
-    dev = ts[0].device
-    if any(t.device != dev for t in ts):
-        raise ValueError(f"tensors span devices {[str(t.device) for t in ts]}")
-    if dev.type == "cuda":
-        return True
-    if dev.type == "cpu":
+    first = ts[0]
+    if first.is_cuda:
+        dev = first.get_device()
+        if all(t.is_cuda and t.get_device() == dev for t in ts):
+            return True
+    elif first.is_cpu and all(t.is_cpu for t in ts):
         return False
-    raise ValueError(f"unsupported device {dev}")
+    devices = {str(t.device) for t in ts}
+    if len(devices) > 1:
+        raise ValueError(f"tensors span devices {[str(t.device) for t in ts]}")
+    raise ValueError(f"unsupported device {first.device}")
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape=None) -> None:
@@ -203,7 +216,43 @@ def rowsum(idx, val, mask, width: int) -> torch.Tensor:
     return out
 
 
-# -- rowgather ----------------------------------------------------------------
+# -- rowgather / rowgather_wide -----------------------------------------------
+
+# The row-gather kernel's forms (csrc/rowgather.cu `Form`, in order):
+# "scalar" (one output a thread) and "pairs" (two outputs a thread, 16-byte
+# index and output accesses, over tiles of whole rows).
+GATHER_FORMS = ("scalar", "pairs")
+_I32 = 1 << 31
+
+
+def gather_form(width: int, m: int, broadcast: bool) -> str:
+    """The form a [R, width] <- [R, m] row gather takes. Both were timed at
+    every main-path shape in one chip call (PERF.md §6): pairs won where a
+    call addresses its rows densely (m >= width / 2, the CRDT winner checks
+    and wan_100k's grants), scalar on wide, sparsely addressed rows and
+    broadcast indices (merge_10k, visibility), the two tied between."""
+    return "pairs" if not broadcast and 2 * m >= width else "scalar"
+
+
+def _gather(name: str, table, idx, clip: bool, form=None) -> torch.Tensor:
+    """Launch the row-gather kernel on checked CUDA inputs in ``form``
+    (None: ``gather_form``; tests and chip_smoke.py force each form);
+    ``idx`` has unit column stride and row stride 0 (broadcast) or M."""
+    r, width = table.shape
+    m = idx.shape[1]
+    if max(r, m, width) >= _I32:
+        raise ValueError(f"{name}: rows, columns and width must each be below 2^31")
+    broadcast = idx.shape[0] == 1 or idx.stride(0) == 0
+    if form is None:
+        form = gather_form(width, m, broadcast)
+    elif form not in GATHER_FORMS:
+        raise ValueError(f"{name}: form must be one of {GATHER_FORMS}, got {form!r}")
+    out = table.new_empty((r, m))
+    _launch(
+        name, table.data_ptr(), idx.data_ptr(), out.data_ptr(), r, m, width,
+        0 if broadcast else m, int(clip), GATHER_FORMS.index(form),
+    )
+    return out
 
 
 def rowgather_plain(table, idx) -> torch.Tensor:
@@ -232,16 +281,7 @@ def rowgather(table, idx) -> torch.Tensor:
         raise TypeError(f"idx: expected torch.int64, got {idx.dtype}")
     if idx.shape[0] not in (1, r) or idx.stride(1) != 1 or idx.stride(0) not in (0, m):
         raise ValueError("idx: needs unit column stride and row stride 0 or M")
-    row_stride = 0 if (idx.shape[0] == 1 or idx.stride(0) == 0) else m
-    out = torch.empty((r, m), dtype=torch.int64, device=table.device)
-    _launch(
-        "rowgather", table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-        r, m, width, row_stride,
-    )
-    return out
-
-
-# -- rowgather_wide -----------------------------------------------------------
+    return _gather("rowgather", table, idx, False)
 
 
 def rowgather_wide_plain(table, idx) -> torch.Tensor:
@@ -265,12 +305,7 @@ def rowgather_wide(table, idx) -> torch.Tensor:
         return rowgather_wide_plain(table, idx)
     _check(table, "table", torch.int64)
     _check(idx, "idx", torch.int64, (r, m))
-    out = torch.empty((r, m), dtype=torch.int64, device=table.device)
-    _launch(
-        "rowgather_wide", table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-        r, m, width,
-    )
-    return out
+    return _gather("rowgather_wide", table, idx, True)
 
 
 # -- table_gather -------------------------------------------------------------

@@ -18,7 +18,8 @@ the exported trace:
   window);
 - device time per plane: kernels whose launch falls inside each
   ``corro_*`` profiler range of ``cluster_round``, plus ``other`` (keys,
-  curve stacking, chunk set-up);
+  curve stacking, chunk set-up, and any event whose launch record the
+  trace lost: ``no_launch_record_ms_per_round`` says how much);
 - the top kernels by device time and the ported kernels' share;
 - host syncs per round (``gossip.HOST_SYNCS``) and kernel launches per
   round.
@@ -37,23 +38,24 @@ _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)
 import argparse
 import json
 import subprocess
-import tempfile
 from collections import defaultdict
 from pathlib import Path
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from corrosion_tpu_torch.profiling import device_events_by_range, launch_times, trace_events
+
 PLANES = ("corro_broadcast", "corro_swim", "corro_sync", "corro_track", "corro_health")
-# kernel: the substring of its device-side name in the trace
+# kernel: the substring of its device-side name in the trace (the row
+# gathers' template is rowgather_kernel<kClip, kStaged>: both forms count)
 PORTED = {
-    "rowmax": "rowmax_kernel", "rowgather": "rowgather_kernel<false>",
+    "rowmax": "rowmax_kernel", "rowgather": "rowgather_kernel<false",
     "delivery_reduce": "delivery_reduce_kernel",
     "window_delivery": "window_delivery_kernel",
-    "rowgather_wide": "rowgather_kernel<true>", "rowsum": "rowsum_kernel",
+    "rowgather_wide": "rowgather_kernel<true", "rowsum": "rowsum_kernel",
     "table_gather": "table_gather_kernel",
 }
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def _union(intervals) -> float:
@@ -69,30 +71,21 @@ def _union(intervals) -> float:
 
 
 def analyse(events: list, window_ms: float, rounds: int) -> dict:
-    ranges = [
-        (e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-        if e.get("cat") == "user_annotation" and e.get("name") in PLANES
-    ]
-    launch_ts = {
-        e["args"]["correlation"]: e["ts"] for e in events
-        if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})
-    }
-    dev = [e for e in events if e.get("cat") in DEVICE_CATS]
+    # No placement by an event's own start: the host runs ahead of the
+    # card, so a kernel launched in one plane often runs in the next.
+    dev = device_events_by_range(events, PLANES)
+    launched = launch_times(events)
+    lost_ms = sum(
+        e["dur"] for _, e in dev if e.get("args", {}).get("correlation") not in launched
+    ) / 1e3
     per_plane = defaultdict(float)
     per_kernel = defaultdict(float)
     count = defaultdict(int)
-    for e in dev:
-        ts = launch_ts.get(e.get("args", {}).get("correlation"))
-        plane = "other"
-        if ts is not None:
-            for s, t, name in ranges:
-                if s <= ts <= t:
-                    plane = name
-                    break
-        per_plane[plane] += e["dur"] / 1e3
+    for plane, e in dev:
+        per_plane[plane or "other"] += e["dur"] / 1e3
         per_kernel[e["name"]] += e["dur"] / 1e3
         count[e["name"]] += 1
-    busy_ms = _union((e["ts"], e["ts"] + e["dur"]) for e in dev) / 1e3
+    busy_ms = _union((e["ts"], e["ts"] + e["dur"]) for _, e in dev) / 1e3
     device_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]
     ported = {
@@ -107,6 +100,7 @@ def analyse(events: list, window_ms: float, rounds: int) -> dict:
         "plane_device_ms_per_round": {
             k: round(v / rounds, 3) for k, v in sorted(per_plane.items())
         },
+        "no_launch_record_ms_per_round": lost_ms / rounds,
         "device_ops_per_round": sum(count.values()) / rounds,
         "top_kernels_ms_per_round": [
             {"name": n[:120], "ms": round(v / rounds, 4), "calls": count[n] / rounds}
@@ -163,11 +157,7 @@ def main(argv=None) -> int:
             engine.simulate(cfg, topo, window, seed=0, state=state, device="cuda")
         b.record()
         b.synchronize()
-    with tempfile.TemporaryDirectory(dir=".") as td:
-        trace = Path(td) / "trace.json"
-        prof.export_chrome_trace(str(trace))
-        events = json.loads(trace.read_text())["traceEvents"]
-    out = analyse(events, a.elapsed_time(b), args.rounds)
+    out = analyse(trace_events(prof), a.elapsed_time(b), args.rounds)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,

@@ -82,6 +82,53 @@ def test_kernels_equal_plain(cuda, r, m, w):
     }
 
 
+# The row gathers in each form and both semantics: odd m (a scalar tail
+# on every other row of the pairs form), odd W, row counts that are not a
+# multiple of either form's tile (scalar: 256 outputs; pairs: 512), m at
+# the form rule's threshold (W/2) and one either side, and wide rows
+# (10,000 and 16,384 columns).
+GATHER_SHAPES = [
+    (1, 1, 1), (37, 19, 41), (33, 17, 130), (1001, 144, 512), (2001, 36, 256),
+    (40, 128, 511), (40, 255, 512), (40, 256, 512), (40, 257, 512),
+    (9, 144, 10_000), (3, 50, 16_384),
+]
+
+
+def _gather_cases(seed, r, m, w, dev):
+    """(table, idx views): the plain [R, M] index with entries below 0 and
+    at or above W, the same at an odd storage offset (not 16-byte
+    aligned), and its first row broadcast as [1, M] and as a stride-0
+    expand."""
+    g = np.random.default_rng(seed)
+    table = torch.as_tensor(
+        g.integers(0, 1 << 32, (r, w), dtype=np.uint64).astype(np.int64), device=dev
+    )
+    flat = torch.as_tensor(g.integers(-3, w + 3, r * m + 1), device=dev)
+    idx = flat[:-1].view(r, m)
+    return table, (idx, flat[1:].view(r, m), idx[:1], idx[:1].expand(r, m))
+
+
+@pytest.mark.parametrize("r,m,w", GATHER_SHAPES)
+@pytest.mark.parametrize("form", [None, "scalar", "pairs"])
+def test_row_gathers_equal_plain(cuda, r, m, w, form):
+    # form None goes through the public wrappers (the rule picks); a named
+    # form is forced through the wrappers' shared launcher.
+    table, views = _gather_cases(r * m + w, r, m, w, cuda)
+    onehot.reset_launches()
+    for ix in views:
+        want = onehot.rowgather_plain(table, ix)
+        got = (onehot.rowgather(table, ix) if form is None
+               else onehot._gather("rowgather", table, ix, False, form))
+        assert torch.equal(got, want), ix.stride()
+    for ix in views[:2]:
+        want = onehot.rowgather_wide_plain(table, ix)
+        got = (onehot.rowgather_wide(table, ix) if form is None
+               else onehot._gather("rowgather_wide", table, ix, True, form))
+        assert torch.equal(got, want)
+    torch.cuda.synchronize()
+    assert onehot.LAUNCHES["rowgather"] == 4 and onehot.LAUNCHES["rowgather_wide"] == 2
+
+
 # Shared-memory staging (16 KB, 128 KB by opt-in) and the global-memory
 # path (800 KB); W not a multiple of 128; 1-D to 3-D indices.
 @pytest.mark.parametrize(
@@ -112,6 +159,8 @@ def test_wrappers_refuse_wrong_inputs(cuda):
         onehot.rowsum(idx, val, mask, onehot.SMEM_LIMIT // 4 + 1)
     with pytest.raises(ValueError):
         onehot.rowgather_wide(val, idx[:, :1].expand(8, 9))
+    with pytest.raises(ValueError, match="form"):
+        onehot._gather("rowgather", val, idx, False, "tiled")
     with pytest.raises(ValueError):
         onehot.table_gather(val, idx)
     with pytest.raises(ValueError):

@@ -135,3 +135,40 @@ def test_wrapper_rejects_mixed_devices():
     idx, val, _ = _inputs(11, 2, 3, 4)
     with pytest.raises(ValueError):
         to._on_cuda(_t(idx), _t(val).to("meta"))
+
+
+# Every row-gather call on the three main paths at full size: (W, M,
+# broadcast) and the form the rule picks: pairs where the call addresses
+# its rows densely (M >= W/2), scalar on wide or sparse rows and broadcast
+# indices (PERF.md §6 has both forms timed at each of these).
+MAIN_PATH_GATHERS = {
+    "wan_100k base gather": ((512, 144, False), "scalar"),
+    "wan_100k CRDT winner check": ((256, 144, False), "pairs"),
+    "wan_100k sync grants": ((512, 512, False), "pairs"),
+    "wan_100k visibility": ((512, 128, True), "scalar"),
+    "merge_10k CRDT winner check": ((1024, 144, False), "scalar"),
+    "merge_10k sync grants": ((10_000, 512, False), "scalar"),
+    "merge_10k visibility": ((10_000, 256, True), "scalar"),
+    "merge_10k legacy base gather": ((10_000, 144, False), "scalar"),
+    "anywrite_sparse base gather": ((2048, 320, False), "scalar"),
+    "anywrite_sparse CRDT winner check": ((256, 320, False), "pairs"),
+    "anywrite_sparse sync grants": ((2048, 512, False), "scalar"),
+    "anywrite_sparse visibility": ((2048, 256, True), "scalar"),
+    "anywrite_sparse cold_sync grants": ((256, 64, False), "scalar"),
+}
+
+
+@pytest.mark.parametrize("site", sorted(MAIN_PATH_GATHERS))
+def test_gather_form_at_main_path_shapes(site):
+    (w, m, broadcast), form = MAIN_PATH_GATHERS[site]
+    assert to.gather_form(w, m, broadcast) == form
+
+
+def test_gather_form_thresholds():
+    # Pairs from m = W/2 up (odd W rounds the half up), never for a
+    # broadcast index.
+    assert [to.gather_form(512, m, False) for m in (255, 256, 257)] == [
+        "scalar", "pairs", "pairs"]
+    assert [to.gather_form(511, m, False) for m in (255, 256)] == ["scalar", "pairs"]
+    assert to.gather_form(512, 4096, True) == "scalar"
+    assert to.GATHER_FORMS == ("scalar", "pairs")
