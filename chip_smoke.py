@@ -6,15 +6,19 @@
 Phases (each raises on failure; the exit code is nonzero on any fault):
 
 1. the card's name and power limit (nvidia-smi) and torch's device name;
-2. build the seven CUDA kernels from the six sources in
-   ``corrosion_tpu_torch/csrc`` (sm_90a), one nvcc each, in parallel;
+2. build the one kernel library from the sources in
+   ``corrosion_tpu_torch/csrc``: one nvcc per ``.cu`` (sm_90a) and one
+   host-compiler run of ``ops.cpp`` (the ``torch.ops.corro`` operators
+   every kernel launches through), all at once, then one link; load it;
 3. each kernel against its plain PyTorch version on the same CUDA inputs,
    on edge cases (0-width axes, out-of-range indices, bit 31, and widths
    10,000 and 16,384, which take every row kernel's shared-memory opt-in;
    the row gathers in each form and both semantics, with a broadcast
    index, odd M and W, an index at an odd storage offset and M either side
-   of the form rule; ``table_gather`` also at W = 100,000, read
-   from global memory) and at every shape each main path gives it
+   of the form rule; ``table_gather`` at W = 1, 2,048 and 100,000, the
+   latter served from L2, with n from 0 to 3, one block of 1,024 outputs
+   either side and several blocks and one, and an index at an odd storage
+   offset) and at every shape each main path gives it
    (wan_100k and anywrite_sparse: the fast path's kernels with every
    ``rowgather`` site — base gather, CRDT winner check, sync grants,
    ``visibility``, and anywrite's ``cold_sync`` grants; merge_10k:
@@ -28,9 +32,12 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    input copies that together exceed the 50 MB L2 (``ms``, median of three
    such runs taken in turns with the other functions timed at that shape),
    the host's enqueue time a call
-   (``host_ms``), torch.profiler's device time a call (``device_ms``) and
+   (``host_ms``, beside the library call's ``library_host_ms``),
+   torch.profiler's device time a call (``device_ms``) and
    the old single-call window (``single_ms``). The row gathers are also
-   timed in each form (``scalar_ms``, ``pairs_ms``), ``delivery_reduce``
+   timed in each form (``scalar_ms``, ``pairs_ms``), ``table_gather``
+   beside a copy of its index (``clone_ms``: its bytes, no gather),
+   ``delivery_reduce``
    at merge_10k against two ``rowmax`` and a max pass, and ``rowsum``
    against ``torch.zeros`` + ``scatter_add_`` (no single call makes its
    fresh plane);
@@ -226,8 +233,10 @@ def run_ms(fns: dict, inputs: tuple, bytes_per_call: int) -> dict:
     return out
 
 
-def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
+def nbytes(*ts, int64_as: int = 8) -> int:
+    """Bytes of ``ts``, an int64 element counted as ``int64_as`` bytes (4:
+    the reference's u32 width for the port's int64-carried values)."""
+    return sum(t.numel() * (int64_as if t.dtype == torch.int64 else t.element_size()) for t in ts)
 
 
 def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
@@ -339,8 +348,10 @@ def check_kernels(onehot, device) -> list:
         # A view at an odd storage offset: idx not 16-byte aligned.
         check_gathers(onehot, table, flat[1:].view(r, m), f"{(r, m, w)} offset idx")
     # table_gather: an empty table or index, widths off multiples of 128,
-    # the shared-memory opt-in (16,384 entries, 128 KB) and a table read
-    # from global memory (100,000 entries), indices past both ends.
+    # 1-D to 3-D indices past both ends; then, at W = 1, 2,048 and 100,000
+    # (a table served from L2), n from 0 to 3, one block of 1,024 outputs
+    # either side and several blocks and one (the pairs' scalar tail), each
+    # index also at an odd storage offset (scalar index loads).
     for w, shape in (
         (0, (4, 5)), (9, (0,)), (9, (3, 0)), (1, (7,)), (37, (19, 41)),
         (2049, (64, 300)), (16_384, (24, 144)), (100_000, (3, 50, 200)),
@@ -349,31 +360,42 @@ def check_kernels(onehot, device) -> list:
         idx = torch.randint(-w - 3, 2 * w + 3, shape, generator=g).to(device)
         assert equal(onehot.table_gather(table, idx), onehot.table_gather_plain(table, idx)), \
             f"table_gather differs at W={w}, idx {shape}"
+    for w in (1, 2048, 100_000):
+        table = torch.randint(0, 1 << 32, (w,), generator=g).to(device)
+        for n in (0, 1, 2, 3, 1023, 1024, 1025, 5 * 1024 + 1):
+            base = torch.randint(-w - 3, 2 * w + 3, (n + 1,), generator=g).to(device)
+            for at, idx in (("aligned", base[:n]), ("odd offset", base[1:])):
+                assert equal(onehot.table_gather(table, idx), onehot.table_gather_plain(table, idx)), \
+                    f"table_gather differs at W={w}, n={n}, {at} idx"
     torch.cuda.synchronize()
     log("phase 3: edge cases equal (0-width axes, out-of-range, bit 31, wk 32/64, "
         "W 10,000 and 16,384; every gather form and semantics, row stride 0 and M, "
-        "odd m and W, offset idx; table_gather W 0 to 100,000)")
+        "odd m and W, offset idx; table_gather W 0 to 100,000, n 0-3, one block +-1, "
+        "several blocks + 1, odd-offset idx)")
 
     out = []
 
-    def measure(name, path, shape, inputs, kernel, plain, library, in_bytes, ops, **extra):
+    def measure(name, path, shape, inputs, kernel, plain, library, reads, ops, words=0, **extra):
         """Exact equality of ``kernel(*inputs)`` and ``plain(*inputs)``, then
         the times of both, of ``library`` and of each ``extra`` function
-        (``run_ms``); the bound counts ``in_bytes`` plus the kernel's
-        outputs."""
+        (``run_ms``); the bound counts the tensors ``reads`` and ``words``
+        table words read once and the kernel's outputs written once, at
+        int64 (``bound``) and at the reference's u32 (``bound_u32``,
+        informational)."""
         got, want = kernel(*inputs), plain(*inputs)
         err = max_abs_err(got, want)
         assert err == 0, f"{name} differs from its plain version at {path} {shape}"
         outs = got if isinstance(got, tuple) else (got,)
         del got, want
-        moved = in_bytes + nbytes(*outs)
+        moved = nbytes(*reads, *outs) + 8 * words
+        moved_u32 = nbytes(*reads, *outs, int64_as=4) + 4 * words
         fns = {"ms": kernel, "plain_ms": plain, **extra}
         if library is not None:
             fns["library_ms"] = library
         times = run_ms(fns, inputs, moved)
         times.setdefault("library_ms", None)
         out.append(dict(name=name, path=path, shape=shape, err=err,
-                        bound=bound(moved, ops), **times))
+                        bound=bound(moved, ops), bound_u32=bound(moved_u32, ops), **times))
 
     def rowmax_case(path, n, kk, k):
         idx, val, mask = _inputs(g, n, kk, k, device)
@@ -387,7 +409,7 @@ def check_kernels(onehot, device) -> list:
             lambda idx, val, mask, safe, zeros: onehot.rowmax_plain(idx, val, mask, k),
             # amax is idempotent, so repeating it in place times the call alone.
             lambda idx, val, mask, safe, zeros: zeros.scatter_reduce_(1, safe, val, "amax"),
-            nbytes(idx, val, mask), 2 * idx.numel(),
+            (idx, val, mask), 2 * idx.numel(),
         )
         return idx
 
@@ -403,9 +425,9 @@ def check_kernels(onehot, device) -> list:
         name = "rowgather_wide" if wide else "rowgather"
         kern = onehot.rowgather_wide if wide else onehot.rowgather
         plain = onehot.rowgather_wide_plain if wide else onehot.rowgather_plain
-        # Each form forced through the wrappers' launcher (no input checks,
-        # so its host time is below the wrapper's), each exact as well; the
-        # kernel's own entry is the public wrapper, in the form the rule picks.
+        # Each form forced through the operator (``onehot._gather``), each
+        # exact as well; the kernel's own entry is the public wrapper, in the
+        # form the rule picks.
         forms = {}
         want = plain(table, full)
         for f in onehot.GATHER_FORMS:
@@ -422,7 +444,7 @@ def check_kernels(onehot, device) -> list:
             lambda t, i: plain(t, i.expand(r, m)),
             # Every index is in range, so gather on it needs no mask or clip.
             lambda t, i: torch.gather(t, 1, i.expand(r, m)),
-            nbytes(gidx) + 8 * int(touched.sum()), r * m,
+            (gidx,), r * m, int(touched.sum()),
             **forms,
         )
 
@@ -446,7 +468,7 @@ def check_kernels(onehot, device) -> list:
             lambda *a: onehot.delivery_reduce(*a, w),
             lambda *a: onehot.delivery_reduce_plain(*a, w),
             None,
-            nbytes(widx, d, v, applied, valid, seen), 4 * widx.numel(),
+            (widx, d, v, applied, valid, seen), 4 * widx.numel(),
             **extra_fns,
         )
         return widx, d, valid
@@ -471,7 +493,7 @@ def check_kernels(onehot, device) -> list:
             lambda *a: onehot.window_delivery(*a, 32, w),
             lambda *a: onehot.window_delivery_plain(*a, 32, w),
             None,
-            nbytes(widx, d, adv_m, valid) + 8 * int(wtouched.sum()), 8 * widx.numel(),
+            (widx, d, adv_m, valid), 8 * widx.numel(), int(wtouched.sum()),
         )
 
     # wan_100k: N=100,000 rows, kk=144 messages, W=512 writers, K=256 cells,
@@ -511,7 +533,7 @@ def check_kernels(onehot, device) -> list:
         # No one PyTorch call makes a fresh zero-filled plane holding the
         # sums: the two-call composition is timed beside it.
         None,
-        nbytes(widx, bits), widx.numel(),
+        (widx, bits), widx.numel(),
         zeros_scatter_add_ms=lambda widx, bits: torch.zeros(
             (n, w), dtype=torch.int64, device=device).scatter_add_(1, widx, bits),
     )
@@ -542,14 +564,19 @@ def check_kernels(onehot, device) -> list:
             onehot.table_gather, onehot.table_gather_plain,
             # The index is already in range, so take on it needs no clip.
             torch.take,
-            nbytes(table, tidx), tidx.numel(),
+            (table, tidx), tidx.numel(),
+            # A copy of the index: the same bytes read and written, no gather.
+            clone_ms=lambda table, tidx: tidx.clone(),
         )
     for row in out:
         times = ", ".join(
             f"{k} {v:.4f}" for k, v in row.items() if k.endswith("ms") and v is not None
         )
-        log(f"phase 3: {row['name']} {row['path']} {row['shape']} equal; {times}; bound "
-            f"{row['bound'][0]:.4f} ms ({row['bound'][1]})")
+        lib_host = row.get("library_host_ms")
+        log(f"phase 3: {row['name']} {row['path']} {row['shape']} equal; host ms a call "
+            f"{row['host_ms']:.4f} (library {'—' if lib_host is None else f'{lib_host:.4f}'}); "
+            f"{times}; bound {row['bound'][0]:.4f} ms ({row['bound'][1]}), at u32 "
+            f"{row['bound_u32'][0]:.4f}")
     return out
 
 
@@ -770,8 +797,9 @@ def kernel_rows(measured: list, by_path: dict) -> list:
                         "shape": m["shape"], "max_abs_err": m["err"], "ms": m["ms"],
                         "plain_ms": m["plain_ms"], "bound_ms": m["bound"][0],
                         "bound_by": m["bound"][1], "library_ms": m["library_ms"],
+                        "host_ms": m["host_ms"], "library_host_ms": m.get("library_host_ms"),
                         **{k: v for k, v in m.items() if k.endswith("_ms") and k not in
-                           ("ms", "plain_ms", "library_ms")},
+                           ("ms", "plain_ms", "library_ms", "host_ms", "library_host_ms")},
                     }
                     for m in mine if m["path"] == path
                 ]}
@@ -793,8 +821,12 @@ def main() -> int:
     log(f"phase 1: {smi} | torch: {kind} | torch {torch.__version__} cuda {torch.version.cuda}")
     torch.cuda.set_device(0)
     t_start = time.perf_counter()
-    log(f"phase 2: built {len(KERNELS)} kernels from {len(cuda_build.SOURCES)} sources in "
-        f"{cuda_build.build(verbose=True):.1f} s")
+    build_s = cuda_build.build(verbose=True)
+    t_load = time.perf_counter()
+    lib = cuda_build.load()
+    log(f"phase 2: built the kernel library of {len(KERNELS)} kernels from "
+        f"{len(cuda_build.SOURCES)} sources ({', '.join(cuda_build.SOURCES)}) in {build_s:.1f} s, "
+        f"loaded in {time.perf_counter() - t_load:.2f} s: {lib.name}")
     measured = check_kernels(onehot, "cuda")
     check_small_runs(onehot)
     by_path = {

@@ -15,9 +15,10 @@ Conventions:
 - Random draws go through ``rng`` — a bit-exact port of JAX's
   partitionable threefry2x32 — with keys passed exactly where the
   reference passes them, so a run reproduces the reference bit for bit.
-- The six Pallas kernels on the dense engine's path are hand-written
-  CUDA kernels (``csrc/``), launched for CUDA tensors; their plain
-  PyTorch versions run for CPU tensors.
+- The reference's seven Pallas kernels are hand-written CUDA kernels
+  (``csrc/``), launched for CUDA tensors through PyTorch operators
+  (``torch.ops.corro.*``, ``csrc/ops.cpp``); their plain PyTorch versions
+  run for CPU tensors.
 - Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
   and raise when no device is given and CUDA is absent.
 """

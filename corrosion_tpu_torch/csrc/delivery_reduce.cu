@@ -21,6 +21,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "kernels.h"
+
 namespace {
 
 constexpr int kMinThreads = 128;
@@ -64,12 +66,11 @@ __global__ void delivery_reduce_kernel(
 
 }  // namespace
 
-extern "C" int corro_delivery_reduce(const int64_t* idx, const int64_t* d,
-                                     const int64_t* v, const bool* applied,
-                                     const bool* valid, const int64_t* seen,
-                                     int64_t* adv_out, int64_t* seen_out,
-                                     int64_t rows, int64_t m, int64_t width,
-                                     void* stream) {
+int corro::delivery_reduce(const int64_t* idx, const int64_t* d, const int64_t* v,
+                           const bool* applied, const bool* valid,
+                           const int64_t* seen, int64_t* adv_out,
+                           int64_t* seen_out, int64_t rows, int64_t m,
+                           int64_t width, void* stream) {
   const size_t smem = 2 * static_cast<size_t>(width) * sizeof(unsigned int);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(

@@ -44,6 +44,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "kernels.h"
+
 namespace {
 
 enum Form { kScalar = 0, kPairs = 1 };  // ops/onehot.py GATHER_FORMS
@@ -166,11 +168,10 @@ int launch(const int64_t* table, const int64_t* idx, int64_t* out, int64_t rows,
 
 }  // namespace
 
-// clip != 0: rowgather_wide's semantics; form: a Form.
-extern "C" int corro_rowgather(const int64_t* table, const int64_t* idx, int64_t* out,
-                               int64_t rows, int64_t m, int64_t width,
-                               int64_t idx_row_stride, int64_t clip, int64_t form,
-                               void* stream) {
+// clip: rowgather_wide's semantics; form: a Form.
+int corro::rowgather(const int64_t* table, const int64_t* idx, int64_t* out, int64_t rows,
+                     int64_t m, int64_t width, int64_t idx_row_stride, bool clip, int form,
+                     void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   return clip ? launch<true>(table, idx, out, rows, m, width, idx_row_stride, form, s)
               : launch<false>(table, idx, out, rows, m, width, idx_row_stride, form, s);

@@ -17,6 +17,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "kernels.h"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -47,9 +49,9 @@ __global__ void rowmax_kernel(const int64_t* __restrict__ idx,
 
 }  // namespace
 
-extern "C" int corro_rowmax(const int64_t* idx, const int64_t* val,
-                            const bool* mask, int64_t* out, int64_t rows,
-                            int64_t m, int64_t width, void* stream) {
+int corro::rowmax(const int64_t* idx, const int64_t* val, const bool* mask,
+                  int64_t* out, int64_t rows, int64_t m, int64_t width,
+                  void* stream) {
   const size_t smem = static_cast<size_t>(width) * sizeof(unsigned int);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(

@@ -4,112 +4,102 @@
 // `table_gather_u32`). The TPU kernel compares every index against every
 // 128-lane block of the table and max-accumulates ([8, C, 128] blocks,
 // O(n * W) work) because TPU gathers serialise. Hopper gathers natively,
-// so this is a plain indexed load, O(n): each thread takes indices
-// grid-stride, four at a time, over a grid sized to what fits the card at
-// once. Both ends clip, as the Pallas and native backends do.
-//
-// The table is shared by every index, so each block stages it in shared
-// memory once (while W * 8 bytes fit a block: W = 2,048 is 16 KB, wider
-// than 48 KB by opt-in) and then reads it from there; a wider table is
-// read from global memory through the read-only cache (`__ldg`).
+// so this is a plain indexed load, O(n). Both ends clip, as the Pallas and
+// native backends do.
 //
 // Bound on the H100: bytes. The indices are read and the outputs written
 // as int64, once each; the table is small beside them. At anywrite_sparse's
 // sync grant enumeration (16,667 x 512 indices) that is 137 MB, 0.041 ms
 // at 3.35 TB/s; at `rotate`'s queue mask (100,000 x 64) 102 MB, 0.031 ms.
+// So the design spends nothing but those two streams, and on the card it
+// runs at the rate of a plain copy of the same bytes (`clone_ms` beside it
+// in chip_smoke.py phase 3):
+//
+// - a plain grid, each thread two pairs of consecutive outputs: `idx` is
+//   loaded and `out` stored 16 bytes at a time, a warp's accesses
+//   contiguous. `out` is a fresh allocation, so its pairs are aligned (the
+//   launcher refuses any other); a scalar tail covers an odd length, and
+//   an `idx` view whose pairs are not 16-byte aligned (an odd storage
+//   offset) loads scalars;
+// - `out` is written with evict-first stores and `idx` read with
+//   evict-first loads (`__stcs`, `__ldcs`): the stores timed faster on the
+//   card than plain ones; the load path (`__ldg`, `__ldcs`,
+//   `L1::no_allocate`) and one, two or four pairs a thread timed alike;
+// - the table is read through the read-only path (`__ldg`): at W = 2,048
+//   its 16 KB stay in each SM's L1, and a wider table (W = 100,000) is
+//   served from L2. Staging it in shared memory, as int64 or as u32 words,
+//   timed slower: every block pays the copy and a barrier before its first
+//   index.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "kernels.h"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kUnroll = 4;
-constexpr size_t kSmemDefault = 48 * 1024;
-constexpr size_t kSmemLimit = 232448;  // 227 KB, Hopper's per-block maximum
+constexpr int kPairs = 2;  // pairs of outputs a thread
+constexpr int64_t kBlockPairs = static_cast<int64_t>(kPairs) * kThreads;
 
-template <bool kStaged>
-__global__ void table_gather_kernel(const int64_t* __restrict__ table,
-                                    const int64_t* __restrict__ idx,
-                                    int64_t* __restrict__ out, int64_t n,
-                                    int64_t width) {
-  extern __shared__ int64_t stab[];
-  if (kStaged) {
-    for (int64_t j = threadIdx.x; j < width; j += blockDim.x) stab[j] = table[j];
-    __syncthreads();
-  }
-  // kUnroll independent indices per thread per step: their loads are all
-  // in flight before the first table read, which a one-at-a-time loop
-  // would serialise behind each load's latency.
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i0 = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       i0 < n; i0 += kUnroll * stride) {
-    int64_t x[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int64_t i = i0 + u * stride;
-      x[u] = i < n ? idx[i] : 0;
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int64_t i = i0 + u * stride;
-      if (i >= n) break;
-      const int64_t c = x[u] < 0 ? 0 : (x[u] >= width ? width - 1 : x[u]);
-      out[i] = kStaged
-                   ? stab[c]
-                   : static_cast<int64_t>(
-                         __ldg(reinterpret_cast<const long long*>(table) + c));
-    }
-  }
+__device__ __forceinline__ int64_t pick(const int64_t* __restrict__ table, int64_t x,
+                                        int64_t width) {
+  x = x < 0 ? 0 : (x >= width ? width - 1 : x);
+  return __ldg(reinterpret_cast<const long long*>(table) + x);
 }
 
-template <bool kStaged>
-int launch(const int64_t* table, const int64_t* idx, int64_t* out, int64_t n,
-           int64_t width, void* stream) {
-  const size_t smem = kStaged ? static_cast<size_t>(width) * sizeof(int64_t) : 0;
-  // As many blocks as are resident at once (each stages the table once),
-  // never more than the indices need. The resident count, and the
-  // shared-memory opt-in it depends on, are driver queries: made once per
-  // device and table size, not at every launch.
-  struct Grid {
-    int device = -1;
-    size_t smem = 0;
-    int64_t resident = 0;
-  };
-  thread_local Grid grid;
-  int device = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (grid.device != device || grid.smem != smem) {
-    if (smem > kSmemDefault) {
-      e = cudaFuncSetAttribute(table_gather_kernel<kStaged>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    int sms = 0, per_sm = 0;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, table_gather_kernel<kStaged>, kThreads, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    grid = {device, smem, static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1)};
+__device__ __forceinline__ int64_t load_idx(const int64_t* p) {
+  return __ldcs(reinterpret_cast<const long long*>(p));
+}
+
+// Outputs [0, n) in pairs into a 16-byte aligned `out`, the last of an odd
+// n alone. kIdxVec: idx's pairs are 16-byte aligned too.
+template <bool kIdxVec>
+__global__ void __launch_bounds__(kThreads)
+    table_gather_kernel(const int64_t* __restrict__ table, const int64_t* __restrict__ idx,
+                        int64_t* __restrict__ out, int64_t n, int64_t width) {
+  const int64_t npairs = n >> 1;
+  if ((n & 1) && blockIdx.x == 0 && threadIdx.x == 0) {
+    out[n - 1] = pick(table, load_idx(idx + n - 1), width);
   }
-  const int64_t needed = (n + kThreads * kUnroll - 1) / (kThreads * kUnroll);
-  const int64_t blocks = grid.resident < needed ? grid.resident : needed;
-  table_gather_kernel<kStaged>
-      <<<static_cast<unsigned int>(blocks), kThreads, smem,
-         static_cast<cudaStream_t>(stream)>>>(table, idx, out, n, width);
-  return static_cast<int>(cudaGetLastError());
+  longlong2* op = reinterpret_cast<longlong2*>(out);
+  const int64_t p0 = blockIdx.x * kBlockPairs + threadIdx.x;
+  // Every index load of the thread is in flight before the first table read.
+  longlong2 x[kPairs];
+#pragma unroll
+  for (int k = 0; k < kPairs; ++k) {
+    const int64_t p = p0 + k * kThreads;
+    if (p >= npairs) break;
+    if (kIdxVec) {
+      x[k] = __ldcs(reinterpret_cast<const longlong2*>(idx) + p);
+    } else {
+      x[k] = make_longlong2(load_idx(idx + 2 * p), load_idx(idx + 2 * p + 1));
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kPairs; ++k) {
+    const int64_t p = p0 + k * kThreads;
+    if (p >= npairs) break;
+    __stcs(op + p, make_longlong2(pick(table, x[k].x, width), pick(table, x[k].y, width)));
+  }
 }
 
 }  // namespace
 
-extern "C" int corro_table_gather(const int64_t* table, const int64_t* idx,
-                                  int64_t* out, int64_t n, int64_t width,
-                                  void* stream) {
+int corro::table_gather(const int64_t* table, const int64_t* idx, int64_t* out, int64_t n,
+                        int64_t width, void* stream) {
   if (n <= 0 || width <= 0) return 0;
-  if (static_cast<size_t>(width) * sizeof(int64_t) <= kSmemLimit) {
-    return launch<true>(table, idx, out, n, width, stream);
+  if (reinterpret_cast<uintptr_t>(out) & 15) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t npairs = n >> 1;
+  const int64_t blocks = npairs > 0 ? (npairs + kBlockPairs - 1) / kBlockPairs : 1;
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const bool idx_vec = (reinterpret_cast<uintptr_t>(idx) & 15) == 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (idx_vec) {
+    table_gather_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        table, idx, out, n, width);
+  } else {
+    table_gather_kernel<false><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        table, idx, out, n, width);
   }
-  return launch<false>(table, idx, out, n, width, stream);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -24,6 +24,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "kernels.h"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -82,12 +84,11 @@ __global__ void window_delivery_kernel(
 
 }  // namespace
 
-extern "C" int corro_window_delivery(const int64_t* oo, const int64_t* idx,
-                                     const int64_t* d, const int64_t* adv_m,
-                                     const bool* valid, bool* poss_out,
-                                     int64_t* words_out, int64_t b_words,
-                                     int64_t rows, int64_t m, int64_t width,
-                                     int64_t wk, void* stream) {
+int corro::window_delivery(const int64_t* oo, const int64_t* idx, const int64_t* d,
+                           const int64_t* adv_m, const bool* valid,
+                           bool* poss_out, int64_t* words_out, int64_t b_words,
+                           int64_t rows, int64_t m, int64_t width, int64_t wk,
+                           void* stream) {
   const size_t smem =
       static_cast<size_t>(b_words) * width * sizeof(unsigned int);
   if (smem > 48 * 1024) {

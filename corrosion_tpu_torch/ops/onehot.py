@@ -9,10 +9,13 @@ Pallas); all three are bit-identical. Here each primitive has:
   form — a scatter or gather with a sentinel column for masked and
   out-of-range entries. It runs for CPU tensors and is what the CUDA
   kernels are held against;
-- a **CUDA kernel** (in ``csrc/``, named in ``_SIGNATURES``) launched for
-  CUDA tensors. There is no fallback: a CUDA tensor launches the kernel or
-  raises.
+- a **CUDA kernel** (``csrc/*.cu``) launched for CUDA tensors through its
+  PyTorch operator ``torch.ops.corro.<op>`` (``csrc/ops.cpp``, which checks
+  the inputs, allocates the outputs and launches on the current stream).
+  There is no fallback: a CUDA tensor launches the kernel or raises.
 
+The wrappers stay as thin as a PyTorch call: whether the first tensor lies
+on the card picks the route, and every other check is the operator's.
 ``LAUNCHES`` counts kernel launches per primitive (never plain calls), so
 a run can show that its main path went through the kernels.
 
@@ -20,8 +23,6 @@ Values are u32 carried in int64 (package convention); indices are int64.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -39,35 +40,13 @@ LAUNCHES = {
     "table_gather": 0,
 }
 
-# Shared memory one block may use on Hopper (227 KB of the SM's 256 KB,
-# above 48 KB only by opt-in). The row kernels keep their [W] u32
-# accumulators there; wider rows raise instead of failing at launch.
-SMEM_LIMIT = 232_448
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int64
-# kernel: (source in csrc/, C symbol, argument types)
-_SIGNATURES = {
-    "rowmax": ("rowmax", "corro_rowmax", (_P, _P, _P, _P, _I, _I, _I, _P)),
-    "rowgather": ("rowgather", "corro_rowgather", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
-    "delivery_reduce": (
-        "delivery_reduce", "corro_delivery_reduce",
-        (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    ),
-    "window_delivery": (
-        "window_delivery", "corro_window_delivery",
-        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    ),
-    # One C entry point serves both gathers (a semantics flag).
-    "rowgather_wide": (
-        "rowgather", "corro_rowgather", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    ),
-    "rowsum": ("rowsum", "corro_rowsum", (_P, _P, _P, _P, _I, _I, _I, _P)),
-    "table_gather": (
-        "table_gather", "corro_table_gather", (_P, _P, _P, _I, _I, _P),
-    ),
-}
-_fns: dict = {}
+# The operators of csrc/ops.cpp; rowgather serves both row gathers.
+OPERATORS = (
+    "rowmax", "rowsum", "rowgather", "table_gather", "delivery_reduce", "window_delivery",
+)
+# Operator name -> its OpOverload (torch.ops.corro.<name>.default), filled
+# at the first launch, which builds and loads the library.
+_OPS: dict = {}
 
 
 def reset_launches() -> None:
@@ -75,65 +54,22 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _kernel(name: str):
-    fn = _fns.get(name)
-    if fn is None:
-        source, sym, argtypes = _SIGNATURES[name]
-        fn = getattr(cuda_build.library(source), sym)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return fn
+def _ops() -> dict:
+    if not _OPS:
+        cuda_build.load()
+        _OPS.update((name, getattr(torch.ops.corro, name).default) for name in OPERATORS)
+    return _OPS
 
 
-# The raw handle of PyTorch's current stream (an int), without building a
-# torch.cuda.Stream object each launch; absent from CPU-only builds.
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-
-
-def _launch(name: str, *args) -> None:
-    """Launch kernel ``name`` on the current device's current stream."""
-    stream = (
-        torch.cuda.current_stream().cuda_stream if _raw_stream is None
-        else _raw_stream(torch._C._cuda_getDevice())
-    )
-    err = _kernel(name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
-    LAUNCHES[name] += 1
-
-
-def _on_cuda(*ts: torch.Tensor) -> bool:
-    """True for CUDA tensors (kernel), False for CPU tensors (plain
-    version); raises on any other device or a device mix."""
-    first = ts[0]
-    if first.is_cuda:
-        dev = first.get_device()
-        if all(t.is_cuda and t.get_device() == dev for t in ts):
-            return True
-    elif first.is_cpu and all(t.is_cpu for t in ts):
-        return False
-    devices = {str(t.device) for t in ts}
-    if len(devices) > 1:
-        raise ValueError(f"tensors span devices {[str(t.device) for t in ts]}")
-    raise ValueError(f"unsupported device {first.device}")
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape=None) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _check_smem(name: str, n_bytes: int) -> None:
-    if n_bytes > SMEM_LIMIT:
-        raise ValueError(
-            f"{name}: row accumulators need {n_bytes} bytes of shared memory, "
-            f"above the {SMEM_LIMIT}-byte limit of one block"
-        )
+def _check_cpu(*ts) -> None:
+    """The plain versions take CPU tensors (None: an absent mask); raises
+    ValueError on a device mix or a device that is neither CPU nor CUDA."""
+    if all(t is None or t.is_cpu for t in ts):
+        return
+    devices = [str(t.device) for t in ts if t is not None]
+    if len(set(devices)) > 1:
+        raise ValueError(f"tensors span devices {devices}")
+    raise ValueError(f"unsupported device {devices[0]}")
 
 
 def _sentinel(idx: torch.Tensor, width: int) -> torch.Tensor:
@@ -158,22 +94,13 @@ def rowmax_plain(idx, val, mask, width: int) -> torch.Tensor:
 def rowmax(idx, val, mask, width: int) -> torch.Tensor:
     """Row-local scatter-max (reference ``onehot.rowmax``). Masked and
     out-of-range entries contribute nothing; int64[R, width]."""
-    r, m = idx.shape
-    if r == 0 or m == 0 or width == 0:
-        return torch.zeros((r, width), dtype=torch.int64, device=idx.device)
-    ts = (idx, val) if mask is None else (idx, val, mask)
-    if not _on_cuda(*ts):
+    if not idx.is_cuda:
+        _check_cpu(idx, val, mask)
         return rowmax_plain(idx, val, mask, width)
-    _check(idx, "idx", torch.int64)
-    _check(val, "val", torch.int64, idx.shape)
-    if mask is not None:
-        _check(mask, "mask", torch.bool, idx.shape)
-    _check_smem("rowmax", 4 * width)
-    out = torch.empty((r, width), dtype=torch.int64, device=idx.device)
-    _launch(
-        "rowmax", idx.data_ptr(), val.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(), r, m, width,
-    )
+    if width == 0 or idx.numel() == 0:
+        return torch.zeros((idx.shape[0], width), dtype=torch.int64, device=idx.device)
+    out = (_OPS or _ops())["rowmax"](idx, val, mask, width)
+    LAUNCHES["rowmax"] += 1
     return out
 
 
@@ -197,22 +124,13 @@ def rowsum_plain(idx, val, mask, width: int) -> torch.Tensor:
 def rowsum(idx, val, mask, width: int) -> torch.Tensor:
     """Row-local scatter-add mod 2^32 (reference ``onehot.rowsum``).
     Masked and out-of-range entries add nothing; int64[R, width]."""
-    r, m = idx.shape
-    if r == 0 or m == 0 or width == 0:
-        return torch.zeros((r, width), dtype=torch.int64, device=idx.device)
-    ts = (idx, val) if mask is None else (idx, val, mask)
-    if not _on_cuda(*ts):
+    if not idx.is_cuda:
+        _check_cpu(idx, val, mask)
         return rowsum_plain(idx, val, mask, width)
-    _check(idx, "idx", torch.int64)
-    _check(val, "val", torch.int64, idx.shape)
-    if mask is not None:
-        _check(mask, "mask", torch.bool, idx.shape)
-    _check_smem("rowsum", 4 * width)
-    out = torch.empty((r, width), dtype=torch.int64, device=idx.device)
-    _launch(
-        "rowsum", idx.data_ptr(), val.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(), r, m, width,
-    )
+    if width == 0 or idx.numel() == 0:
+        return torch.zeros((idx.shape[0], width), dtype=torch.int64, device=idx.device)
+    out = (_OPS or _ops())["rowsum"](idx, val, mask, width)
+    LAUNCHES["rowsum"] += 1
     return out
 
 
@@ -220,9 +138,9 @@ def rowsum(idx, val, mask, width: int) -> torch.Tensor:
 
 # The row-gather kernel's forms (csrc/rowgather.cu `Form`, in order):
 # "scalar" (one output a thread) and "pairs" (two outputs a thread, 16-byte
-# index and output accesses, over tiles of whole rows).
+# index and output accesses, over tiles of whole rows); the operator takes
+# a form's position here.
 GATHER_FORMS = ("scalar", "pairs")
-_I32 = 1 << 31
 
 
 def gather_form(width: int, m: int, broadcast: bool) -> str:
@@ -235,23 +153,17 @@ def gather_form(width: int, m: int, broadcast: bool) -> str:
 
 
 def _gather(name: str, table, idx, clip: bool, form=None) -> torch.Tensor:
-    """Launch the row-gather kernel on checked CUDA inputs in ``form``
-    (None: ``gather_form``; tests and chip_smoke.py force each form);
-    ``idx`` has unit column stride and row stride 0 (broadcast) or M."""
-    r, width = table.shape
-    m = idx.shape[1]
-    if max(r, m, width) >= _I32:
-        raise ValueError(f"{name}: rows, columns and width must each be below 2^31")
-    broadcast = idx.shape[0] == 1 or idx.stride(0) == 0
+    """Launch the row-gather kernel on non-empty CUDA inputs (``clip``:
+    ``rowgather_wide``'s semantics) in ``form`` (None: ``gather_form``'s
+    rule; tests and chip_smoke.py force each form), counted under ``name``.
+    The operator checks the inputs."""
     if form is None:
-        form = gather_form(width, m, broadcast)
-    elif form not in GATHER_FORMS:
+        broadcast = idx.shape[0] == 1 or idx.stride(0) == 0
+        form = gather_form(table.shape[-1], idx.shape[1], broadcast)
+    if form not in GATHER_FORMS:
         raise ValueError(f"{name}: form must be one of {GATHER_FORMS}, got {form!r}")
-    out = table.new_empty((r, m))
-    _launch(
-        name, table.data_ptr(), idx.data_ptr(), out.data_ptr(), r, m, width,
-        0 if broadcast else m, int(clip), GATHER_FORMS.index(form),
-    )
+    out = (_OPS or _ops())["rowgather"](table, idx, clip, GATHER_FORMS.index(form))
+    LAUNCHES[name] += 1
     return out
 
 
@@ -270,17 +182,11 @@ def rowgather(table, idx) -> torch.Tensor:
     """Row-local gather (reference ``onehot.rowgather``, native
     semantics). ``idx`` may broadcast one row over all rows (row stride
     0, e.g. ``cols[None, :].expand(N, S)``)."""
-    r, width = table.shape
-    m = idx.shape[1]
-    if r == 0 or m == 0 or width == 0:
-        return torch.zeros((r, m), dtype=torch.int64, device=table.device)
-    if not _on_cuda(table, idx):
+    if not table.is_cuda:
+        _check_cpu(table, idx)
         return rowgather_plain(table, idx)
-    _check(table, "table", torch.int64)
-    if idx.dtype != torch.int64:
-        raise TypeError(f"idx: expected torch.int64, got {idx.dtype}")
-    if idx.shape[0] not in (1, r) or idx.stride(1) != 1 or idx.stride(0) not in (0, m):
-        raise ValueError("idx: needs unit column stride and row stride 0 or M")
+    if table.numel() == 0 or idx.shape[1] == 0:
+        return torch.zeros((table.shape[0], idx.shape[1]), dtype=torch.int64, device=table.device)
     return _gather("rowgather", table, idx, False)
 
 
@@ -297,14 +203,11 @@ def rowgather_wide(table, idx) -> torch.Tensor:
     """Per-row gather from a wide table (reference
     ``onehot.rowgather_wide``). Out-of-range indices CLIP to the edge
     columns, where ``rowgather`` reads 0."""
-    r, width = table.shape
-    m = idx.shape[1]
-    if r == 0 or m == 0 or width == 0:
-        return torch.zeros((r, m), dtype=torch.int64, device=table.device)
-    if not _on_cuda(table, idx):
+    if not table.is_cuda:
+        _check_cpu(table, idx)
         return rowgather_wide_plain(table, idx)
-    _check(table, "table", torch.int64)
-    _check(idx, "idx", torch.int64, (r, m))
+    if table.numel() == 0 or idx.shape[1] == 0:
+        return torch.zeros((table.shape[0], idx.shape[1]), dtype=torch.int64, device=table.device)
     return _gather("rowgather_wide", table, idx, True)
 
 
@@ -324,18 +227,13 @@ def table_gather(table, idx) -> torch.Tensor:
     """Gather from one shared 1-D table (reference
     ``onehot.table_gather_u32``, its Pallas and native semantics): indices
     CLIP to the table's ends. int64 of ``idx``'s shape."""
-    width = table.shape[0]
-    if width == 0 or idx.numel() == 0:
-        return torch.zeros(idx.shape, dtype=torch.int64, device=idx.device)
-    if not _on_cuda(table, idx):
+    if not table.is_cuda:
+        _check_cpu(table, idx)
         return table_gather_plain(table, idx)
-    _check(table, "table", torch.int64, (width,))
-    _check(idx, "idx", torch.int64)
-    out = torch.empty(idx.shape, dtype=torch.int64, device=idx.device)
-    _launch(
-        "table_gather", table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-        idx.numel(), width,
-    )
+    if table.shape[0] == 0 or idx.numel() == 0:
+        return torch.zeros(idx.shape, dtype=torch.int64, device=idx.device)
+    out = (_OPS or _ops())["table_gather"](table, idx)
+    LAUNCHES["table_gather"] += 1
     return out
 
 
@@ -351,29 +249,17 @@ def delivery_reduce(idx, d, v, applied, valid, seen, width: int):
     """Fused delivery reductions (reference ``onehot.delivery_reduce``):
     ``(rowmax(idx, d, applied), max(seen, rowmax(idx, v, valid)))``. Both
     are new tensors, never ``seen`` itself."""
-    r, m = idx.shape
-    if r == 0 or m == 0 or width == 0:
+    if not idx.is_cuda:
+        _check_cpu(idx, d, v, applied, valid, seen)
+        return delivery_reduce_plain(idx, d, v, applied, valid, seen, width)
+    if width == 0 or idx.numel() == 0:
         return (
-            torch.zeros((r, width), dtype=torch.int64, device=idx.device),
+            torch.zeros((idx.shape[0], width), dtype=torch.int64, device=idx.device),
             seen.clone(),
         )
-    if not _on_cuda(idx, d, v, applied, valid, seen):
-        return delivery_reduce_plain(idx, d, v, applied, valid, seen, width)
-    _check(idx, "idx", torch.int64)
-    for t, name in ((d, "d"), (v, "v")):
-        _check(t, name, torch.int64, idx.shape)
-    for t, name in ((applied, "applied"), (valid, "valid")):
-        _check(t, name, torch.bool, idx.shape)
-    _check(seen, "seen", torch.int64, (r, width))
-    _check_smem("delivery_reduce", 8 * width)
-    adv = torch.empty((r, width), dtype=torch.int64, device=idx.device)
-    seen2 = torch.empty_like(adv)
-    _launch(
-        "delivery_reduce", idx.data_ptr(), d.data_ptr(), v.data_ptr(),
-        applied.data_ptr(), valid.data_ptr(), seen.data_ptr(),
-        adv.data_ptr(), seen2.data_ptr(), r, m, width,
-    )
-    return adv, seen2
+    out = (_OPS or _ops())["delivery_reduce"](idx, d, v, applied, valid, seen, width)
+    LAUNCHES["delivery_reduce"] += 1
+    return out
 
 
 # -- window_delivery ----------------------------------------------------------
@@ -427,23 +313,11 @@ def window_delivery_plain(oo, idx, d, adv_m, valid, wk: int, width: int):
 def window_delivery(oo, idx, d, adv_m, valid, wk: int, width: int):
     """Out-of-order admission (reference ``onehot.window_delivery``):
     ``(new_poss bool[R, M], new_bits int64[B, R, W])``."""
-    b_words = oo.shape[0]
-    r, m = idx.shape
-    if r == 0 or m == 0 or width == 0:
-        return _window_empty(oo, idx)
-    if not _on_cuda(oo, idx, d, adv_m, valid):
+    if not oo.is_cuda:
+        _check_cpu(oo, idx, d, adv_m, valid)
         return window_delivery_plain(oo, idx, d, adv_m, valid, wk, width)
-    _check(oo, "oo", torch.int64, (b_words, r, width))
-    _check(idx, "idx", torch.int64)
-    for t, name in ((d, "d"), (adv_m, "adv_m")):
-        _check(t, name, torch.int64, idx.shape)
-    _check(valid, "valid", torch.bool, idx.shape)
-    _check_smem("window_delivery", 4 * b_words * width)
-    poss = torch.empty((r, m), dtype=torch.bool, device=idx.device)
-    words = torch.empty((b_words, r, width), dtype=torch.int64, device=idx.device)
-    _launch(
-        "window_delivery", oo.data_ptr(), idx.data_ptr(), d.data_ptr(),
-        adv_m.data_ptr(), valid.data_ptr(), poss.data_ptr(), words.data_ptr(),
-        b_words, r, m, width, wk,
-    )
-    return poss, words
+    if width == 0 or idx.numel() == 0:
+        return _window_empty(oo, idx)
+    out = (_OPS or _ops())["window_delivery"](oo, idx, d, adv_m, valid, wk, width)
+    LAUNCHES["window_delivery"] += 1
+    return out

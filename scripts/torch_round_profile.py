@@ -48,7 +48,8 @@ from corrosion_tpu_torch.profiling import device_events_by_range, launch_times, 
 
 PLANES = ("corro_broadcast", "corro_swim", "corro_sync", "corro_track", "corro_health")
 # kernel: the substring of its device-side name in the trace (the row
-# gathers' template is rowgather_kernel<kClip, kStaged>: both forms count)
+# gathers' template is rowgather_kernel<kClip, kForm>: both forms count;
+# table_gather_kernel<kIdxVec> counts both index loads)
 PORTED = {
     "rowmax": "rowmax_kernel", "rowgather": "rowgather_kernel<false",
     "delivery_reduce": "delivery_reduce_kernel",

@@ -1,19 +1,31 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card. Marked ``cuda``: they skip where no CUDA device is present and run
-on the chip with
+card, each launched through its operator (``torch.ops.corro.*``). Marked
+``cuda``: they skip where no CUDA device is present and run on the card
+with
 
-    python -m pytest tests/test_torch_cuda.py -m cuda
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
 (chip_smoke.py runs the same comparisons at the main paths' full shapes).
 """
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from corrosion_tpu_torch import cuda_build
 from corrosion_tpu_torch.ops import onehot
 
 pytestmark = pytest.mark.cuda
+
+# Shared memory one block may use on Hopper (227 KB): the operators refuse
+# row accumulators past it (csrc/ops.cpp kSmemLimit).
+SMEM_LIMIT = 232_448
 
 
 @pytest.fixture
@@ -129,8 +141,8 @@ def test_row_gathers_equal_plain(cuda, r, m, w, form):
     assert onehot.LAUNCHES["rowgather"] == 4 and onehot.LAUNCHES["rowgather_wide"] == 2
 
 
-# Shared-memory staging (16 KB, 128 KB by opt-in) and the global-memory
-# path (800 KB); W not a multiple of 128; 1-D to 3-D indices.
+# W from 1 to 100,000 (a table served from L2), W not a multiple of 128;
+# 1-D to 3-D indices.
 @pytest.mark.parametrize(
     "w,shape", [(1, (5,)), (300, (7, 9)), (2048, (16_667, 512)), (16_384, (3, 50, 20)),
                 (100_000, (1000, 64))],
@@ -147,6 +159,45 @@ def test_table_gather_equals_plain(cuda, w, shape):
     assert onehot.LAUNCHES["table_gather"] == 1
 
 
+# A block of the kernel covers 1,024 outputs as 16-byte pairs: n from 0 to
+# 3, one block either side and several blocks and one (the scalar tail),
+# each with the index at an aligned and at an odd storage offset (scalar
+# index loads), at the widths of a tiny, the main paths' and a wide table.
+@pytest.mark.parametrize("w", [1, 2048, 100_000])
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 1023, 1024, 1025, 5 * 1024 + 1])
+def test_table_gather_heads_tails_and_offsets(cuda, w, n):
+    g = np.random.default_rng(n * 7 + w)
+    table = torch.as_tensor(
+        g.integers(0, 1 << 32, w, dtype=np.uint64).astype(np.int64), device=cuda
+    )
+    base = torch.as_tensor(g.integers(-w - 3, 2 * w + 3, n + 1), device=cuda)
+    onehot.reset_launches()
+    for idx in (base[:n], base[1:]):
+        assert torch.equal(onehot.table_gather(table, idx), onehot.table_gather_plain(table, idx))
+    torch.cuda.synchronize()
+    assert onehot.LAUNCHES["table_gather"] == (2 if n else 0)
+
+
+# The wrapper launches gather_form's form where none is forced: pairs
+# from M = W/2 up, scalar below it and for a broadcast index (the kernel's
+# template names its form: rowgather_kernel<clip, form>).
+@pytest.mark.parametrize("m,broadcast", [(255, False), (256, False), (300, True)])
+def test_rowgather_launches_the_rule_s_form(cuda, m, broadcast):
+    from torch.profiler import ProfilerActivity, profile
+
+    g = np.random.default_rng(m)
+    table = torch.as_tensor(g.integers(0, 1 << 32, (64, 512)), device=cuda)
+    idx = torch.as_tensor(g.integers(0, 512, (1 if broadcast else 64, m)), device=cuda)
+    onehot.rowgather(table, idx)  # loads the library before the session
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        onehot.rowgather(table, idx)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if "rowgather_kernel" in e.key]
+    form = onehot.GATHER_FORMS.index(onehot.gather_form(512, m, broadcast))
+    assert names and all(f"rowgather_kernel<false, {form}>" in n for n in names), names
+
+
 def test_wrappers_refuse_wrong_inputs(cuda):
     idx, val, mask = _inputs(0, 8, 9, 10, cuda)
     with pytest.raises(TypeError):
@@ -156,7 +207,7 @@ def test_wrappers_refuse_wrong_inputs(cuda):
     with pytest.raises(ValueError):
         onehot.rowmax(idx, val.cpu(), mask, 10)
     with pytest.raises(ValueError, match="shared memory"):
-        onehot.rowsum(idx, val, mask, onehot.SMEM_LIMIT // 4 + 1)
+        onehot.rowsum(idx, val, mask, SMEM_LIMIT // 4 + 1)
     with pytest.raises(ValueError):
         onehot.rowgather_wide(val, idx[:, :1].expand(8, 9))
     with pytest.raises(ValueError, match="form"):
@@ -165,3 +216,58 @@ def test_wrappers_refuse_wrong_inputs(cuda):
         onehot.table_gather(val, idx)
     with pytest.raises(ValueError):
         onehot.table_gather(val[0], idx[:, ::2])
+
+
+# 227 KB of shared memory a block: rowmax/rowsum hold 4 B a column,
+# delivery_reduce 8 B. W = 16,384 fits both; one column past the limit
+# raises before any launch.
+def test_row_kernels_refuse_rows_past_the_shared_memory_limit(cuda):
+    idx, val, mask = _inputs(1, 2, 3, 16_384, cuda)
+    onehot.reset_launches()
+    for w in (16_384, SMEM_LIMIT // 8 + 1):
+        seen = torch.zeros((2, w), dtype=torch.int64, device=cuda)
+        if w == 16_384:
+            onehot.rowsum(idx, val, mask, w)
+            onehot.delivery_reduce(idx, val, val, mask, mask, seen, w)
+            torch.cuda.synchronize()
+            continue
+        with pytest.raises(ValueError, match="shared memory"):
+            onehot.delivery_reduce(idx, val, val, mask, mask, seen, w)
+    with pytest.raises(ValueError, match="shared memory"):
+        onehot.rowsum(idx, val, mask, SMEM_LIMIT // 4 + 1)
+    assert onehot.LAUNCHES["rowsum"] == 1 and onehot.LAUNCHES["delivery_reduce"] == 1
+
+
+def test_a_library_that_fails_to_build_raises_and_never_falls_back(cuda, tmp_path):
+    # A fresh interpreter (this one has the library loaded), pointed at a
+    # copy of csrc/ with one broken kernel: the CUDA call raises with the
+    # compiler's output, launches nothing and returns no plain result.
+    broken = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, broken)
+    (broken / "table_gather.cu").write_text("this is not CUDA\n")
+    code = (
+        "from pathlib import Path\n"
+        "import torch\n"
+        "from corrosion_tpu_torch import cuda_build\n"
+        f"cuda_build.CSRC = Path({str(broken)!r})\n"
+        f"cuda_build.BUILD_DIR = Path({str(tmp_path / 'build')!r})\n"
+        "from corrosion_tpu_torch.ops import onehot\n"
+        "table = torch.arange(8, device='cuda')\n"
+        "idx = torch.tensor([1, 9, -2], device='cuda')\n"
+        "for _ in range(2):\n"
+        "    try:\n"
+        "        out = onehot.table_gather(table, idx)\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'table_gather.cu' in str(e), e\n"
+        "    else:\n"
+        "        raise SystemExit(f'no error: {out}')\n"
+        "assert onehot.LAUNCHES['table_gather'] == 0 and not onehot._OPS\n"
+        "assert not list((Path(cuda_build.BUILD_DIR)).glob('*.so'))\n"
+        "print('raised')\n"
+    )
+    repo = Path(__file__).resolve().parent.parent
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=repo, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(repo)),
+    )
+    assert res.returncode == 0 and res.stdout.strip() == "raised", res.stdout + res.stderr

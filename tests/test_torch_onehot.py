@@ -132,9 +132,12 @@ def test_cpu_tensors_never_count_launches():
 
 
 def test_wrapper_rejects_mixed_devices():
+    # The CPU route takes CPU tensors only (the operators check CUDA ones).
     idx, val, _ = _inputs(11, 2, 3, 4)
     with pytest.raises(ValueError):
-        to._on_cuda(_t(idx), _t(val).to("meta"))
+        to._check_cpu(_t(idx), _t(val).to("meta"))
+    with pytest.raises(ValueError):
+        to.rowmax(_t(idx), _t(val).to("meta"), None, 4)
 
 
 # Every row-gather call on the three main paths at full size: (W, M,

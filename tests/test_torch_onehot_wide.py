@@ -90,12 +90,3 @@ def test_cpu_tensors_never_count_launches():
     assert all(v == 0 for v in to.LAUNCHES.values())
     assert {"rowgather_wide", "rowsum"} <= set(to.LAUNCHES)
 
-
-def test_row_kernels_refuse_rows_past_the_shared_memory_limit():
-    # 227 KB of shared memory a block: rowmax/rowsum hold 4 B a column,
-    # delivery_reduce 8 B. W = 16,384 fits both; one column past the
-    # limit raises before any launch.
-    to._check_smem("rowsum", 4 * 16_384)
-    to._check_smem("delivery_reduce", 8 * 16_384)
-    with pytest.raises(ValueError, match="shared memory"):
-        to._check_smem("rowsum", 4 * (to.SMEM_LIMIT // 4 + 1))
