@@ -40,7 +40,12 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    ``delivery_reduce``
    at merge_10k against two ``rowmax`` and a max pass, and ``rowsum``
    against ``torch.zeros`` + ``scatter_add_`` (no single call makes its
-   fresh plane);
+   fresh plane). The adaptive-dissemination paths add ``table_gather`` at
+   the intake priority ([512] <- [100000, 144]) and the saturation test
+   ([512] <- [100000, 48]), with a 2-D index at an odd storage offset and a
+   non-contiguous one (refused), and ``rowgather`` at the rumor kill's
+   watermark lookup; the geo scenario's shapes (10,000 rows, 16 writers)
+   for every kernel it launches;
 4. small runs on the card (kernels) and on the CPU (plain versions), with
    identical curves and final state: ``wan_100k(n=2000, ...)``,
    ``three_node()``, ``churn_32()`` and its wipe variant,
@@ -48,7 +53,12 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    2048 writers, so it takes the legacy delivery and launches
    ``rowgather_wide`` and ``rowsum``), and ``anywrite_sparse(n=2000, ...)``
    with fewer hot slots than active writers under a partition (forced
-   demotions, cold healing, ``table_gather``);
+   demotions, cold healing, ``table_gather``); then the adaptive plane
+   (``health.ADAPTIVE_GOSSIP``): ``wan_100k(n=2000, rounds=48)`` with
+   8-bucket sketches (sketch scoring forced), the merge_10k burst at
+   n=2560 over 24 rounds (the legacy delivery; its CPU side is the slow
+   one), ``churned_demo_cluster(96, 48, geo=True,
+   adaptive=True)`` and the anywrite run with ``prop_observe``;
 5. full-size ``wan_100k()`` (100,000 nodes, 20 regions, 512 writers), all
    240 rounds in chunks of 12: its four kernels launched, the watermark
    invariants;
@@ -58,12 +68,22 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
 7. full-size ``anywrite_sparse()`` (100,000 nodes, any of them a writer,
    2,048 hot slots), all 320 rounds, epoch by epoch: converged, no
    deviation entry dropped, ``table_gather``, ``rowmax``, ``rowgather``
-   and ``delivery_reduce`` launched, the watermark invariants.
+   and ``delivery_reduce`` launched, the watermark invariants;
+8. ``wan_100k_adaptive``: full-size ``wan_100k()`` with
+   ``ADAPTIVE_GOSSIP`` and 8-bucket sync sketches, all 240 rounds in
+   chunks of 12: its five kernels launched (``table_gather`` among them),
+   the watermark invariants;
+9. ``geo_10k``: ``churned_demo_cluster(nodes=10_000, rounds=64, geo=True)``
+   (4 regions, 16 writers, a kill/revive wave of 625 nodes, dense SWIM,
+   ``prop_observe``), push-only and adaptive: the propagation plane's
+   conservation identities on the card's curves, rumor kills in the
+   adaptive run, and each run's delivered copies, peak backlog and
+   convergence round.
 
-The launch counts are reset just before each main-path run (phases 5, 6
-and 7) and read just after it. The last lines are a ``kernels`` JSON line,
+The launch counts are reset just before each main-path run (phases 5-8,
+and phase 9's pair of runs) and read just after it. The last lines are a ``kernels`` JSON line,
 the nvidia-smi line, and the result line ``{"ok": true, "device": {...}}``.
-Each kernel's entry carries its launches summed over the three paths and,
+Each kernel's entry carries its launches summed over the five paths and,
 under ``by_path``, each path's launches and the times and bound of every
 shape measured on it; its top-level times are those of its first shape.
 """
@@ -112,6 +132,9 @@ PATH_KERNELS = {
     "wan_100k": ("rowmax", "rowgather", "delivery_reduce", "window_delivery"),
     "merge_10k": ("rowgather_wide", "rowmax", "rowgather", "delivery_reduce"),
     "anywrite_sparse": ("table_gather", "rowmax", "rowgather", "delivery_reduce"),
+    "wan_100k_adaptive": ("rowmax", "rowgather", "delivery_reduce", "window_delivery",
+                          "table_gather"),
+    "geo_10k": ("rowgather", "delivery_reduce", "window_delivery", "table_gather"),
 }
 
 
@@ -367,11 +390,29 @@ def check_kernels(onehot, device) -> list:
             for at, idx in (("aligned", base[:n]), ("odd offset", base[1:])):
                 assert equal(onehot.table_gather(table, idx), onehot.table_gather_plain(table, idx)), \
                     f"table_gather differs at W={w}, n={n}, {at} idx"
+    # 2-D indices at the adaptive plane's widths: at an odd storage offset
+    # (scalar index loads), and a non-contiguous view, which the operator
+    # refuses (its contiguous copy gathers).
+    for w, r, m in ((512, 1001, 144), (512, 999, 48), (16, 301, 64), (16, 3, 16)):
+        table = torch.randint(0, 1 << 32, (w,), generator=g).to(device)
+        flat = torch.randint(-w - 3, 2 * w + 3, (r * m + 1,), generator=g).to(device)
+        for at, idx in (("aligned", flat[:-1].view(r, m)), ("odd offset", flat[1:].view(r, m))):
+            assert equal(onehot.table_gather(table, idx), onehot.table_gather_plain(table, idx)), \
+                f"table_gather differs at W={w}, idx [{r},{m}] {at}"
+        strided = flat[: r * (m // 2) * 2].view(r, -1)[:, ::2]
+        try:
+            onehot.table_gather(table, strided)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("table_gather took a non-contiguous index")
+        assert equal(onehot.table_gather(table, strided.contiguous()),
+                     onehot.table_gather_plain(table, strided)), f"table_gather differs at W={w}, strided"
     torch.cuda.synchronize()
     log("phase 3: edge cases equal (0-width axes, out-of-range, bit 31, wk 32/64, "
         "W 10,000 and 16,384; every gather form and semantics, row stride 0 and M, "
         "odd m and W, offset idx; table_gather W 0 to 100,000, n 0-3, one block +-1, "
-        "several blocks + 1, odd-offset idx)")
+        "several blocks + 1, odd-offset idx, 2-D odd-offset idx, non-contiguous idx refused)")
 
     out = []
 
@@ -482,6 +523,10 @@ def check_kernels(onehot, device) -> list:
         gather_case(path, "CRDT winner check", u24(n, k), idx)
         gather_case(path, "sync grants", u24(r_sync, w), sorted_idx(r_sync, budget, w))
         gather_case(path, "visibility", u24(n, w), torch.randint(0, w, (samples,), generator=g).to(device))
+        window_case(path, n, kk, w)
+
+    def window_case(path, n, kk, w):
+        """The delivery reductions and the window at one path's shapes."""
         widx, d, valid = reduce_case(path, n, kk, w, 40, 1 << 20)
         oo = torch.randint(0, 1 << 32, (1, n, w), generator=g).to(device)
         adv_m = torch.randint(0, 8, (n, kk), generator=g).to(device)
@@ -494,6 +539,17 @@ def check_kernels(onehot, device) -> list:
             lambda *a: onehot.window_delivery_plain(*a, 32, w),
             None,
             (widx, d, adv_m, valid), 8 * widx.numel(), int(wtouched.sum()),
+        )
+
+    def table_case(path, site, table, tidx):
+        measure(
+            "table_gather", path, f"{site} [{table.shape[0]}]<-{list(tidx.shape)}", (table, tidx),
+            onehot.table_gather, onehot.table_gather_plain,
+            # The index is already in range, so take on it needs no clip.
+            torch.take,
+            (table, tidx), tidx.numel(),
+            # A copy of the index: the same bytes read and written, no gather.
+            clone_ms=lambda table, tidx: tidx.clone(),
         )
 
     # wan_100k: N=100,000 rows, kk=144 messages, W=512 writers, K=256 cells,
@@ -549,25 +605,37 @@ def check_kernels(onehot, device) -> list:
     w_hot, r_sync, n, q = 2048, 16_667, 100_000, 64
     fast_path("anywrite_sparse", n, 5 * q, w_hot, 256, 256, r_sync, budget)
     gather_case("anywrite_sparse", "cold_sync grants", u24(n, 256), sorted_idx(n, 64, 256))
-    for table, tidx in (
-        (
-            torch.randint(0, n, (w_hot,), generator=g).to(device),
-            sorted_idx(r_sync, budget, w_hot),
-        ),
-        (
-            (torch.rand((w_hot,), generator=g) < 0.4).to(torch.int64).to(device),
-            torch.randint(0, w_hot, (n, q), generator=g).to(device),
-        ),
-    ):
-        measure(
-            "table_gather", "anywrite_sparse", f"[{w_hot}]<-{list(tidx.shape)}", (table, tidx),
-            onehot.table_gather, onehot.table_gather_plain,
-            # The index is already in range, so take on it needs no clip.
-            torch.take,
-            (table, tidx), tidx.numel(),
-            # A copy of the index: the same bytes read and written, no gather.
-            clone_ms=lambda table, tidx: tidx.clone(),
-        )
+    table_case("anywrite_sparse", "sync grants", torch.randint(0, n, (w_hot,), generator=g).to(device),
+               sorted_idx(r_sync, budget, w_hot))
+    table_case("anywrite_sparse", "rotate",
+               (torch.rand((w_hot,), generator=g) < 0.4).to(torch.int64).to(device),
+               torch.randint(0, w_hot, (n, q), generator=g).to(device))
+
+    # wan_100k_adaptive (its other sites are wan_100k's): the intake
+    # priority reads the head of each delivered copy's writer (the sorted
+    # writer column, [N, kk = 144]), the saturation test each queue
+    # entry's ([N, Q = 48], twice a round), the rumor kill each copy's
+    # receiver watermark.
+    n, w, kk, q = 100_000, 512, 144, 48
+    heads = torch.randint(0, 1 << 20, (w,), generator=g).to(device)
+    table_case("wan_100k_adaptive", "intake priority", heads, sorted_idx(n, kk, w))
+    table_case("wan_100k_adaptive", "queue saturation", heads,
+               torch.randint(0, w, (n, q), generator=g).to(device))
+    gather_case("wan_100k_adaptive", "rumor-kill watermarks", u24(n, w),
+                torch.randint(0, w, (n, kk), generator=g).to(device))
+
+    # geo_10k: N = 10,000 rows, W = 16 writers, kk = 64 messages (fanout
+    # 2+2 x queue 16), S = 64 samples, no cells (no rowmax, no grant
+    # gathers); the base gather and the kill's watermark lookup share a
+    # shape.
+    n, w, kk, q = 10_000, 16, 64, 16
+    gather_case("geo_10k", "base gather, rumor-kill watermarks", u24(n, w),
+                torch.randint(0, w, (n, kk), generator=g).to(device))
+    gather_case("geo_10k", "visibility", u24(n, w), torch.randint(0, w, (64,), generator=g).to(device))
+    window_case("geo_10k", n, kk, w)
+    heads = torch.randint(0, 1 << 10, (w,), generator=g).to(device)
+    table_case("geo_10k", "intake priority", heads, sorted_idx(n, kk, w))
+    table_case("geo_10k", "queue saturation", heads, torch.randint(0, w, (n, q), generator=g).to(device))
     for row in out:
         times = ", ".join(
             f"{k} {v:.4f}" for k, v in row.items() if k.endswith("ms") and v is not None
@@ -615,25 +683,43 @@ def _wiped(sched, schedule_cls):
 SPARSE_SMALL = dict(n=2000, w_hot=56, rounds=64, n_regions=4, epoch_rounds=8,
                     cohort=32, k_dev=96, partition=True, samples=64)
 SMALL_RUNS = (
-    # (label, builder, builder kwargs, schedule transform, chunk)
-    ("wan_100k n=2000", "wan_100k", dict(n=2000, n_regions=4, n_writers=64, rounds=72), None, 24),
-    ("three_node", "three_node", {}, None, None),
-    ("churn_32", "churn_32", {}, None, 100),
-    ("churn_32 wipe", "churn_32", {}, _wiped, 100),
-    ("anti_entropy_1k", "anti_entropy_1k", {}, None, 50),
-    ("merge_10k burst n=2560", "merge_10k", dict(n=2560, rounds=48), _burst, 24),
-    ("anywrite_sparse n=2000", "anywrite_sparse", SPARSE_SMALL, None, None),
+    # (label, builder, builder kwargs, schedule transform, chunk, gossip
+    # fields set with health.with_adaptive (None: the builder's config),
+    # ops.gossip module settings for the run)
+    ("wan_100k n=2000", "wan_100k", dict(n=2000, n_regions=4, n_writers=64, rounds=72), None, 24,
+     None, {}),
+    ("three_node", "three_node", {}, None, None, None, {}),
+    ("churn_32", "churn_32", {}, None, 100, None, {}),
+    ("churn_32 wipe", "churn_32", {}, _wiped, 100, None, {}),
+    ("anti_entropy_1k", "anti_entropy_1k", {}, None, 50, None, {}),
+    ("merge_10k burst n=2560", "merge_10k", dict(n=2560, rounds=48), _burst, 24, None, {}),
+    ("anywrite_sparse n=2000", "anywrite_sparse", SPARSE_SMALL, None, None, None, {}),
+    # The adaptive plane: sketch scoring forced (the escalated pull scores
+    # exactly below _EXACT_SCORE_MAX at this size), the legacy delivery, the
+    # geo scenario with its propagation curves, and the sparse engine.
+    ("wan_100k adaptive sketch n=2000", "wan_100k", dict(n=2000, rounds=48), None, 24,
+     dict(sync_sketch_buckets=8), {"_EXACT_SCORE_MAX": 0}),
+    ("merge_10k burst adaptive n=2560", "merge_10k", dict(n=2560, rounds=24), _burst, 12, {}, {}),
+    ("geo churned_demo_cluster adaptive n=96", "churned_demo_cluster",
+     dict(nodes=96, rounds=48, geo=True, adaptive=True), None, None, None, {}),
+    ("anywrite_sparse adaptive prop n=2000", "anywrite_sparse", SPARSE_SMALL, None, None,
+     dict(prop_observe=True), {}),
 )
 
 
-def _small_run(builder, kw, transform, chunk, dev):
+def _small_run(builder, kw, transform, chunk, adapt, dev):
     """One small run on ``dev``: its flattened final state, curves and
     info (the sparse engine's, without the resume point; {} otherwise)."""
     from corrosion_tpu_torch import interop
     from corrosion_tpu_torch.models import baselines
-    from corrosion_tpu_torch.sim import engine, sparse_engine
+    from corrosion_tpu_torch.sim import engine, health, sparse_engine
 
-    cfg, topo, sched = getattr(baselines, builder)(device=dev, **kw)
+    if builder == "churned_demo_cluster":
+        cfg, topo, sched, _ = health.churned_demo_cluster(device=dev, **kw)
+    else:
+        cfg, topo, sched = getattr(baselines, builder)(device=dev, **kw)
+    if adapt is not None:
+        cfg = health.with_adaptive(cfg, **adapt)
     if transform is not None:
         sched = transform(sched, engine.Schedule)
     if builder != "anywrite_sparse":
@@ -650,20 +736,28 @@ def _small_run(builder, kw, transform, chunk, dev):
     return flat, curves, info, sched.rounds
 
 
-def check_small_runs(onehot):
+def check_small_runs(onehot, gossip):
     """Each small run on the card (kernels) equals the CPU run (plain
-    versions); the merge_10k run launches the two wide-path kernels, the
-    anywrite run demotes, heals and launches ``table_gather``."""
-    for label, builder, kw, transform, chunk in SMALL_RUNS:
+    versions); the merge_10k runs launch the two wide-path kernels, the
+    anywrite runs demote, heal and launch ``table_gather``, the adaptive
+    runs launch ``table_gather`` and kill rumors."""
+    for label, builder, kw, transform, chunk, adapt, knobs in SMALL_RUNS:
         runs = {}
-        for dev in ("cuda", "cpu"):
-            onehot.reset_launches()
-            t0 = time.perf_counter()
-            out = _small_run(builder, kw, transform, chunk, dev)
-            if dev == "cuda":
-                torch.cuda.synchronize()
-                launches = dict(onehot.LAUNCHES)
-            runs[dev] = (*out, time.perf_counter() - t0)
+        saved = {k: getattr(gossip, k) for k in knobs}
+        try:
+            for k, v in knobs.items():
+                setattr(gossip, k, v)
+            for dev in ("cuda", "cpu"):
+                onehot.reset_launches()
+                t0 = time.perf_counter()
+                out = _small_run(builder, kw, transform, chunk, adapt, dev)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    launches = dict(onehot.LAUNCHES)
+                runs[dev] = (*out, time.perf_counter() - t0)
+        finally:
+            for k, v in saved.items():
+                setattr(gossip, k, v)
         (fa, ca, ia, rounds, ta), (fb, cb, ib, _, tb) = runs["cuda"], runs["cpu"]
         bad = [k for k in ca if not np.array_equal(ca[k], cb[k])]
         bad += [k for k in fa if not np.array_equal(fa[k], fb[k])]
@@ -675,10 +769,33 @@ def check_small_runs(onehot):
         if builder == "anywrite_sparse":
             assert ia["max_dev_entries"] > 0 and ca["cold_healed"].sum() > 0, ia
             assert launches["table_gather"] > 0, launches
+        if adapt is not None or kw.get("adaptive"):
+            assert launches["table_gather"] > 0, launches
+            assert fa["data.q_dup"].shape[1] > 0 and fa["data.q_dup"].any(), label
+            if builder == "churned_demo_cluster" or adapt.get("prop_observe"):
+                check_conservation(label, ca)
+                assert ca["prop_rumor_kills"].sum() > 0, label
         extra = f"; info {json.dumps(ia)}; cold_healed={int(ca['cold_healed'].sum())}" if ia else ""
         log(f"phase 4: {label} ({rounds} rounds): card {ta:.1f} s == CPU "
             f"{tb:.1f} s ({len(ca)} curves, {len(fa)} state leaves); "
             f"need[-1]={int(ca['need'][-1])}{extra}; launches {json.dumps(launches)}")
+
+
+def check_conservation(label: str, curves: dict) -> None:
+    """The propagation plane's identities, round by round: the link
+    matrix's mass and useful + duplicate copies are ``msgs``, the rumor-age
+    histogram's mass is ``vis_count``."""
+    from corrosion_tpu_torch.sim import telemetry
+
+    def mass(keys):
+        return sum(curves[k].astype(np.int64) for k in keys)
+
+    msgs = curves["msgs"].astype(np.int64)
+    assert np.array_equal(mass(telemetry.LINK_CURVE_KEYS), msgs), f"{label}: link mass != msgs"
+    assert np.array_equal(mass(("prop_useful_msgs", "prop_dup_msgs")), msgs), \
+        f"{label}: useful + dup != msgs"
+    assert np.array_equal(mass(telemetry.RUMOR_AGE_KEYS), curves["vis_count"].astype(np.int64)), \
+        f"{label}: rumor-age mass != vis_count"
 
 
 def dense_chunks(cfg, topo, sched, chunk: int = 12):
@@ -709,14 +826,26 @@ def sparse_epochs(cfg, topo, sched):
         yield sstate, curves, dict(info, unseen=int((vis < 0).sum()))
 
 
+def build_path(path: str):
+    """(config, topology, schedule) of a full-size main path on the card."""
+    from corrosion_tpu_torch.models import baselines
+    from corrosion_tpu_torch.sim import health
+
+    if path == "wan_100k_adaptive":
+        # The reference tests' composed_sketch tuning; prop_observe stays
+        # off (20 regions exceed the plane's PROP_REGIONS = 4).
+        cfg, topo, sched = baselines.wan_100k(device="cuda")
+        return health.with_adaptive(cfg, sync_sketch_buckets=8), topo, sched
+    return getattr(baselines, path)(device="cuda")
+
+
 def full_run(onehot, gossip, phase: int, builder: str):
     """A main path at full size, every round of its schedule, one call per
     chunk (dense engine) or epoch (sparse engine), with the launch counts
     reset just before and read just after."""
-    from corrosion_tpu_torch.models import baselines
     from corrosion_tpu_torch.sim import sparse_engine
 
-    cfg, topo, sched = getattr(baselines, builder)(device="cuda")
+    cfg, topo, sched = build_path(builder)
     sparse = builder == "anywrite_sparse"
     chunks = (sparse_epochs if sparse else dense_chunks)(cfg, topo, sched)
     torch.cuda.synchronize()
@@ -775,6 +904,64 @@ def full_run(onehot, gossip, phase: int, builder: str):
     return launches
 
 
+def geo_run(onehot, gossip, phase: int = 9) -> dict:
+    """The geo epidemic scenario at 10,000 nodes, push-only then adaptive,
+    each in one call: every round completes, the watermark invariants and
+    the propagation identities hold on the card's curves, the adaptive
+    run kills rumors. The launch counts are reset before the pair and read
+    after it. Returns them."""
+    from corrosion_tpu_torch.sim import engine, health
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    onehot.reset_launches()
+    gossip.reset_host_syncs()
+    copies = {}
+    for adaptive in (False, True):
+        label = "adaptive" if adaptive else "push"
+        cfg, topo, sched, kill_rounds = health.churned_demo_cluster(
+            nodes=10_000, rounds=64, samples=64, geo=True, adaptive=adaptive, device="cuda"
+        )
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        final, curves = engine.simulate(cfg, topo, sched, seed=0, device="cuda")
+        b.record()
+        b.synchronize()
+        d = final.data
+        assert len(curves["msgs"]) == sched.rounds
+        assert bool((d.contig <= d.head[None, :]).all()), f"{label}: contig > head"
+        assert bool((d.seen >= d.contig).all()), f"{label}: seen < contig"
+        assert curves["msgs"].sum() > 0 and curves["vis_count"].sum() > 0, label
+        check_conservation(f"geo_10k {label}", curves)
+        kills = int(curves["prop_rumor_kills"].sum())
+        pulls = int(curves["prop_pull_rounds"].sum())
+        assert kills > 0 if adaptive else kills == pulls == 0, (label, kills, pulls)
+        # The data plane's convergence: need stays 0 from this round on.
+        lagging = np.nonzero(curves["need"] != 0)[0]
+        converged = int(lagging[-1]) + 1 if len(lagging) else 0
+        msgs = int(curves["msgs"].astype(np.int64).sum())
+        copies[label] = msgs
+        log(f"phase {phase}: geo_10k {label} N={cfg.n_nodes} W={cfg.gossip.n_writers} "
+            f"{sched.rounds} rounds (kill/revive of {int(sched.kill.sum())} nodes at round "
+            f"{kill_rounds[0]}): {a.elapsed_time(b) / sched.rounds:.1f} ms/round (CUDA events); "
+            f"delivered copies {msgs}, useful {int(curves['prop_useful_msgs'].sum())}, "
+            f"duplicate {int(curves['prop_dup_msgs'].sum())}; peak queue_backlog "
+            f"{int(curves['queue_backlog'].max())} ({curves['queue_backlog'].max() / cfg.n_nodes:.2f} "
+            f"a node); rumor kills {kills}, pull rounds {pulls}; "
+            + (f"need 0 from round {converged}" if converged < sched.rounds
+               else "need not 0 by the last round")
+            + f"; SWIM mismatches in the last round {int(curves['mismatches'][-1])}")
+    launches = dict(onehot.LAUNCHES)
+    missing = [k for k in PATH_KERNELS["geo_10k"] if launches[k] == 0]
+    assert not missing, f"geo_10k: kernels never launched on its path: {missing}"
+    log(f"phase {phase}: geo_10k delivered copies push {copies['push']} -> adaptive "
+        f"{copies['adaptive']} ({copies['adaptive'] / copies['push']:.3f}x); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"phase {phase}: launches {json.dumps(launches)}; host syncs {json.dumps(dict(gossip.HOST_SYNCS))}")
+    return launches
+
+
 def kernel_rows(measured: list, by_path: dict) -> list:
     """The ``kernels`` line: one entry per kernel from phase 3's
     measurements and the main paths' launch counts."""
@@ -828,11 +1015,14 @@ def main() -> int:
         f"{len(cuda_build.SOURCES)} sources ({', '.join(cuda_build.SOURCES)}) in {build_s:.1f} s, "
         f"loaded in {time.perf_counter() - t_load:.2f} s: {lib.name}")
     measured = check_kernels(onehot, "cuda")
-    check_small_runs(onehot)
+    check_small_runs(onehot, gossip)
     by_path = {
         path: full_run(onehot, gossip, phase, path)
-        for phase, path in ((5, "wan_100k"), (6, "merge_10k"), (7, "anywrite_sparse"))
+        for phase, path in (
+            (5, "wan_100k"), (6, "merge_10k"), (7, "anywrite_sparse"), (8, "wan_100k_adaptive"),
+        )
     }
+    by_path["geo_10k"] = geo_run(onehot, gossip)
     rows = kernel_rows(measured, by_path)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build to the end")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -12,8 +12,13 @@ reads (``visibility``, ``total_need``, ``staleness``, ``queue_backlog``).
 its slot, for the rotating writer slots of ``ops/sparse_writers.py``.
 The module docstring of the reference describes the model.
 
-Options not ported yet (the adaptive-dissemination mechanisms,
-propagation observables, sketches) raise ``NotImplementedError``.
+The adaptive-dissemination plane rides the same rounds, each mechanism
+off by default: the duplicate-receipt rumor kill (``rumor_kill_k``, with
+the per-entry counter ``q_dup``), push->pull switching
+(``pull_switch_age``: far-slot suppression and an escalated pull),
+age-targeted intake (``age_forward``), bucketed sync sketches
+(``sync_sketch_buckets``), and the propagation observables
+(``prop_observe``: the region link matrix and the useful/duplicate split).
 
 Data-dependent ``lax.cond`` branches become Python ``if`` on a 0-d
 tensor: one device-to-host sync each, counted in ``HOST_SYNCS`` together
@@ -124,27 +129,18 @@ class GossipConfig:
             )
         for name in ("rumor_kill_k", "pull_switch_age", "sync_sketch_buckets"):
             if getattr(self, name) < 0:
-                raise ValueError(f"{name} must be >= 0")
+                raise ValueError(f"{name} must be >= 0 (0 = off)")
+        if self.age_forward and self.rebroadcast_stale:
+            raise ValueError(
+                "age_forward orders the intake by version age; under "
+                "rebroadcast_stale the intake re-admits already-held old "
+                "versions, which the age priority would starve: enable one "
+                "or the other"
+            )
 
     @property
     def fanout(self) -> int:
         return self.fanout_near + self.fanout_far
-
-
-def _check_slice(cfg: GossipConfig) -> None:
-    """Raise for the options whose code paths later slices port."""
-    unported = {
-        "prop_observe": cfg.prop_observe,
-        "rumor_kill_k": cfg.rumor_kill_k > 0,
-        "pull_switch_age": cfg.pull_switch_age > 0,
-        "age_forward": cfg.age_forward,
-        "sync_sketch_buckets": cfg.sync_sketch_buckets > 0,
-    }
-    on = [k for k, v in unported.items() if v]
-    if on:
-        raise NotImplementedError(
-            f"not ported to corrosion_tpu_torch yet: {', '.join(on)}"
-        )
 
 
 class Topology(NamedTuple):
@@ -236,7 +232,7 @@ class DataState(NamedTuple):
     q_ver: torch.Tensor  # [N, Q]
     q_tx: torch.Tensor  # [N, Q] transmissions left
     q_gw: torch.Tensor  # [N, Q] global writer id (Q=0 unless track_writer_ids)
-    q_dup: torch.Tensor  # [N, 0] (rumor death not ported)
+    q_dup: torch.Tensor  # [N, Q] duplicate receipts (Q=0 unless rumor_kill_k)
     cells: crdt.CellState  # [N * K] x3 per-node registers
 
 
@@ -344,6 +340,87 @@ def _as_i32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= (1 << 31), x - (1 << 32), x)
 
 
+def bucket_sketch(contig: torch.Tensor, buckets: int) -> torch.Tensor:
+    """[N, B] set-reconciliation sketch of per-node progress: the writer
+    axis folds into ``buckets`` contiguous blocks (zero-padded to a
+    multiple) and each bucket sums its block's watermarks mod 2^32
+    (reference ``bucket_sketch``)."""
+    n, w = contig.shape
+    wp = -(-w // buckets) * buckets
+    c = torch.nn.functional.pad(contig, (0, wp - w))
+    return c.reshape(n, buckets, wp // buckets).sum(2) & MASK
+
+
+def _sketch_score(skc, sk_self, sync_budget: int) -> torch.Tensor:
+    """Summed per-bucket one-sided sketch deficit, each bucket quantized
+    like the scalar digest, summed with the reference's int32 wraparound."""
+    d = skc - torch.minimum(skc, sk_self)
+    return _as_i32(digest_quantize(d, sync_budget).to(torch.int64).sum(-1))
+
+
+# Age-bin upper edges (versions behind the writer's head) of the
+# age-targeted intake priority: the propagation plane's rumor-age edges
+# (sim/telemetry.RUMOR_AGE_EDGES), duplicated because ops do not import sim.
+AGE_FORWARD_EDGES = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 24, 32, 48, 64)
+
+
+def _intake_priority(head, w_idx, v, cfg) -> torch.Tensor:
+    """Rebroadcast-intake keep-priority, higher kept (reference
+    ``_intake_priority``): oldest version first, or under ``age_forward``
+    the youngest age bin first, ``-(bin << 24) + min(v, 2^24 - 1)``.
+    ``torch.bucketize`` (right=False) returns each age's count of edges
+    below it: the reference's sum of ``age > e`` over the edges."""
+    if not cfg.age_forward:
+        return -v
+    hw = onehot.table_gather(head, w_idx)
+    age = hw - torch.minimum(v, hw)
+    edges = torch.tensor(AGE_FORWARD_EDGES, dtype=torch.int64, device=v.device)
+    b = torch.bucketize(age, edges)
+    return -(b << 24) + torch.clamp(v, max=(1 << 24) - 1)
+
+
+def _queue_saturation(q_writer, q_ver, head, alive, cfg) -> torch.Tensor:
+    """bool[n]: push->pull saturation (reference ``_queue_saturation``): a
+    live node whose pending queue is non-empty and holds only versions
+    more than ``pull_switch_age`` behind their writer's head."""
+    occ = q_writer >= 0
+    hq = onehot.table_gather(head, torch.clamp(q_writer, min=0))
+    young = occ & (hq - torch.minimum(q_ver, hq) <= cfg.pull_switch_age)
+    return alive & occ.any(1) & ~young.any(1)
+
+
+def _region_link_matrix(m_ok, recv_region, src_region, q_cap: int, n_regions: int):
+    """[R, R] delivered copies, receiver region row by source region
+    column (reference ``_region_link_matrix``, whose R^2 masked sums
+    become one integer count over ``recv * R + src``; ``index_add_``, as
+    ``bincount`` would read its input's maximum on the host)."""
+    n, kk = m_ok.shape
+    sr = src_region[:, :, None].expand(n, src_region.shape[1], q_cap).reshape(n, kk)
+    rr = n_regions * n_regions
+    pair = torch.where(m_ok, recv_region[:, None] * n_regions + sr, rr).reshape(-1)
+    counts = torch.zeros(rr + 1, dtype=torch.int64, device=m_ok.device)
+    counts.index_add_(0, pair, torch.ones_like(pair))
+    return counts[:rr].reshape(n_regions, n_regions)
+
+
+def _duplicate_hits(m_ok, m_w, m_v, q_writer, q_ver) -> torch.Tensor:
+    """[n, Q] delivered copies matching each of the receiver's own pending
+    entries (same writer, same version). One int64 key per (writer,
+    version) makes the reference's [n, Q, kk] compare one bool pass, run
+    over row tiles that keep it near 256 MB (the count is row-local)."""
+    n, kk = m_w.shape
+    q = q_writer.shape[1]
+    # m_ok implies m_w >= 0, so a dropped copy's sentinel key (below every
+    # (writer >= -1) << 32 key) matches no queue entry.
+    mkey = torch.where(m_ok, (m_w << 32) | m_v, -(1 << 62))
+    qkey = (q_writer << 32) | q_ver
+    step = max(1, (1 << 28) // max(q * kk, 1))
+    return torch.cat([
+        (mkey[i : i + step, None, :] == qkey[i : i + step, :, None]).sum(2)
+        for i in range(0, n, step)
+    ]) if n else torch.zeros((0, q), dtype=torch.int64, device=m_w.device)
+
+
 def _merge_versions_dense(cells, rows, writer, version, mask, row_ok, n_nodes: int, cfg):
     """Row-dense CRDT merge: lexicographic (cl, col_version, value_rank)
     max per cell via the packed (cl << 24 | col_version) word, then
@@ -382,7 +459,7 @@ def _merge_versions_dense(cells, rows, writer, version, mask, row_ok, n_nodes: i
     return crdt.CellState(*out), n_merges
 
 
-def _fast_delivery(data, contig, cells, m_w, m_v, m_gw, m_ok, k_in, cfg):
+def _fast_delivery(data, head, contig, cells, m_w, m_v, m_gw, m_ok, k_in, cfg):
     """Delta-packed one-hot delivery (reference ``_broadcast_round`` 3a and
     the intake step 4) for writer axes up to ``_FAST_MAX_WRITERS`` with
     fresh-budget, fresh-only intake. Returns what ``_legacy_delivery``
@@ -456,24 +533,28 @@ def _fast_delivery(data, contig, cells, m_w, m_v, m_gw, m_ok, k_in, cfg):
             cells, None, w2 if gw2 is None else gw2, v2, fresh, None, n, cfg
         )
     in_mask, ins = routing.rebuild_bounded_queue(
-        fresh, -v2, (w2, v2) if gw2 is None else (w2, v2, gw2), k_in
+        fresh, _intake_priority(head, w2, v2, cfg),
+        (w2, v2) if gw2 is None else (w2, v2, gw2), k_in,
     )
     in_w, in_v = ins[0], ins[1]
     in_tx = torch.full(in_w.shape, cfg.max_transmissions, dtype=torch.int64, device=dev)
     in_w = torch.where(in_mask, in_w, -1)
+    # Stale copies never reach ``fresh`` here: it is exactly the newly
+    # possessed first receipts the propagation counter reads.
     return (
         contig, seen, oo_new, oo_any_new, n_degraded, cells, n_merges,
-        in_mask, in_w, in_v, in_tx, None if gw2 is None else ins[2],
+        in_mask, in_w, in_v, in_tx, None if gw2 is None else ins[2], fresh,
     )
 
 
-def _legacy_delivery(data, contig, cells, m_w, m_v, m_tx, m_gw, m_ok, k_in, cfg):
+def _legacy_delivery(data, head, contig, cells, m_w, m_v, m_tx, m_gw, m_ok, k_in, cfg):
     """Legacy sort+scatter delivery (reference ``_broadcast_round`` 3b and
     the intake step 4): needed for writer axes wider than
     ``_FAST_MAX_WRITERS``, stale re-admission and inherited budgets.
     Returns (contig, seen, oo, oo_any, n_degraded, cells, n_merges,
-    in_mask, in_w, in_v, in_tx, in_gw); ``in_gw`` is None unless ``m_gw``
-    carries global writer ids."""
+    in_mask, in_w, in_v, in_tx, in_gw, prop_fresh); ``in_gw`` is None
+    unless ``m_gw`` carries global writer ids, ``prop_fresh`` masks the
+    first receipts of newly possessed versions."""
     w_count = cfg.n_writers
     n, kk = m_w.shape
     dev = m_w.device
@@ -561,6 +642,9 @@ def _legacy_delivery(data, contig, cells, m_w, m_v, m_tx, m_gw, m_ok, k_in, cfg)
 
     # ---- 4. rebroadcast intake ----------------------------------------------
     fresh = applied & ~prev_same
+    # Under rebroadcast_stale the intake also re-admits held versions,
+    # which the propagation counter counts as redundant.
+    prop_fresh = (fresh & newer) | extra_poss
     if not cfg.rebroadcast_stale:
         fresh = fresh & newer
     fresh = fresh | extra_poss
@@ -571,14 +655,14 @@ def _legacy_delivery(data, contig, cells, m_w, m_v, m_tx, m_gw, m_ok, k_in, cfg)
         intake_ok = fresh & (tx2 > 1)
         in_budget = tx2 - 1
     in_mask, ins = routing.rebuild_bounded_queue(
-        intake_ok, -v2,
+        intake_ok, _intake_priority(head, w2c, v2, cfg),
         (w2c, v2, in_budget) if gw2 is None else (w2c, v2, in_budget, gw2), k_in,
     )
     in_w, in_v, in_tx = ins[:3]
     in_w = torch.where(in_mask, in_w, -1)
     return (
         contig, seen, oo_new, oo_any_new, n_degraded, cells, n_merges,
-        in_mask, in_w, in_v, in_tx, None if gw2 is None else ins[3],
+        in_mask, in_w, in_v, in_tx, None if gw2 is None else ins[3], prop_fresh,
     )
 
 
@@ -586,8 +670,8 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
     """One broadcast-plane round (reference ``_broadcast_round``,
     unsharded): local writes, source sampling, queue gather, loss, the
     row sort, delivery reductions, window admission, the CRDT merge and
-    the queue rebuild. Returns (DataState, stats)."""
-    _check_slice(cfg)
+    the queue rebuild, with the adaptive-dissemination switches where the
+    reference has them. Returns (DataState, stats)."""
     track = cfg.track_writer_ids
     if track and topo.writer_ids is None:
         raise ValueError("track_writer_ids requires topo.writer_ids")
@@ -646,6 +730,16 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
             & alive[src]
             & (src != nodes[:, None])
         )
+        n_pulls = zero
+        if cfg.pull_switch_age > 0 and cfg.fanout_far > 0:
+            # ---- (b) push->pull: saturated receivers drop their far slots
+            # and escalate to a pull in this round's sync stage.
+            sat = _queue_saturation(data.q_writer, data.q_ver, head, alive, cfg)
+            link_ok = torch.cat(
+                [link_ok[:, : cfg.fanout_near], link_ok[:, cfg.fanout_near :] & ~sat[:, None]],
+                dim=1,
+            )
+            n_pulls = sat.sum()
         # ---- 3. delivery ---------------------------------------------------
         kk = f * q_cap
         m_w = data.q_writer[src].reshape(n, kk)
@@ -665,6 +759,16 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
         dyn_loss = None if loss is None else loss[topo.region][:, None]
         m_ok, n_lost = faulting.apply_loss(k_loss, m_ok, cfg.loss_prob, dyn_loss)
         n_msgs = m_ok.sum()
+        if cfg.rumor_kill_k > 0:
+            # ---- (a) duplicate receipts, counted per (node, slot) against
+            # the pre-rebuild queues: copies matching the receiver's own
+            # pending entries, plus copies the receiver already held,
+            # added back onto the source's slot (integer adds, so the
+            # order of the scatter's atomics does not matter).
+            hits = _duplicate_hits(m_ok, m_w, m_v, data.q_writer, data.q_ver)
+            cw = onehot.rowgather(contig_before, torch.clamp(m_w, min=0))
+            red = (m_ok & (m_v <= cw)).reshape(n * f, q_cap).to(torch.int64)
+            hits = hits.index_add_(0, src.reshape(n * f), red)
         k_in = cfg.rebroadcast_intake or cfg.fanout * 2
         fast = (
             cfg.rebroadcast_fresh_budget
@@ -673,16 +777,21 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
         )
         if fast:
             # ---- 3a. delta-packed delivery ---------------------------------
-            out = _fast_delivery(data, contig, cells, m_w, m_v, m_gw, m_ok, k_in, cfg)
+            out = _fast_delivery(data, head, contig, cells, m_w, m_v, m_gw, m_ok, k_in, cfg)
         else:
             # ---- 3b. legacy sort+scatter delivery --------------------------
             m_tx = data.q_tx[src].reshape(n, kk)
             out = _legacy_delivery(
-                data, contig, cells, m_w, m_v, m_tx, m_gw, m_ok, k_in, cfg
+                data, head, contig, cells, m_w, m_v, m_tx, m_gw, m_ok, k_in, cfg
             )
         (contig, seen, oo_new, oo_any_new, n_degraded, cells, m, in_mask,
-         in_w, in_v, in_tx, in_gw) = out
+         in_w, in_v, in_tx, in_gw, prop_fresh) = out
         n_merges = n_merges + m
+        if cfg.prop_observe:
+            prop_useful = prop_fresh.sum()
+            prop_link = _region_link_matrix(
+                m_ok, topo.region, topo.region[src], q_cap, partition.shape[0]
+            )
         # A source's budgets burn when at least one receiver pulled it.
         pulled = torch.bincount(
             torch.where(link_ok, src, n).reshape(-1), minlength=n + 1
@@ -700,6 +809,10 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
         oo_new, oo_any_new = data.oo, data.oo_any
         n_degraded = zero
         n_lost = zero
+        n_pulls = zero
+        hits = torch.zeros_like(data.q_dup)
+        prop_useful = zero
+        prop_link = torch.zeros(partition.shape, dtype=torch.int64, device=dev)
 
     # Each writer's own column of seen rises to its new head. max commutes,
     # so this can follow the delivery reductions, which return a new plane.
@@ -711,6 +824,15 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
         occ & sent_any[:, None], data.q_tx - 1, torch.where(occ, data.q_tx, 0)
     )
     old_live = occ & (old_tx > 0)
+    n_kills = zero
+    if cfg.rumor_kill_k > 0:
+        # ---- (a) rumor death: an entry whose duplicate receipts reach k
+        # leaves this round's rebuild, so its slot is free for this round's
+        # intake.
+        q_dup2 = data.q_dup + hits
+        kill = occ & (q_dup2 >= cfg.rumor_kill_k)
+        n_kills = (kill & old_live).sum()
+        old_live = old_live & ~kill
     cand_w = torch.cat([data.q_writer, new_writer, in_w], dim=1)
     cand_v = torch.cat([data.q_ver, new_ver, in_v], dim=1)
     cand_tx = torch.cat(
@@ -726,9 +848,14 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
     payloads = (cand_w, cand_v, cand_tx)
     if track:
         payloads += (torch.cat([data.q_gw, new_gw, in_gw], dim=1),)
+    if cfg.rumor_kill_k > 0:
+        # Surviving entries keep their counter; new entries start at 0.
+        fresh_dup = torch.zeros((n, mw + in_w.shape[1]), dtype=torch.int64, device=dev)
+        payloads += (torch.cat([q_dup2, fresh_dup], dim=1),)
     keep, out = routing.rebuild_bounded_queue(cand_ok, prio, payloads, q_cap)
     q_writer, q_ver, q_tx = out[:3]
     q_gw = out[3] if track else data.q_gw
+    q_dup = out[-1] if cfg.rumor_kill_k > 0 else data.q_dup
     q_writer = torch.where(keep, q_writer, -1)
 
     stats = {
@@ -738,11 +865,18 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
         "window_degraded": n_degraded,
         "lost_msgs": n_lost,
     }
+    if cfg.prop_observe:
+        # Delivered copies split exactly into useful + duplicate, and the
+        # link matrix's mass is msgs.
+        stats.update(
+            prop_link=prop_link, prop_useful=prop_useful,
+            prop_dup=n_msgs - prop_useful, prop_kills=n_kills, prop_pulls=n_pulls,
+        )
     return (
         DataState(
             head=head, contig=contig, seen=seen, oo=oo_new, oo_any=oo_any_new,
             q_writer=q_writer, q_ver=q_ver, q_tx=q_tx, q_gw=q_gw,
-            q_dup=data.q_dup, cells=cells,
+            q_dup=q_dup, cells=cells,
         ),
         stats,
     )
@@ -750,8 +884,26 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
 
 def sync_round(data, topo, alive, partition, round_idx, rng, cfg):
     """Anti-entropy pull sessions for the round's sync cohort (or, without
-    cohorts, every due node). Reference ``_sync_round``."""
-    _check_slice(cfg)
+    cohorts, every due node). Under push->pull switching a second session
+    follows over every saturated node not due this round, on a key split
+    off first. Reference ``_sync_round``."""
+    if cfg.pull_switch_age > 0:
+        keys = rng_mod.split(rng, 2)
+        rng, k_esc = keys[0], keys[1]
+    data, stats = _scheduled_sync(data, topo, alive, partition, round_idx, rng, cfg)
+    if cfg.pull_switch_age == 0:
+        return data, stats
+    # ---- (b) pull escalation: saturation re-read from the post-broadcast
+    # queues; phase identity excludes the rows the session just served.
+    sat = _queue_saturation(data.q_writer, data.q_ver, data.head, alive, cfg)
+    already = torch.remainder(round_idx + topo.sync_phase, cfg.sync_interval) == 0
+    nodes = torch.arange(cfg.n_nodes, device=data.contig.device)
+    data, estats = _sync_rows(data, topo, alive, partition, nodes, sat & ~already, k_esc, cfg)
+    return data, {k: stats[k] + estats[k] for k in stats}
+
+
+def _scheduled_sync(data, topo, alive, partition, round_idx, rng, cfg):
+    """The round's scheduled sessions: one cohort, or every due node."""
     if topo.sync_cohorts is not None:
         if topo.sync_cohorts.shape[0] != cfg.sync_interval:
             raise ValueError(
@@ -771,11 +923,11 @@ def sync_round(data, topo, alive, partition, round_idx, rng, cfg):
 
 def _sync_rows(data, topo, alive, partition, rows, row_ok, rng, cfg):
     """One pull session per row: score ``sync_candidates`` sampled peers
-    by need (exact per-writer deficit, or the total-progress digest above
-    ``_EXACT_SCORE_MAX``), pull the union of the top ``sync_peers`` plus
-    the origin of the largest known gap under one budget, absorb the
-    window, and merge the granted versions' cells. Reference
-    ``_sync_rows``."""
+    by need (exact per-writer deficit, or above ``_EXACT_SCORE_MAX`` the
+    bucketed sketch or the total-progress digest), pull the union of the
+    top ``sync_peers`` plus the origin of the largest known gap under one
+    budget, absorb the window, and merge the granted versions' cells.
+    Reference ``_sync_rows``."""
     n = cfg.n_nodes
     r = rows.shape[0]
     dev = data.contig.device
@@ -801,7 +953,11 @@ def _sync_rows(data, topo, alive, partition, rows, row_ok, rng, cfg):
     )
 
     exact = r * cfg.n_writers * c_count <= _EXACT_SCORE_MAX
-    if exact:
+    if not exact and cfg.sync_sketch_buckets > 0:
+        # Bucketed sketch: B one-sided differences in place of one total.
+        sketch = bucket_sketch(data.contig, cfg.sync_sketch_buckets)
+        defc = _sketch_score(sketch[cand], sketch[rows][:, None, :], cfg.sync_budget)
+    elif exact:
         cc = data.contig[cand]  # [R, C, W]
         defc = _as_i32((cc - torch.minimum(cc, contig0[:, None, :])).sum(-1))
         seen_r = torch.maximum(
@@ -925,7 +1081,6 @@ def revive_sync(data, topo, alive, partition, revived, rng, cfg):
     ``_sync_rows`` session over every node, with only the revived live
     rows taking part. Rounds without a revival skip it (the reference's
     ``lax.cond``). Reference ``revive_sync``."""
-    _check_slice(cfg)
     row_ok = revived & alive
     if not _branch(row_ok.any()):
         zero = torch.zeros((), dtype=torch.int64, device=alive.device)

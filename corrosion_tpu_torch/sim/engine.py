@@ -194,7 +194,12 @@ def cluster_round(
         )
         stale_sum, stale_max = gossip_ops.staleness(data)
         false_alarms, undetected = swim_impl.health_counts(sw)
-        prop_stats = telemetry_mod.prop_curves(cfg.gossip.prop_observe)
+        prop_stats = telemetry_mod.prop_curves(
+            cfg.gossip.prop_observe, bstats.get("prop_link"),
+            bstats.get("prop_useful"), bstats.get("prop_dup"),
+            state.round - sample_round[:, None], newly,
+            kills=bstats.get("prop_kills"), pulls=bstats.get("prop_pulls"),
+        )
         mism = swim_impl.mismatches(sw)
         need = gossip_ops.total_need(data)
         backlog = gossip_ops.queue_backlog(data)

@@ -257,7 +257,13 @@ def _sparse_round(st, sw, vr, topo, w_slots, part, kill, revive, r: int, loss,
         lat_hist = telemetry_mod.delivery_latency_hist(r - s_round[:, None], newly)
         stale_sum, stale_max = gossip_ops.staleness(st.data)
         false_alarms, undetected = swim_impl.health_counts(sw)
-        prop_stats = telemetry_mod.prop_curves(cfg.gossip.prop_observe)
+        # Rumor ages track the hot-plane samples, like vis_count.
+        prop_stats = telemetry_mod.prop_curves(
+            cfg.gossip.prop_observe, bstats.get("prop_link"),
+            bstats.get("prop_useful"), bstats.get("prop_dup"),
+            r - s_round[:, None], newly,
+            kills=bstats.get("prop_kills"), pulls=bstats.get("prop_pulls"),
+        )
         mism = swim_impl.mismatches(sw)
         need = (gossip_ops.total_need(st.data) + sw_ops.cold_need(st)) & MASK
         backlog = gossip_ops.queue_backlog(st.data)

@@ -1,5 +1,6 @@
 """Per-round curve schema of the simulation engines (the parts of
-corrosion_tpu/sim/telemetry.py the dense engine needs).
+corrosion_tpu/sim/telemetry.py the engines need, the propagation plane's
+``prop_curves`` among them).
 
 Every engine emits exactly ``ROUND_CURVE_KEYS``; ``round_curves`` zero-
 fills what an engine does not measure. ``CURVE_DTYPES`` gives each key
@@ -75,13 +76,42 @@ def delivery_latency_hist(lat_rounds, newly, edges=None, keys=None) -> dict:
     return {k: (newly & (idx == b)).sum() for b, k in enumerate(keys)}
 
 
-def prop_curves(enabled: bool, *args, **kwargs) -> dict:
-    """Propagation-plane stats; the plane is not ported, so a disabled
-    config gets the reference's static skip ({}) and an enabled one
-    raises."""
-    if enabled:
-        raise NotImplementedError("prop_observe is not ported yet")
-    return {}
+def link_curves(link) -> dict:
+    """A [R, R] region-pair traffic matrix (R <= ``PROP_REGIONS``) as the
+    fixed ``LINK_CURVE_KEYS`` scalars; entries past R zero-fill."""
+    r = link.shape[0]
+    if r > PROP_REGIONS:
+        raise ValueError(
+            f"propagation plane supports at most {PROP_REGIONS} regions, "
+            f"got {r}; disable prop_observe or shrink the region axis"
+        )
+    return {
+        f"link_{i}{j}": link[i, j] if i < r and j < r else 0
+        for i in range(PROP_REGIONS)
+        for j in range(PROP_REGIONS)
+    }
+
+
+def prop_curves(
+    enabled: bool, link=None, useful=None, dup=None, lat_rounds=None, newly=None,
+    kills=None, pulls=None,
+) -> dict:
+    """Per-round propagation-plane stats, or {} when the plane is off (the
+    reference's static skip): the link matrix, the useful/duplicate split
+    of delivered copies, the rumor-age histogram of the pairs first
+    delivered this round (``RUMOR_AGE_EDGES``), and the kill and pull
+    counters (zero when None)."""
+    if not enabled:
+        return {}
+    out = {
+        "prop_useful_msgs": useful,
+        "prop_dup_msgs": dup,
+        "prop_rumor_kills": 0 if kills is None else kills,
+        "prop_pull_rounds": 0 if pulls is None else pulls,
+    }
+    out.update(link_curves(link))
+    out.update(delivery_latency_hist(lat_rounds, newly, RUMOR_AGE_EDGES, RUMOR_AGE_KEYS))
+    return out
 
 
 def round_curves(**stats) -> dict:

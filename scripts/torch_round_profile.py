@@ -3,10 +3,12 @@
 the card.
 
     python3 scripts/torch_round_profile.py
-        [--config wan_100k|merge_10k|anywrite_sparse]
+        [--config wan_100k|wan_100k_adaptive|merge_10k|anywrite_sparse]
         [--warm 12] [--rounds 6] [--out build/torch_round_profile.json]
 
-Runs the ``--config`` builder (``wan_100k()`` by default) at full size for
+Runs the ``--config`` builder (``wan_100k()`` by default;
+``wan_100k_adaptive`` is ``wan_100k()`` with the adaptive-dissemination
+tuning ``ADAPTIVE_GOSSIP`` and 8-bucket sync sketches) at full size for
 ``--warm`` rounds, then profiles ``--rounds`` more with ``torch.profiler``
 (CPU + CUDA activities). ``anywrite_sparse()`` runs whole epochs of 16
 rounds (each with its rotation), so there both counts must be multiples
@@ -114,8 +116,8 @@ def analyse(events: list, window_ms: float, rounds: int) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("wan_100k", "merge_10k", "anywrite_sparse"),
-                    default="wan_100k")
+    ap.add_argument("--config", choices=("wan_100k", "wan_100k_adaptive", "merge_10k",
+                                         "anywrite_sparse"), default="wan_100k")
     ap.add_argument("--warm", type=int, default=12)
     ap.add_argument("--rounds", type=int, default=6)
     ap.add_argument("--out", default="build/torch_round_profile.json")
@@ -125,9 +127,12 @@ def main(argv=None) -> int:
         return 2
     from corrosion_tpu_torch.models import baselines
     from corrosion_tpu_torch.ops import gossip, onehot
-    from corrosion_tpu_torch.sim import engine, sparse_engine
+    from corrosion_tpu_torch.sim import engine, health, sparse_engine
 
-    cfg, topo, sched = getattr(baselines, args.config)(device="cuda")
+    adaptive = args.config == "wan_100k_adaptive"
+    cfg, topo, sched = getattr(baselines, "wan_100k" if adaptive else args.config)(device="cuda")
+    if adaptive:
+        cfg = health.with_adaptive(cfg, sync_sketch_buckets=8)
     sparse = args.config == "anywrite_sparse"
     if sparse:
         e_len = cfg.sparse.epoch_rounds

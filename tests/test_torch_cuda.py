@@ -178,6 +178,29 @@ def test_table_gather_heads_tails_and_offsets(cuda, w, n):
     assert onehot.LAUNCHES["table_gather"] == (2 if n else 0)
 
 
+# The adaptive plane's sites: the intake priority ([512] <- [100000, 144])
+# and the saturation test ([512] <- [100000, 48]) at wan_100k, the same at
+# the geo scenario's 16 writers. A 2-D index aligned and at an odd storage
+# offset gathers; a non-contiguous one is refused before any launch, and
+# its contiguous copy gathers.
+@pytest.mark.parametrize("w,r,m", [(512, 100_000, 144), (512, 100_000, 48), (16, 10_000, 64)])
+def test_table_gather_adaptive_sites(cuda, w, r, m):
+    g = np.random.default_rng(r + m)
+    table = torch.as_tensor(g.integers(0, 1 << 32, w, dtype=np.uint64).astype(np.int64), device=cuda)
+    flat = torch.as_tensor(g.integers(-3, w + 3, 2 * r * m + 1), device=cuda)
+    onehot.reset_launches()
+    for idx in (flat[: r * m].view(r, m), flat[1 : r * m + 1].view(r, m)):
+        assert torch.equal(onehot.table_gather(table, idx), onehot.table_gather_plain(table, idx))
+    strided = flat[: 2 * r * m].view(r, 2 * m)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        onehot.table_gather(table, strided)
+    assert torch.equal(
+        onehot.table_gather(table, strided.contiguous()), onehot.table_gather_plain(table, strided)
+    )
+    torch.cuda.synchronize()
+    assert onehot.LAUNCHES["table_gather"] == 3
+
+
 # The wrapper launches gather_form's form where none is forced: pairs
 # from M = W/2 up, scalar below it and for a broadcast index (the kernel's
 # template names its form: rowgather_kernel<clip, form>).

@@ -11,8 +11,8 @@ state is a lossy mid-run state of a shrunken merge_10k carried through
 ``corrosion_tpu_torch.interop``; every output leaf and stat must be
 bit-equal.
 
-Also: ``_check_slice`` still refuses the options no slice has ported, and
-takes ``track_writer_ids``.
+Also: the configs of the wide-writer and legacy-intake paths construct,
+and their state is sized as the reference's.
 """
 
 import dataclasses
@@ -203,21 +203,6 @@ def _gossip(**kw):
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(prop_observe=True, track_writer_ids=True), dict(prop_observe=True),
-        dict(rumor_kill_k=2), dict(pull_switch_age=3), dict(age_forward=True),
-        dict(sync_sketch_buckets=4),
-    ],
-)
-def test_check_slice_refuses_unported_options(kw):
-    # The first key names the refused option (track_writer_ids is ported).
-    with pytest.raises(NotImplementedError, match=next(iter(kw))) as err:
-        tg._check_slice(_gossip(**kw))
-    assert "track_writer_ids" not in str(err.value)
-
-
-@pytest.mark.parametrize(
-    "kw",
-    [
         dict(), dict(rebroadcast_fresh_budget=False),
         dict(rebroadcast_fresh_budget=False, rebroadcast_stale=True),
         dict(n_writers=10_000, n_cells=64), dict(track_writer_ids=True),
@@ -225,4 +210,7 @@ def test_check_slice_refuses_unported_options(kw):
 )
 def test_check_slice_takes_wide_writers_and_legacy_intake(kw):
     cfg = dataclasses.replace(_gossip(), **kw)
-    tg._check_slice(cfg)
+    data_j = jg.init_data(dataclasses.replace(jg.GossipConfig(n_nodes=8, n_writers=4), **kw))
+    data_t = tg.init_data(cfg, "cpu")
+    for f in ("contig", "q_writer", "q_gw", "q_dup", "oo"):
+        assert tuple(getattr(data_t, f).shape) == getattr(data_j, f).shape, f
