@@ -45,7 +45,11 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    ([512] <- [100000, 48]), with a 2-D index at an odd storage offset and a
    non-contiguous one (refused), and ``rowgather`` at the rumor kill's
    watermark lookup; the geo scenario's shapes (10,000 rows, 16 writers)
-   for every kernel it launches;
+   for every kernel it launches; ``mixed_storm``'s (1,000 rows, 64
+   writers, 512 cells) for the fast path's kernels, the sync sessions'
+   CRDT merge ([125, 512]) and the big versions' admission merge, one
+   column a stream ([1000, 1] -> [1000, 512]), and the adaptive mixed
+   run's ``table_gather`` at n = 64;
 4. small runs on the card (kernels) and on the CPU (plain versions), with
    identical curves and final state: ``wan_100k(n=2000, ...)``,
    ``three_node()``, ``churn_32()`` and its wipe variant,
@@ -58,7 +62,12 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    8-bucket sketches (sketch scoring forced), the merge_10k burst at
    n=2560 over 24 rounds (the legacy delivery; its CPU side is the slow
    one), ``churned_demo_cluster(96, 48, geo=True,
-   adaptive=True)`` and the anywrite run with ``prop_observe``;
+   adaptive=True)`` and the anywrite run with ``prop_observe``; then the
+   chunk plane's tie-sensitive picks at 1.6 M rows, ``anti_entropy_chunks(
+   n=48, streams=4)`` plain and under a fault plan (loss, churn, a wipe
+   that spares the origins), and ``mixed_storm(n=64, streams=2, rounds=24)``
+   without cells, with cells, under kill/revive/wipe and adaptive with
+   ``prop_observe`` (conservation);
 5. full-size ``wan_100k()`` (100,000 nodes, 20 regions, 512 writers), all
    240 rounds in chunks of 12: its four kernels launched, the watermark
    invariants;
@@ -78,12 +87,20 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    ``prop_observe``), push-only and adaptive: the propagation plane's
    conservation identities on the card's curves, rumor kills in the
    adaptive run, and each run's delivered copies, peak backlog and
-   convergence round.
+   convergence round;
+10. the chunk plane: ``anti_entropy_chunks()`` (1,000 nodes, 16 streams
+   of 8,192 seqs, 240 rounds: converged), then at 100,000 nodes (1.6 M
+   (node, stream) rows: the interval invariants, reassembly that never
+   falls), 24 rounds a call; no kernel launched;
+11. ``mixed_storm()`` (1,000 nodes, 64 writers, 16 big transactions of
+   2,048 seqs, 512 cells, 200 rounds), 25 rounds a call: converged on both
+   planes with equal cells on every node, ``rowmax``, ``rowgather``,
+   ``delivery_reduce`` and ``window_delivery`` launched.
 
-The launch counts are reset just before each main-path run (phases 5-8,
-and phase 9's pair of runs) and read just after it. The last lines are a ``kernels`` JSON line,
+The launch counts are reset just before each main-path run (phases 5-8
+and 11, and the pairs of runs of phases 9 and 10) and read just after it. The last lines are a ``kernels`` JSON line,
 the nvidia-smi line, and the result line ``{"ok": true, "device": {...}}``.
-Each kernel's entry carries its launches summed over the five paths and,
+Each kernel's entry carries its launches summed over the paths and,
 under ``by_path``, each path's launches and the times and bound of every
 shape measured on it; its top-level times are those of its first shape.
 """
@@ -135,6 +152,8 @@ PATH_KERNELS = {
     "wan_100k_adaptive": ("rowmax", "rowgather", "delivery_reduce", "window_delivery",
                           "table_gather"),
     "geo_10k": ("rowgather", "delivery_reduce", "window_delivery", "table_gather"),
+    "anti_entropy_chunks": (),
+    "mixed_storm": ("rowmax", "rowgather", "delivery_reduce", "window_delivery"),
 }
 
 
@@ -636,6 +655,24 @@ def check_kernels(onehot, device) -> list:
     heads = torch.randint(0, 1 << 10, (w,), generator=g).to(device)
     table_case("geo_10k", "intake priority", heads, sorted_idx(n, kk, w))
     table_case("geo_10k", "queue saturation", heads, torch.randint(0, w, (n, q), generator=g).to(device))
+    # mixed_storm: N = 1,000 rows, W = 64 writers, kk = 64 messages (fanout
+    # 2+2 x queue 16), K = 512 cells, S = 256 samples, sync cohort 125 rows
+    # (interval 8) with budget 512: the fast path's kernels; then the CRDT
+    # merge of the sync sessions ([125, 512] grants) and the admission of
+    # each reassembled big version, one column a stream ([1000, 1], 16
+    # times a round); then the adaptive mixed run's table_gather sites at
+    # its n = 64 (phase 4).
+    n, kk, w, k = 1000, 64, 64, 512
+    fast_path("mixed_storm", n, kk, w, k, 256, 125, 512)
+    idx = rowmax_case("mixed_storm", 125, 512, k)
+    gather_case("mixed_storm", "sync CRDT winner check", u24(125, k), idx)
+    idx = rowmax_case("mixed_storm", n, 1, k)
+    gather_case("mixed_storm", "admission CRDT winner check", u24(n, k), idx)
+    heads = torch.randint(0, 1 << 10, (w,), generator=g).to(device)
+    table_case("mixed_storm", "adaptive n=64 intake priority", heads, sorted_idx(64, kk, w))
+    table_case("mixed_storm", "adaptive n=64 queue saturation", heads,
+               torch.randint(0, w, (64, 16), generator=g).to(device))
+    del idx, heads
     for row in out:
         times = ", ".join(
             f"{k} {v:.4f}" for k, v in row.items() if k.endswith("ms") and v is not None
@@ -678,10 +715,38 @@ def _wiped(sched, schedule_cls):
     )
 
 
+def _chunk_faults(rounds, origin):
+    """Loss, a node that stays down, and a wipe that spares the origins."""
+    from corrosion_tpu_torch.sim import faults
+
+    spared = set(origin.tolist())
+    victims = tuple(x for x in range(5, 40) if x not in spared)[:6]
+    return faults.FaultPlan(rounds, (
+        faults.Fault("loss", 10, 40, prob=0.4),
+        faults.Fault("churn", 12, 13, nodes=victims, revive_at=30, wipe=True),
+        faults.Fault("churn", 15, 16, nodes=(victims[-1] + 1,)),
+    ))
+
+
+def _mixed_churn(sched, n_nodes):
+    """A kill/revive/wipe schedule that spares the streams' origin nodes
+    (0 and 1), with receiver loss on region 0."""
+    from corrosion_tpu_torch.sim import faults
+
+    plan = faults.FaultPlan(sched.rounds, (
+        faults.Fault("churn", 6, 7, nodes=(5, 6, 20), revive_at=14, wipe=True),
+        faults.Fault("churn", 4, 5, nodes=(40,)),
+        faults.Fault("loss", 3, 11, prob=0.5, regions=(0,)),
+    ))
+    return faults.apply_plan(sched, plan, n_nodes, 4)
+
+
 # Fewer hot slots (56) than an epoch's writers need under a partition:
 # forced demotions, deviation entries and cold healing.
 SPARSE_SMALL = dict(n=2000, w_hot=56, rounds=64, n_regions=4, epoch_rounds=8,
                     cohort=32, k_dev=96, partition=True, samples=64)
+CHUNK_SMALL = dict(n=48, streams=4, last_seq=2047, rounds=120)
+MIXED_SMALL = dict(n=64, streams=2, last_seq=255, rounds=24, samples=16)
 SMALL_RUNS = (
     # (label, builder, builder kwargs, schedule transform, chunk, gossip
     # fields set with health.with_adaptive (None: the builder's config),
@@ -704,16 +769,49 @@ SMALL_RUNS = (
      dict(nodes=96, rounds=48, geo=True, adaptive=True), None, None, None, {}),
     ("anywrite_sparse adaptive prop n=2000", "anywrite_sparse", SPARSE_SMALL, None, None,
      dict(prop_observe=True), {}),
+    # The chunk plane and the mixed engine: plain and under faults, the
+    # mixed storm without and with cells, and its adaptive twin (the
+    # reference's test_mixed_engine_adaptive_counters_and_conservation).
+    ("anti_entropy_chunks n=48", "anti_entropy_chunks", CHUNK_SMALL, None, 40, None, {}),
+    ("anti_entropy_chunks n=48 faults", "anti_entropy_chunks", CHUNK_SMALL, _chunk_faults, None,
+     None, {}),
+    ("mixed_storm n=64 no cells", "mixed_storm", dict(MIXED_SMALL, n_cells=0), None, None, None,
+     {}),
+    ("mixed_storm n=64", "mixed_storm", MIXED_SMALL, None, 10, None, {}),
+    ("mixed_storm n=64 churn", "mixed_storm", MIXED_SMALL, _mixed_churn, None, None, {}),
+    ("mixed_storm n=64 adaptive prop", "mixed_storm", dict(MIXED_SMALL, n_cells=0), None, None,
+     dict(prop_observe=True), {}),
 )
 
 
 def _small_run(builder, kw, transform, chunk, adapt, dev):
     """One small run on ``dev``: its flattened final state, curves and
-    info (the sparse engine's, without the resume point; {} otherwise)."""
+    info (the sparse engine's, without the resume point; the chunk
+    engine's metrics; {} otherwise)."""
     from corrosion_tpu_torch import interop
     from corrosion_tpu_torch.models import baselines
-    from corrosion_tpu_torch.sim import engine, health, sparse_engine
+    from corrosion_tpu_torch.sim import chunk_engine, engine, health, mixed_engine, sparse_engine
 
+    if builder == "anti_entropy_chunks":
+        ccfg, origin, last, rounds = baselines.anti_entropy_chunks(device=dev, **kw)
+        plan = None if transform is None else transform(rounds, origin.cpu())
+        state, m = chunk_engine.simulate_chunks(
+            ccfg, origin, last, rounds, seed=0, max_chunk=chunk, faults=plan, device=dev
+        )
+        flat = _flat(interop.to_numpy(state))
+        flat["vis"] = m.pop("vis").cpu().numpy()
+        curves = m.pop("curves")
+        return flat, curves, m, rounds
+    if builder == "mixed_storm":
+        cfg, ccfg, topo, sched, spec = baselines.mixed_storm(device=dev, **kw)
+        if adapt is not None:
+            cfg = health.with_adaptive(cfg, **adapt)
+        if transform is not None:
+            sched = transform(sched, cfg.n_nodes)
+        final, curves = mixed_engine.simulate_mixed(
+            cfg, ccfg, topo, sched, spec, seed=0, max_chunk=chunk, device=dev
+        )
+        return _flat(interop.to_numpy(final)), curves, {}, sched.rounds
     if builder == "churned_demo_cluster":
         cfg, topo, sched, _ = health.churned_demo_cluster(device=dev, **kw)
     else:
@@ -761,8 +859,21 @@ def check_small_runs(onehot, gossip):
         (fa, ca, ia, rounds, ta), (fb, cb, ib, _, tb) = runs["cuda"], runs["cpu"]
         bad = [k for k in ca if not np.array_equal(ca[k], cb[k])]
         bad += [k for k in fa if not np.array_equal(fa[k], fb[k])]
-        assert not bad and ia == ib, f"{label}: card run differs from the CPU run in {bad}"
+        assert not bad and json.dumps(ia) == json.dumps(ib), \
+            f"{label}: card run differs from the CPU run in {bad}"
         assert ca["vis_count"].sum() > 0 and ca["msgs"].sum() > 0, label
+        if builder == "anti_entropy_chunks":
+            # The chunk plane is plain PyTorch: no kernel of its own.
+            assert not any(launches.values()), launches
+            assert ca["applied_sync"].sum() > 0, label
+            if transform is not None:
+                assert ca["chaos_wiped"].sum() > 0 and ca["chaos_lost_msgs"].sum() > 0, label
+        if builder == "mixed_storm":
+            need = ("rowgather", "delivery_reduce") + (("rowmax",) if kw.get("n_cells", 1) else ())
+            assert all(launches[k] > 0 for k in need), launches
+            assert ca["chunks_sent"].sum() > 0 and ca["seqs_granted"].sum() > 0, label
+            if transform is not None:
+                assert ca["chaos_wiped"].sum() > 0, label
         if builder == "merge_10k":
             for k in ("rowgather_wide", "rowsum"):
                 assert launches[k] > 0, f"{label}: {k} never launched"
@@ -779,6 +890,35 @@ def check_small_runs(onehot, gossip):
         log(f"phase 4: {label} ({rounds} rounds): card {ta:.1f} s == CPU "
             f"{tb:.1f} s ({len(ca)} curves, {len(fa)} state leaves); "
             f"need[-1]={int(ca['need'][-1])}{extra}; launches {json.dumps(launches)}")
+
+
+def check_tie_rules() -> None:
+    """The chunk plane's tie-sensitive picks on the card equal the CPU's on
+    tie-heavy inputs at the 100,000-node run's 1.6 M rows: the slot pick
+    (argmax over scores on four levels), the first overlapping peer slot
+    (argmax over bool) and the interval overflow (argmin over tied lengths,
+    through ``insert`` into full sets)."""
+    from corrosion_tpu_torch.ops import chunks, intervals
+
+    g = torch.Generator().manual_seed(5)
+    rows, cap = 1_600_000, 16
+    live = torch.rand((rows, cap), generator=g) < 0.6
+    u = torch.randint(0, 4, (rows, 3, cap), generator=g).to(torch.float32) / 4
+    cpu = chunks._pick_slot(live, u)
+    assert torch.equal(chunks._pick_slot(live.cuda(), u.cuda()).cpu(), cpu), "slot pick"
+    overlap = torch.rand((rows, cap), generator=g) < 0.3
+    assert torch.equal(chunks._first_overlap(overlap.cuda()).cpu(), chunks._first_overlap(overlap))
+    # Full sets of 16 length-3 intervals, then an insert of another length-3
+    # one: every candidate ties on length.
+    starts = (torch.arange(cap) * 10)[None, :].expand(rows, cap) + torch.randint(0, 3, (rows, 1), generator=g)
+    iv = intervals.IntervalSet(starts.contiguous(), (starts + 2).contiguous())
+    s = torch.randint(0, 200, (rows,), generator=g)
+    want = intervals.insert(iv, s, s + 2)
+    got = intervals.insert(intervals.IntervalSet(iv.starts.cuda(), iv.ends.cuda()), s.cuda(), s.cuda() + 2)
+    assert torch.equal(got.starts.cpu(), want.starts) and torch.equal(got.ends.cpu(), want.ends), \
+        "interval overflow"
+    log(f"phase 4: chunk-plane tie rules card == CPU at {rows:,} rows (slot pick, first "
+        f"overlap, overflow of tied lengths)")
 
 
 def check_conservation(label: str, curves: dict) -> None:
@@ -962,6 +1102,141 @@ def geo_run(onehot, gossip, phase: int = 9) -> dict:
     return launches
 
 
+def check_intervals(have, last_seq, n_streams: int) -> None:
+    """The interval invariants of a final chunk state, every row: live slots
+    first, sorted, disjoint and non-adjacent, inside [0, last_seq]; empty
+    slots hold (EMPTY, EMPTY - 1)."""
+    from corrosion_tpu_torch.ops import intervals
+
+    s, e = have.starts, have.ends
+    live = s <= e
+    assert bool((live[:, :-1] | ~live[:, 1:]).all()), "an empty slot before a live one"
+    assert bool(((s[:, 1:] > e[:, :-1] + 1) | ~live[:, 1:]).all()), "slots overlap, touch or unsorted"
+    row_last = last_seq[torch.arange(s.shape[0], device=s.device) % n_streams][:, None]
+    assert bool(((s >= 0) & (e <= row_last) | ~live).all()), "a slot outside [0, last_seq]"
+    assert bool(((s == intervals.EMPTY) & (e == intervals.EMPTY - 1) | live).all()), "a bad empty slot"
+
+
+def chunk_runs(onehot, gossip, phase: int = 10) -> dict:
+    """``anti_entropy_chunks()`` at the reference's size (1,000 nodes, 16
+    streams of 8,192 seqs, 240 rounds: converged) and at 100,000 nodes
+    (1.6 M (node, stream) rows: the interval invariants, reassembly that
+    never falls), 24 rounds a call, each call resuming the last. The
+    launch counts are reset before the pair and read after it (the plane
+    launches no kernel). Returns them."""
+    from corrosion_tpu_torch.models import baselines
+    from corrosion_tpu_torch.sim import chunk_engine
+
+    onehot.reset_launches()
+    for n in (1000, 100_000):
+        cfg, origin, last, rounds = baselines.anti_entropy_chunks(n=n, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gossip.reset_host_syncs()
+        state = vis = None
+        parts, elapsed = [], 0.0
+        for r0 in range(0, rounds, 24):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            state, m = chunk_engine.simulate_chunks(
+                cfg, origin, last, min(24, rounds - r0), seed=0, state=state, vis=vis,
+                start_round=r0, device="cuda",
+            )
+            b.record()
+            b.synchronize()
+            vis = m["vis"]
+            parts.append(m["curves"])
+            elapsed += a.elapsed_time(b)
+        curves = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+        peak = torch.cuda.max_memory_allocated()
+        applied = curves["streams_applied"].astype(np.int64)
+        assert len(applied) == rounds and np.isfinite(curves["need"]).all()
+        assert (np.diff(applied) >= 0).all(), "streams_applied fell without a wipe"
+        check_intervals(state.have, last, cfg.n_streams)
+        if n == 1000:
+            assert m["unapplied"] == 0, f"anti_entropy_chunks did not converge: {m['unapplied']}"
+        lagging = np.nonzero(curves["need"] != 0)[0]
+        done = int(lagging[-1]) + 1 if len(lagging) else 0
+        log(f"phase {phase}: anti_entropy_chunks N={n} S={cfg.n_streams} last_seq="
+            f"{int(last[0])} ({cfg.rows:,} rows) {rounds} rounds: {elapsed / rounds:.1f} ms/round "
+            f"(CUDA events), peak memory {peak / 2**30:.2f} GiB, host syncs a round "
+            f"{sum(gossip.HOST_SYNCS.values()) / rounds:.2f} (branches; plus one curve copy a "
+            f"24-round call); applied_frac {m['applied_frac']:.6f}, unapplied {m['unapplied']}, "
+            f"p50 {m['p50_s']:.1f} s, p99 {m['p99_s']:.1f} s, "
+            + (f"need 0 from round {done}" if done < rounds else f"need[-1] {curves['need'][-1]:.0f}")
+            + f"; chunks sent {int(curves['msgs'].astype(np.int64).sum())}, seqs granted "
+            f"{int(curves['applied_sync'].astype(np.int64).sum())}; intervals sorted, disjoint, "
+            f"non-adjacent, inside [0, last_seq]")
+        del state, vis, m
+    launches = dict(onehot.LAUNCHES)
+    assert not any(launches.values()), f"the chunk plane launched kernels: {launches}"
+    return launches
+
+
+def mixed_run(onehot, gossip, phase: int = 11) -> dict:
+    """``mixed_storm()`` at the reference's size (1,000 nodes, 64 writers,
+    16 streams of 2,048 seqs, 512 cells, 200 rounds), 25 rounds a call,
+    each resuming the last: converged on both planes, every node's cells
+    equal node 0's, the fast path's four kernels launched. Returns the
+    launch counts of the run."""
+    from corrosion_tpu_torch.models import baselines
+    from corrosion_tpu_torch.ops import gossip as gossip_ops
+    from corrosion_tpu_torch.sim import mixed_engine
+
+    cfg, ccfg, topo, sched, spec = baselines.mixed_storm(device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    onehot.reset_launches()
+    gossip.reset_host_syncs()
+    state, parts, elapsed = None, [], 0.0
+    for r0 in range(0, sched.rounds, 25):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, curves = mixed_engine.simulate_mixed(
+            cfg, ccfg, topo, sched.slice(r0, min(r0 + 25, sched.rounds)), spec, seed=0,
+            state=state, device="cuda",
+        )
+        b.record()
+        b.synchronize()
+        elapsed += a.elapsed_time(b)
+        parts.append(curves)
+    launches = dict(onehot.LAUNCHES)
+    syncs = dict(gossip.HOST_SYNCS)
+    peak = torch.cuda.max_memory_allocated()
+    curves = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    rounds, n, s = sched.rounds, cfg.n_nodes, len(spec.writer)
+    d = state.data
+    heads = d.head.cpu().numpy()
+    assert all(heads[w] >= v for w, v in zip(spec.writer, spec.version)), "a big version lost"
+    assert bool((d.contig == d.head[None, :]).all()), "contig != head"
+    assert int(gossip_ops.total_need(d)) == 0, "total_need != 0"
+    assert bool(state.applied_before.all()), "a stream not reassembled"
+    assert int(curves["streams_applied"][-1]) == n * s and float(curves["need"][-1]) == 0.0
+    assert int((state.vis_round < 0).sum()) == 0, "a sample unseen"
+    assert curves["chunks_sent"].sum() > 0 and curves["seqs_granted"].sum() > 0
+    cells = gossip_ops.node_cells(d, cfg.gossip)
+    for f in cells:
+        assert bool((f == f[:1]).all()), "cells differ between nodes"
+    missing = [k for k in PATH_KERNELS["mixed_storm"] if launches[k] == 0]
+    assert not missing, f"mixed_storm: kernels never launched on its path: {missing}"
+    lagging = np.nonzero(curves["need"] != 0)[0]
+    done = int(lagging[-1]) + 1 if len(lagging) else 0
+    log(f"phase {phase}: mixed_storm N={n} W={cfg.gossip.n_writers} S={s} last_seq="
+        f"{int(spec.last_seq[0])} K={cfg.gossip.n_cells} {rounds} rounds: {elapsed / rounds:.1f} "
+        f"ms/round (CUDA events), peak memory {peak / 2**30:.2f} GiB; converged (need 0 from "
+        f"round {done}, contig == head, every pair reassembled, every sample seen, cells equal "
+        f"on every node); chunks sent {int(curves['chunks_sent'].astype(np.int64).sum())}, seqs "
+        f"granted {int(curves['seqs_granted'].astype(np.int64).sum())}, msgs "
+        f"{int(curves['msgs'].astype(np.int64).sum())}, cell merges "
+        f"{int(curves['cell_merges'].astype(np.int64).sum())}")
+    log(f"phase {phase}: launches {json.dumps(launches)} "
+        f"({json.dumps({k: round(v / rounds, 2) for k, v in launches.items() if v})} a round); "
+        f"host syncs {json.dumps(syncs)} ({sum(syncs.values()) / rounds:.2f} a round)")
+    return launches
+
+
 def kernel_rows(measured: list, by_path: dict) -> list:
     """The ``kernels`` line: one entry per kernel from phase 3's
     measurements and the main paths' launch counts."""
@@ -1015,6 +1290,7 @@ def main() -> int:
         f"{len(cuda_build.SOURCES)} sources ({', '.join(cuda_build.SOURCES)}) in {build_s:.1f} s, "
         f"loaded in {time.perf_counter() - t_load:.2f} s: {lib.name}")
     measured = check_kernels(onehot, "cuda")
+    check_tie_rules()
     check_small_runs(onehot, gossip)
     by_path = {
         path: full_run(onehot, gossip, phase, path)
@@ -1023,6 +1299,8 @@ def main() -> int:
         )
     }
     by_path["geo_10k"] = geo_run(onehot, gossip)
+    by_path["anti_entropy_chunks"] = chunk_runs(onehot, gossip)
+    by_path["mixed_storm"] = mixed_run(onehot, gossip)
     rows = kernel_rows(measured, by_path)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build to the end")
     print(json.dumps({"kernels": rows}), flush=True)

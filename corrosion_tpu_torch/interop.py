@@ -2,9 +2,11 @@
 
 The reference's state and topology travel as nested dicts of numpy
 arrays keyed by the reference's field names (``{"swim": {...}, "data":
-{..., "cells": {...}}, "round": ..., "vis_round": ...}``, or a sparse
+{..., "cells": {...}}, "round": ..., "vis_round": ...}``, a sparse
 engine's ``{"data": {...}, "head_full": ..., "slot_writer": ...,
-"dev_writer": ..., "dev_contig": ..., "dev_any": ...}``). These helpers
+"dev_writer": ..., "dev_contig": ..., "dev_any": ...}``, a chunk plane's
+``{"have": {"starts": ..., "ends": ...}}`` or a mixed engine's, which
+holds a cluster's ``data`` and ``swim`` beside ``chunks``). These helpers
 turn such dicts into the port's tensors and back, without importing
 JAX: the caller flattens the reference's NamedTuples (``_asdict``) and
 hands over numpy arrays.
@@ -16,12 +18,15 @@ import numpy as np
 import torch
 
 from corrosion_tpu_torch import resolve_device
+from corrosion_tpu_torch.ops.chunks import ChunkState
 from corrosion_tpu_torch.ops.crdt import CellState
 from corrosion_tpu_torch.ops.gossip import DataState, Topology
+from corrosion_tpu_torch.ops.intervals import IntervalSet
 from corrosion_tpu_torch.ops.sparse_writers import SparseState
 from corrosion_tpu_torch.ops.swim import SwimState
 from corrosion_tpu_torch.ops.swim_sparse import SparseSwimState
 from corrosion_tpu_torch.sim.engine import ClusterState
+from corrosion_tpu_torch.sim.mixed_engine import MixedState
 
 # Fields the reference stores as uint32 (everything else integer is int32).
 U32_FIELDS = frozenset({
@@ -56,12 +61,36 @@ def cluster_state_from_numpy(d: dict, device=None) -> ClusterState:
     dense ``SwimState`` when the swim dict holds a ``view``, else the
     sparse exception tables)."""
     device = resolve_device(device)
-    swim_cls = SwimState if "view" in d["swim"] else SparseSwimState
     return ClusterState(
-        swim=_build(swim_cls, d["swim"], device),
+        swim=_swim_state(d["swim"], device),
         data=_data_state(d["data"], device),
         round=_tensor(d["round"], device),
         vis_round=_tensor(d["vis_round"], device),
+    )
+
+
+def _swim_state(d: dict, device):
+    # The dense SwimState when the dict holds a ``view``, else the sparse
+    # exception tables.
+    return _build(SwimState if "view" in d else SparseSwimState, d, device)
+
+
+def chunk_state_from_numpy(d: dict, device=None) -> ChunkState:
+    """ChunkState (seq-chunk plane) from the reference's as a nested numpy
+    dict ``{"have": {"starts": ..., "ends": ...}}``."""
+    device = resolve_device(device)
+    return ChunkState(have=_build(IntervalSet, d["have"], device))
+
+
+def mixed_state_from_numpy(d: dict, device=None) -> MixedState:
+    """MixedState (mixed engine) from the reference's as nested numpy
+    dicts."""
+    device = resolve_device(device)
+    return MixedState(
+        data=_data_state(d["data"], device),
+        swim=_swim_state(d["swim"], device),
+        chunks=chunk_state_from_numpy(d["chunks"], device),
+        **{f: _tensor(d[f], device) for f in ("applied_before", "round", "vis_round")},
     )
 
 

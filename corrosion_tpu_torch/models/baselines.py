@@ -1,10 +1,11 @@
-"""Builders for the five BASELINE scenarios and the any-node-writes
-variant (counterpart of corrosion_tpu/models/baselines.py):
-``three_node``, ``churn_32``, ``anti_entropy_1k``, ``merge_10k``,
-``wan_100k`` and ``anywrite_sparse``. Each draws what the reference draws
-from the same seed, so both packages build identical configs, topologies
-and schedules; each returns (config, Topology, Schedule) with the
-topology on ``device``.
+"""Builders for the five BASELINE scenarios, the any-node-writes
+variant and the chunk-plane configs (counterpart of
+corrosion_tpu/models/baselines.py): ``three_node``, ``churn_32``,
+``anti_entropy_1k``, ``merge_10k``, ``wan_100k``, ``anywrite_sparse``,
+``mixed_storm`` and ``anti_entropy_chunks``. Each draws what the
+reference draws from the same seed, so both packages build identical
+configs, topologies and schedules; the dense ones return (config,
+Topology, Schedule) with the topology on ``device``.
 """
 
 from __future__ import annotations
@@ -12,10 +13,14 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
+from corrosion_tpu_torch import resolve_device
+from corrosion_tpu_torch.ops.chunks import ChunkConfig
 from corrosion_tpu_torch.ops.gossip import GossipConfig, make_topology
 from corrosion_tpu_torch.ops.swim import SwimConfig
 from corrosion_tpu_torch.sim.engine import ClusterConfig, Schedule
+from corrosion_tpu_torch.sim.mixed_engine import StreamSpec
 
 
 def _max_tx(n: int) -> int:
@@ -287,3 +292,84 @@ def anywrite_sparse(
         part[p0:p1, 0, 0] = False
     sched = Schedule(writes=writes, partition=part).make_samples(samples)
     return SparseClusterConfig(swim=s, gossip=g, sparse=sp), topo, sched
+
+
+def mixed_storm(
+    n: int = 1000, streams: int = 16, last_seq: int = 2047,
+    rounds: int = 200, samples: int = 256, seed: int = 13,
+    n_cells: int = 512, device=None,
+):
+    """Config 3c: the mixed workload. ``streams`` large multi-chunk
+    transactions disseminate seq by seq while a background version-
+    granular write storm (64 writers at ~4% a round, 4 regions, a drained
+    last third) flows through the same rounds; stream s is writer s's one
+    large transaction, committed between rounds/8 and rounds/2. Its
+    version is the writer's next version at the commit round, and sampled
+    small versions at or after it shift up by one. ``n_cells=0`` drops the
+    CRDT plane. Same draws as the reference. Returns (ClusterConfig,
+    ChunkConfig, Topology, Schedule, StreamSpec)."""
+    writers = list(range(64))
+    cfg, topo = _cfg(
+        n,
+        writers=writers,
+        regions=[n // 4] * 4,
+        sync_interval=8,
+        sync_budget=512,
+        sync_chunk=128,
+        queue=16,
+        n_cells=n_cells,
+        device=device,
+    )
+    rng = np.random.default_rng(seed)
+    writes = (rng.random((rounds, len(writers))) < 0.04).astype(np.uint32)
+    drain = min(60, max(rounds // 3, 1))
+    writes[rounds - drain :, :] = 0
+    commit_round = np.sort(
+        rng.integers(rounds // 8, rounds // 2, streams)
+    ).astype(np.int32)
+    version = np.zeros(streams, np.uint32)
+    for s in range(streams):
+        version[s] = writes[: commit_round[s], s].sum() + 1
+    spec = StreamSpec(
+        writer=np.arange(streams, dtype=np.int32),
+        version=version,
+        commit_round=commit_round,
+        last_seq=np.full(streams, last_seq, np.int32),
+    )
+    ccfg = ChunkConfig(
+        n_nodes=n, n_streams=streams, cap=16, chunk_len=256, fanout=3, k_in=6,
+        sync_interval=5, gap_requests=4, sync_seq_budget=4096,
+    )
+    sched = Schedule(writes=writes).make_samples(samples)
+    # The big version takes the slot the per-column count would give.
+    for i in range(len(sched.sample_writer)):
+        w = sched.sample_writer[i]
+        if w < streams and sched.sample_ver[i] >= version[w]:
+            sched.sample_ver[i] += 1
+    return cfg, ccfg, topo, sched, spec
+
+
+def anti_entropy_chunks(
+    n: int = 1000, streams: int = 16, last_seq: int = 8191,
+    rounds: int = 240, device=None,
+):
+    """Config 3b: the seq-chunk plane at BASELINE-3 scale. ``streams``
+    distinct origin nodes each commit one large transaction of
+    ``last_seq + 1`` seqs that disseminates as 256-seq chunks with
+    partial-need sync reassembling the gaps. Same draws as the reference.
+    Returns (ChunkConfig, origin[S], last_seq[S], rounds), the two arrays
+    as int64 tensors on ``device``, for ``sim.chunk_engine.simulate_chunks``."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(11)
+    cfg = ChunkConfig(
+        n_nodes=n, n_streams=streams, cap=16, chunk_len=256, fanout=3, k_in=6,
+        sync_interval=5, gap_requests=4, sync_seq_budget=4096,
+    )
+    origin = np.sort(rng.choice(n, size=streams, replace=False))
+    ls = np.full((streams,), last_seq, np.int64)
+    return (
+        cfg,
+        torch.as_tensor(origin.astype(np.int64), device=device),
+        torch.as_tensor(ls, device=device),
+        rounds,
+    )

@@ -37,7 +37,9 @@ def launch_times(events: list) -> dict:
 
 def device_events_by_range(events: list, names, by_own_start: bool = False) -> list:
     """(range name or None, device event) for every device event, the
-    name being that of the ``names`` range holding its launch. An event
+    name being that of the outermost ``names`` range holding its launch
+    (the mixed engine's ``corro_chunks`` holds the chunk round's own
+    ranges). An event
     whose launch record the trace lost has no range, unless
     ``by_own_start``: then the range holding its own start. That is sound
     only where every range waits for the card before it closes (as
@@ -55,6 +57,7 @@ def device_events_by_range(events: list, names, by_own_start: bool = False) -> l
         ts = launch_ts.get(e.get("args", {}).get("correlation"))
         if ts is None and by_own_start:
             ts = e["ts"]
-        plane = None if ts is None else next((n for s, t, n in ranges if s <= ts <= t), None)
+        holding = [] if ts is None else [(s, n) for s, t, n in ranges if s <= ts <= t]
+        plane = min(holding)[1] if holding else None
         out.append((plane, e))
     return out

@@ -123,11 +123,12 @@ def round_curves(**stats) -> dict:
     return {k: stats.get(k, 0) for k in ROUND_CURVE_KEYS}
 
 
-def stack_curves(rows: list) -> dict:
+def stack_curves(rows: list, dtypes: dict | None = None) -> dict:
     """Per-round stats dicts -> {key: numpy array} in the reference's
-    dtypes, with one device-to-host copy for the whole run. Keys a row
-    holds as tensors must be tensors in every row; the rest are the
-    zero fill."""
+    dtypes (``CURVE_DTYPES``, or an engine's own ``dtypes``), with one
+    device-to-host copy for the whole run. Keys a row holds as tensors
+    must be tensors in every row; the rest are the zero fill."""
+    dtypes = CURVE_DTYPES if dtypes is None else dtypes
     live = [k for k in ROUND_CURVE_KEYS if rows and torch.is_tensor(rows[0][k])]
     table = np.zeros((len(rows), len(ROUND_CURVE_KEYS)), np.float64)
     if live:
@@ -138,7 +139,7 @@ def stack_curves(rows: list) -> dict:
             table[:, ROUND_CURVE_KEYS.index(k)] = vals[:, j]
     out = {}
     for i, k in enumerate(ROUND_CURVE_KEYS):
-        dt = np.dtype(CURVE_DTYPES[k])
+        dt = np.dtype(dtypes[k])
         col = table[:, i]
         out[k] = col.astype(dt) if dt.kind == "f" else col.astype(np.int64).astype(dt)
     return out

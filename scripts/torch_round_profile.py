@@ -3,7 +3,8 @@
 the card.
 
     python3 scripts/torch_round_profile.py
-        [--config wan_100k|wan_100k_adaptive|merge_10k|anywrite_sparse]
+        [--config wan_100k|wan_100k_adaptive|merge_10k|anywrite_sparse|
+                  mixed_storm|anti_entropy_chunks|anti_entropy_chunks_100k]
         [--warm 12] [--rounds 6] [--out build/torch_round_profile.json]
 
 Runs the ``--config`` builder (``wan_100k()`` by default;
@@ -12,7 +13,10 @@ tuning ``ADAPTIVE_GOSSIP`` and 8-bucket sync sketches) at full size for
 ``--warm`` rounds, then profiles ``--rounds`` more with ``torch.profiler``
 (CPU + CUDA activities). ``anywrite_sparse()`` runs whole epochs of 16
 rounds (each with its rotation), so there both counts must be multiples
-of 16: ``--warm 128 --rounds 16`` profiles write epoch 8. It prints, from
+of 16: ``--warm 128 --rounds 16`` profiles write epoch 8.
+``mixed_storm`` runs ``simulate_mixed`` (its chunk plane under
+``corro_chunks``), ``anti_entropy_chunks`` runs ``simulate_chunks`` at
+1,000 nodes and ``anti_entropy_chunks_100k`` at 100,000. It prints, from
 the exported trace:
 
 - ms/round over the profiled window (CUDA events) and the device's busy
@@ -48,7 +52,10 @@ from torch.profiler import ProfilerActivity, profile
 
 from corrosion_tpu_torch.profiling import device_events_by_range, launch_times, trace_events
 
-PLANES = ("corro_broadcast", "corro_swim", "corro_sync", "corro_track", "corro_health")
+PLANES = ("corro_chunks", "corro_broadcast", "corro_swim", "corro_sync", "corro_track",
+          "corro_health")
+CONFIGS = ("wan_100k", "wan_100k_adaptive", "merge_10k", "anywrite_sparse", "mixed_storm",
+           "anti_entropy_chunks", "anti_entropy_chunks_100k")
 # kernel: the substring of its device-side name in the trace (the row
 # gathers' template is rowgather_kernel<kClip, kForm>: both forms count;
 # table_gather_kernel<kIdxVec> counts both index loads)
@@ -116,8 +123,7 @@ def analyse(events: list, window_ms: float, rounds: int) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("wan_100k", "wan_100k_adaptive", "merge_10k",
-                                         "anywrite_sparse"), default="wan_100k")
+    ap.add_argument("--config", choices=CONFIGS, default="wan_100k")
     ap.add_argument("--warm", type=int, default=12)
     ap.add_argument("--rounds", type=int, default=6)
     ap.add_argument("--out", default="build/torch_round_profile.json")
@@ -127,7 +133,45 @@ def main(argv=None) -> int:
         return 2
     from corrosion_tpu_torch.models import baselines
     from corrosion_tpu_torch.ops import gossip, onehot
-    from corrosion_tpu_torch.sim import engine, health, sparse_engine
+    from corrosion_tpu_torch.sim import chunk_engine, engine, health, mixed_engine, sparse_engine
+
+    if args.config.startswith("anti_entropy_chunks"):
+        ccfg, origin, last, _ = baselines.anti_entropy_chunks(
+            n=100_000 if args.config.endswith("100k") else 1000, device="cuda"
+        )
+        nodes, writers = ccfg.n_nodes, ccfg.n_streams
+
+        def run(state, r0, rounds):
+            st, vis = state or (None, None)
+            st, m = chunk_engine.simulate_chunks(
+                ccfg, origin, last, rounds, seed=0, state=st, vis=vis, start_round=r0,
+                device="cuda",
+            )
+            return st, m["vis"]
+    elif args.config == "mixed_storm":
+        cfg, ccfg, topo, sched, spec = baselines.mixed_storm(device="cuda")
+        nodes, writers = cfg.n_nodes, cfg.gossip.n_writers
+
+        def run(state, r0, rounds):
+            return mixed_engine.simulate_mixed(
+                cfg, ccfg, topo, sched.slice(r0, r0 + rounds), spec, seed=0, state=state,
+                device="cuda",
+            )[0]
+    else:
+        run = None
+    if run is not None:
+        state = run(None, 0, args.warm) if args.warm else None
+        torch.cuda.synchronize()
+        gossip.reset_host_syncs()
+        onehot.reset_launches()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            a.record()
+            run(state, args.warm, args.rounds)
+            b.record()
+            b.synchronize()
+        return report(args, prof, a.elapsed_time(b), nodes, writers, gossip, onehot)
 
     adaptive = args.config == "wan_100k_adaptive"
     cfg, topo, sched = getattr(baselines, "wan_100k" if adaptive else args.config)(device="cuda")
@@ -163,14 +207,21 @@ def main(argv=None) -> int:
             engine.simulate(cfg, topo, window, seed=0, state=state, device="cuda")
         b.record()
         b.synchronize()
-    out = analyse(trace_events(prof), a.elapsed_time(b), args.rounds)
+    return report(args, prof, a.elapsed_time(b), cfg.n_nodes, cfg.gossip.n_writers, gossip,
+                  onehot)
+
+
+def report(args, prof, window_ms, nodes, writers, gossip, onehot) -> int:
+    """Analyse the window, add the card and the run's counts, write and
+    print the summary."""
+    out = analyse(trace_events(prof), window_ms, args.rounds)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
     out.update(
-        config=args.config, card=smi, nodes=cfg.n_nodes,
-        writers=cfg.gossip.n_writers, warm=args.warm, rounds=args.rounds,
+        config=args.config, card=smi, nodes=nodes,
+        writers=writers, warm=args.warm, rounds=args.rounds,
         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
         device=torch.cuda.get_device_name(0),
         host_syncs_per_round={k: v / args.rounds for k, v in gossip.HOST_SYNCS.items()},

@@ -294,3 +294,41 @@ def test_a_library_that_fails_to_build_raises_and_never_falls_back(cuda, tmp_pat
         env=dict(os.environ, PYTHONPATH=str(repo)),
     )
     assert res.returncode == 0 and res.stdout.strip() == "raised", res.stdout + res.stderr
+
+
+# The chunk plane and the mixed engine at test size: the card (kernels) run
+# equals the CPU (plain versions) run, curve for curve and leaf for leaf;
+# the chunk plane launches nothing, the mixed storm its fast path's kernels.
+def test_chunk_and_mixed_runs_equal_the_cpu_runs(cuda):
+    from corrosion_tpu_torch import interop
+    from corrosion_tpu_torch.models import baselines
+    from corrosion_tpu_torch.sim import chunk_engine, mixed_engine
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k2: v2 for k, v in tree.items() for k2, v2 in flat(v, f"{prefix}{k}.").items()}
+        return {prefix: tree}
+
+    def chunk_run(dev):
+        cfg, origin, last, _ = baselines.anti_entropy_chunks(n=48, streams=4, last_seq=1023,
+                                                             device=dev)
+        state, m = chunk_engine.simulate_chunks(cfg, origin, last, 40, seed=1, device=dev)
+        return flat({"state": interop.to_numpy(state), "curves": m["curves"],
+                     "vis": m["vis"].cpu().numpy()})
+
+    def mixed_run(dev):
+        built = baselines.mixed_storm(n=64, streams=2, last_seq=255, rounds=24, samples=16,
+                                      device=dev)
+        final, curves = mixed_engine.simulate_mixed(*built, seed=0, device=dev)
+        return flat({"state": interop.to_numpy(final), "curves": curves})
+
+    for run, kernels in ((chunk_run, ()), (mixed_run, ("rowmax", "rowgather", "delivery_reduce"))):
+        onehot.reset_launches()
+        card = run("cuda")
+        torch.cuda.synchronize()
+        launched = {k for k, v in onehot.LAUNCHES.items() if v}
+        assert launched >= set(kernels) if kernels else not launched, launched
+        want = run("cpu")
+        assert card.keys() == want.keys()
+        bad = [k for k in card if not np.array_equal(card[k], want[k])]
+        assert not bad, bad
