@@ -94,11 +94,27 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    falls), 24 rounds a call; no kernel launched;
 11. ``mixed_storm()`` (1,000 nodes, 64 writers, 16 big transactions of
    2,048 seqs, 512 cells, 200 rounds), 25 rounds a call: converged on both
-   planes with equal cells on every node, ``rowmax``, ``rowgather``,
-   ``delivery_reduce`` and ``window_delivery`` launched.
+   planes with every node's cells equal to the serial-merge ground truth
+   of the final heads, ``rowmax``, ``rowgather``, ``delivery_reduce`` and
+   ``window_delivery`` launched;
+12. the curve consumers: the committed demo flights (96 nodes, 48 rounds,
+   churn, seed 0; flat, geo, geo adaptive) recorded on the card, their
+   convergence and epidemic reports held to ``CONVERGENCE_BASELINE.json``,
+   ``EPIDEMIC_BASELINE.json`` and ``EPIDEMIC_BASELINE_ADAPTIVE.json`` at
+   the reference CI's tolerance 0.35; the invariant suite on the
+   ``kitchen-sink`` fault plan on all four engines, every report ok and
+   the card's facts, violations and recovery equal to the CPU's; and a
+   ``save_state``/``load_state`` round trip of the churn_32 run on the card.
+
+Phases 5 (wan_100k), 10 (anti_entropy_chunks at 1,000 nodes) and 11 pass
+``telemetry=KernelTelemetry(recorder=FlightRecorder(...), progress=
+sys.stderr)`` to every call: each flight record (under ``build/flights``)
+must replay to the run's curves, key for key and round for round, and the
+recorder's ``device_step_ms`` is logged beside the CUDA-event ms/round.
 
 The launch counts are reset just before each main-path run (phases 5-8
-and 11, and the pairs of runs of phases 9 and 10) and read just after it. The last lines are a ``kernels`` JSON line,
+and 11, the pairs of runs of phases 9 and 10, and phase 12) and read just
+after it. The last lines are a ``kernels`` JSON line,
 the nvidia-smi line, and the result line ``{"ok": true, "device": {...}}``.
 Each kernel's entry carries its launches summed over the paths and,
 under ``by_path``, each path's launches and the times and bound of every
@@ -110,10 +126,12 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -154,7 +172,10 @@ PATH_KERNELS = {
     "geo_10k": ("rowgather", "delivery_reduce", "window_delivery", "table_gather"),
     "anti_entropy_chunks": (),
     "mixed_storm": ("rowmax", "rowgather", "delivery_reduce", "window_delivery"),
+    "consumers": ("rowmax", "rowgather", "delivery_reduce", "window_delivery", "table_gather"),
 }
+REPO = Path(__file__).resolve().parent
+FLIGHTS = REPO / "build" / "flights"  # flight records of the telemetry-carrying phases
 
 
 def log(*a):
@@ -938,16 +959,48 @@ def check_conservation(label: str, curves: dict) -> None:
         f"{label}: rumor-age mass != vis_count"
 
 
-def dense_chunks(cfg, topo, sched, chunk: int = 12):
+def flight_telemetry(name: str, engine: str):
+    """A ``KernelTelemetry`` recording a fresh flight at ``FLIGHTS/name``
+    and writing one progress line a chunk to stderr."""
+    from corrosion_tpu_torch.sim import telemetry
+
+    FLIGHTS.mkdir(parents=True, exist_ok=True)
+    rec = telemetry.FlightRecorder(str(FLIGHTS / f"{name}.jsonl"), engine=engine, mode="w")
+    return telemetry.KernelTelemetry(engine=engine, recorder=rec, progress=sys.stderr)
+
+
+def check_flight(tele, curves: dict, phase: int, label: str, ms_per_round: float) -> None:
+    """Close ``tele``'s recorder and hold its flight record to the run's
+    curves, key for key and round for round; log ``device_step_ms`` beside
+    the CUDA-event ms/round and the record's size."""
+    from corrosion_tpu_torch.sim import telemetry
+
+    tele.recorder.close()
+    path = tele.recorder.path
+    replayed, chunks = telemetry.replay_flight(path)
+    rounds = len(curves["need"])
+    assert set(replayed) == set(curves) | {"round"}, f"{label}: flight keys differ"
+    assert list(replayed["round"]) == list(range(rounds)), f"{label}: flight rounds differ"
+    bad = [k for k in curves if not np.array_equal(replayed[k], curves[k])]
+    assert not bad, f"{label}: the flight record differs from the curves in {bad}"
+    assert sum(c["rounds"] for c in chunks) == rounds == sum(n for n, _ in tele.chunk_walls)
+    size = sum(os.path.getsize(p) for p in telemetry.flight_segments(path))
+    log(f"phase {phase}: {label} flight record ({len(chunks)} chunks, {size / 2**20:.2f} MiB) "
+        f"replays equal to the curves; device_step_ms {tele.device_step_ms:.1f} against "
+        f"{ms_per_round:.1f} ms/round (CUDA events)")
+
+
+def dense_chunks(cfg, topo, sched, chunk: int = 12, telemetry=None):
     """``engine.simulate`` over ``chunk`` rounds at a time, each call
-    resuming the last; yields (state, curves, info) per call."""
+    resuming the last (and a chunk of ``telemetry``); yields (state,
+    curves, info) per call."""
     from corrosion_tpu_torch.sim import engine
 
     state, done = None, 0
     while done < sched.rounds:
         stop = min(done + chunk, sched.rounds)
         state, curves = engine.simulate(cfg, topo, sched.slice(done, stop), seed=0,
-                                        state=state, device="cuda")
+                                        state=state, telemetry=telemetry, device="cuda")
         done = stop
         yield state, curves, {}
 
@@ -987,7 +1040,12 @@ def full_run(onehot, gossip, phase: int, builder: str):
 
     cfg, topo, sched = build_path(builder)
     sparse = builder == "anywrite_sparse"
-    chunks = (sparse_epochs if sparse else dense_chunks)(cfg, topo, sched)
+    # wan_100k carries the flight recorder: one chunk a 12-round call.
+    tele = flight_telemetry(builder, "dense") if builder == "wan_100k" else None
+    if sparse:
+        chunks = sparse_epochs(cfg, topo, sched)
+    else:
+        chunks = dense_chunks(cfg, topo, sched, telemetry=tele)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     onehot.reset_launches()
@@ -1028,6 +1086,8 @@ def full_run(onehot, gossip, phase: int, builder: str):
     log(f"phase {phase}: {builder} N={cfg.n_nodes} W={cfg.gossip.n_writers} "
         f"{done} rounds: {elapsed / done:.1f} ms/round (CUDA events), "
         f"wall {wall:.1f} s, peak memory {peak / 2**30:.2f} GiB")
+    if tele is not None:
+        check_flight(tele, curves, phase, builder, elapsed / done)
     if sparse:
         assert sum(i["dev_dropped"] for i in infos) == 0, "deviation entries dropped"
         assert sparse_engine.converged_sparse(state), "anywrite_sparse did not converge"
@@ -1135,13 +1195,14 @@ def chunk_runs(onehot, gossip, phase: int = 10) -> dict:
         gossip.reset_host_syncs()
         state = vis = None
         parts, elapsed = [], 0.0
+        tele = flight_telemetry("anti_entropy_chunks", "chunk") if n == 1000 else None
         for r0 in range(0, rounds, 24):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
             state, m = chunk_engine.simulate_chunks(
                 cfg, origin, last, min(24, rounds - r0), seed=0, state=state, vis=vis,
-                start_round=r0, device="cuda",
+                start_round=r0, telemetry=tele, device="cuda",
             )
             b.record()
             b.synchronize()
@@ -1168,6 +1229,8 @@ def chunk_runs(onehot, gossip, phase: int = 10) -> dict:
             + f"; chunks sent {int(curves['msgs'].astype(np.int64).sum())}, seqs granted "
             f"{int(curves['applied_sync'].astype(np.int64).sum())}; intervals sorted, disjoint, "
             f"non-adjacent, inside [0, last_seq]")
+        if tele is not None:
+            check_flight(tele, curves, phase, f"anti_entropy_chunks N={n}", elapsed / rounds)
         del state, vis, m
     launches = dict(onehot.LAUNCHES)
     assert not any(launches.values()), f"the chunk plane launched kernels: {launches}"
@@ -1177,9 +1240,10 @@ def chunk_runs(onehot, gossip, phase: int = 10) -> dict:
 def mixed_run(onehot, gossip, phase: int = 11) -> dict:
     """``mixed_storm()`` at the reference's size (1,000 nodes, 64 writers,
     16 streams of 2,048 seqs, 512 cells, 200 rounds), 25 rounds a call,
-    each resuming the last: converged on both planes, every node's cells
-    equal node 0's, the fast path's four kernels launched. Returns the
-    launch counts of the run."""
+    each resuming the last and a chunk of the flight recorder: converged
+    on both planes, every node's cells equal to the serial-merge ground
+    truth of the final heads, the fast path's four kernels launched.
+    Returns the launch counts of the run."""
     from corrosion_tpu_torch.models import baselines
     from corrosion_tpu_torch.ops import gossip as gossip_ops
     from corrosion_tpu_torch.sim import mixed_engine
@@ -1189,6 +1253,7 @@ def mixed_run(onehot, gossip, phase: int = 11) -> dict:
     torch.cuda.reset_peak_memory_stats()
     onehot.reset_launches()
     gossip.reset_host_syncs()
+    tele = flight_telemetry("mixed_storm", "mixed")
     state, parts, elapsed = None, [], 0.0
     for r0 in range(0, sched.rounds, 25):
         a = torch.cuda.Event(enable_timing=True)
@@ -1196,7 +1261,7 @@ def mixed_run(onehot, gossip, phase: int = 11) -> dict:
         a.record()
         state, curves = mixed_engine.simulate_mixed(
             cfg, ccfg, topo, sched.slice(r0, min(r0 + 25, sched.rounds)), spec, seed=0,
-            state=state, device="cuda",
+            state=state, telemetry=tele, device="cuda",
         )
         b.record()
         b.synchronize()
@@ -1216,9 +1281,13 @@ def mixed_run(onehot, gossip, phase: int = 11) -> dict:
     assert int(curves["streams_applied"][-1]) == n * s and float(curves["need"][-1]) == 0.0
     assert int((state.vis_round < 0).sum()) == 0, "a sample unseen"
     assert curves["chunks_sent"].sum() > 0 and curves["seqs_granted"].sum() > 0
+    t0 = time.perf_counter()
+    truth = gossip_ops.serial_merge_reference(d.head, cfg.gossip)
+    truth_s = time.perf_counter() - t0
     cells = gossip_ops.node_cells(d, cfg.gossip)
-    for f in cells:
-        assert bool((f == f[:1]).all()), "cells differ between nodes"
+    for f, want in zip(cells, truth):
+        assert bool((f == want[None, :]).all()), "cells differ from the serial merge"
+    assert int((truth.cl > 0).sum()) > 0, "the serial merge wrote no cell"
     missing = [k for k in PATH_KERNELS["mixed_storm"] if launches[k] == 0]
     assert not missing, f"mixed_storm: kernels never launched on its path: {missing}"
     lagging = np.nonzero(curves["need"] != 0)[0]
@@ -1226,14 +1295,100 @@ def mixed_run(onehot, gossip, phase: int = 11) -> dict:
     log(f"phase {phase}: mixed_storm N={n} W={cfg.gossip.n_writers} S={s} last_seq="
         f"{int(spec.last_seq[0])} K={cfg.gossip.n_cells} {rounds} rounds: {elapsed / rounds:.1f} "
         f"ms/round (CUDA events), peak memory {peak / 2**30:.2f} GiB; converged (need 0 from "
-        f"round {done}, contig == head, every pair reassembled, every sample seen, cells equal "
-        f"on every node); chunks sent {int(curves['chunks_sent'].astype(np.int64).sum())}, seqs "
+        f"round {done}, contig == head, every pair reassembled, every sample seen, every node's "
+        f"cells equal to the serial merge of {int(d.head.sum())} versions, built in "
+        f"{truth_s:.2f} s); chunks sent {int(curves['chunks_sent'].astype(np.int64).sum())}, seqs "
         f"granted {int(curves['seqs_granted'].astype(np.int64).sum())}, msgs "
         f"{int(curves['msgs'].astype(np.int64).sum())}, cell merges "
         f"{int(curves['cell_merges'].astype(np.int64).sum())}")
+    check_flight(tele, curves, phase, "mixed_storm", elapsed / rounds)
     log(f"phase {phase}: launches {json.dumps(launches)} "
         f"({json.dumps({k: round(v / rounds, 2) for k, v in launches.items() if v})} a round); "
         f"host syncs {json.dumps(syncs)} ({sum(syncs.values()) / rounds:.2f} a round)")
+    return launches
+
+
+def _unequal(a: dict, b: dict) -> dict:
+    """The top-level fields of two reports that are not exactly equal:
+    (baseline, card) for a number, "differs" for a list or a dict."""
+    return {
+        k: "differs" if isinstance(a.get(k), (dict, list)) else [a.get(k), b.get(k)]
+        for k in sorted(set(a) | set(b)) if a.get(k) != b.get(k)
+    }
+
+
+def consumers(onehot, phase: int = 12) -> dict:
+    """The curve consumers on the card: the three committed demo flights
+    held to their baselines at the reference CI's tolerance, the invariant
+    suite on ``kitchen-sink`` on all four engines (card == CPU), and a
+    checkpoint round trip. The launch counts are reset before the phase
+    and read after it. Returns them."""
+    from corrosion_tpu_torch.models import baselines
+    from corrosion_tpu_torch.obs import epidemic
+    from corrosion_tpu_torch.sim import checkpoint, engine, faults, health, invariants, telemetry
+
+    FLIGHTS.mkdir(parents=True, exist_ok=True)
+    onehot.reset_launches()
+    t_phase = time.perf_counter()
+    for geo, adaptive in ((False, False), (True, False), (True, True)):
+        label = "adaptive" if adaptive else "geo" if geo else "flat"
+        path = str(FLIGHTS / f"demo_{label}.jsonl")
+        t0 = time.perf_counter()
+        facts = health.record_demo_flight(path, nodes=96, rounds=48, churn=True, seed=0,
+                                          geo=geo, adaptive=adaptive, device="cuda")
+        wall = time.perf_counter() - t0
+        _, chunks = telemetry.replay_flight(path)
+        step_ms = sum(c["wall_s"] for c in chunks) / facts["rounds"] * 1000
+        if not geo:
+            rep = health.report_from_flight(path, kill_rounds=facts["kill_rounds"])
+            base = health.load_report(str(REPO / "CONVERGENCE_BASELINE.json"))
+            diff = health.diff_reports(base, rep, tolerance=0.35)
+            unequal = _unequal(base.to_dict(), rep.to_dict())
+            assert rep.converged, "the demo flight did not converge"
+        else:
+            rep = epidemic.report_from_flight(path, fanout=facts["fanout"], nodes=facts["nodes"],
+                                              geo_regions=facts["regions"])
+            name = "EPIDEMIC_BASELINE_ADAPTIVE.json" if adaptive else "EPIDEMIC_BASELINE.json"
+            base = epidemic.load_report(str(REPO / name))
+            diff = epidemic.diff_reports(base, rep, tolerance=0.35)
+            unequal = _unequal(base, rep)
+            assert rep["checks_ok"], rep["check_problems"]
+            assert rep["fit"]["fitted"], f"{label}: the SI fit abstained"
+        assert not diff["regressions"], f"{label} demo flight: {diff['regressions']}"
+        log(f"phase {phase}: demo flight {label} (96 nodes, 48 rounds, churn, seed 0): {wall:.1f} "
+            f"s, {step_ms:.1f} ms/round (device_step_ms); converged round "
+            f"{facts['converged_round']}; diff against the baseline at 0.35 clean; fields not "
+            f"exactly equal: {json.dumps(unequal, default=str)}")
+    plan = faults.named_scenarios(48, invariants.STD_REGIONS, invariants.STD_NODES,
+                                  protect=invariants.PROTECTED)["kitchen-sink"]
+    reports, walls = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        reports[dev] = invariants.run_suite(plan, seed=0, device=dev)
+        walls[dev] = time.perf_counter() - t0
+    for card, cpu in zip(reports["cuda"], reports["cpu"]):
+        assert card.ok, f"{card.engine}: {card.violations}"
+        for k in ("facts", "violations", "recovery"):
+            assert getattr(card, k) == getattr(cpu, k), f"{card.engine}: card {k} != CPU {k}"
+    log(f"phase {phase}: invariant suite on kitchen-sink ({plan.describe()}): all four engines "
+        f"ok, card == CPU in facts, violations and recovery (card {walls['cuda']:.1f} s, CPU "
+        f"{walls['cpu']:.1f} s); recovery rounds "
+        + ", ".join(f"{r.engine} {r.recovery['recovery_rounds']}" for r in reports["cuda"]))
+    cfg, topo, sched = baselines.churn_32(device="cuda")
+    final, _ = engine.simulate(cfg, topo, sched, seed=0, max_chunk=100, device="cuda")
+    path = str(FLIGHTS / "churn_32.npz")
+    checkpoint.save_state(path, final, fingerprint="churn_32")
+    loaded = checkpoint.load_state(path, cfg, len(sched.sample_writer),
+                                   expect_fingerprint="churn_32", device="cuda")
+    flat_a, flat_b = checkpoint._flatten(final), checkpoint._flatten(loaded)
+    assert [p for p, _, _ in flat_a] == [p for p, _, _ in flat_b]
+    assert all(torch.equal(x, y) for (_, x, _), (_, y, _) in zip(flat_a, flat_b)), "leaves differ"
+    launches = dict(onehot.LAUNCHES)
+    missing = [k for k in PATH_KERNELS["consumers"] if launches[k] == 0]
+    assert not missing, f"consumers: kernels never launched: {missing}"
+    log(f"phase {phase}: save_state -> load_state of churn_32 on the card: {len(flat_a)} leaves "
+        f"equal under the same paths; phase {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{json.dumps(launches)}")
     return launches
 
 
@@ -1301,6 +1456,7 @@ def main() -> int:
     by_path["geo_10k"] = geo_run(onehot, gossip)
     by_path["anti_entropy_chunks"] = chunk_runs(onehot, gossip)
     by_path["mixed_storm"] = mixed_run(onehot, gossip)
+    by_path["consumers"] = consumers(onehot)
     rows = kernel_rows(measured, by_path)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build to the end")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,0 +1,1 @@
+"""obs of the PyTorch/CUDA port (see the package docstring)."""

@@ -1127,6 +1127,46 @@ def node_cells(data: DataState, cfg: GossipConfig) -> crdt.CellState:
     )
 
 
+def cells_agree(data: DataState, cfg: GossipConfig) -> torch.Tensor:
+    """True iff every node's merged cell state is identical (convergence
+    over register contents, not watermarks)."""
+    pc = node_cells(data, cfg)
+    return (
+        (pc.cl == pc.cl[:1]).all()
+        & (pc.col_version == pc.col_version[:1]).all()
+        & (pc.value_rank == pc.value_rank[:1]).all()
+    )
+
+
+def serial_merge_reference(head, cfg: GossipConfig, device=None) -> crdt.CellState:
+    """Ground truth: every committed version (w, v <= head[w]) merged into
+    one fresh cell state (``cells_per_write`` change batches through
+    ``crdt.apply_changes``), the order-independent serial merge all
+    replicas must converge to. The version list is built on the host and
+    moved once; the merge runs on ``device`` (default: ``head``'s when it
+    is a tensor, else CUDA)."""
+    if device is None and torch.is_tensor(head):
+        device = head.device
+    device = resolve_device(device)
+    h = head.cpu().numpy() if torch.is_tensor(head) else np.asarray(head)
+    h = h.astype(np.int64)
+    state = crdt.make_cells(cfg.n_cells, device)
+    if h.sum() == 0:
+        return state
+    # Each writer's versions 1..h[w], in writer order.
+    ws = np.repeat(np.arange(len(h)), h)
+    vs = np.arange(len(ws)) - np.repeat(np.cumsum(h) - h, h) + 1
+    ws = torch.as_tensor(ws, device=device)
+    vs = torch.as_tensor(vs, device=device)
+    mask = torch.ones(ws.shape, dtype=torch.bool, device=device)
+    for j in range(cfg.cells_per_write):
+        key, cl, cv, vr = crdt.derive_change(ws, vs, j, cfg.n_cells)
+        state = crdt.apply_changes(
+            state, crdt.ChangeBatch(key=key, cl=cl, col_version=cv, value_rank=vr, mask=mask)
+        )
+    return state
+
+
 def visibility(data: DataState, sample_writer, sample_ver) -> torch.Tensor:
     """bool[S, N]: sampled write s visible at each node (at or below the
     watermark, or possessed in the window). The reference's kernel branch:

@@ -35,6 +35,7 @@ from corrosion_tpu_torch.ops.gossip import (
     _merge_versions_dense,
     _ok_rows,
     init_data,
+    serial_merge_reference,
 )
 
 
@@ -312,3 +313,10 @@ def cold_need(state: SparseState) -> torch.Tensor:
         state.dev_writer >= 0, target - torch.minimum(target, state.dev_contig), 0
     )
     return lag.sum() & MASK
+
+
+def serial_merge_reference_sparse(head_full, cfg: GossipConfig, device=None):
+    """Ground truth for any-node-writes runs: every committed version
+    (w = node id, v <= head_full[w]) merged into one fresh cell state;
+    the dense ground truth over the global heads."""
+    return serial_merge_reference(head_full, cfg, device)

@@ -327,3 +327,12 @@ def health_counts(state: SwimState) -> tuple[torch.Tensor, torch.Tensor]:
     false_alarms = (obs & alive_t & (sev >= SEV_SUSPECT)).sum()
     undetected = (obs & ~alive_t & (sev < SEV_DOWN)).sum()
     return false_alarms, undetected
+
+
+def accuracy(state: SwimState) -> torch.Tensor:
+    """Approximate fraction of correct beliefs (float32; ``mismatches`` is
+    the exact convergence check). Torch divides IEEE-exactly where the
+    reference's XLA division is reciprocal-based, so the two agree to
+    float32 rounding, not bit for bit."""
+    total = torch.clamp(_observers(state.alive).sum(), min=1)
+    return 1.0 - mismatches(state).to(torch.float32) / total.to(torch.float32)

@@ -68,6 +68,13 @@ def init_state(cfg: SwimConfig, device=None) -> SparseSwimState:
     )
 
 
+def state_bytes_per_node(cfg: SwimConfig) -> int:
+    """Membership-plane memory budget per virtual node, in the reference's
+    32-bit layout (the 100,000-node plan)."""
+    k, s, u = cfg.view_capacity, cfg.timers, cfg.backlog
+    return 8 * k + 4 + 1 + 12 * s + 12 * u
+
+
 def _lookup(exc_tgt, exc_pkd, tgt):
     """Belief each row holds about its (per-row) target; baseline 0."""
     return torch.where(exc_tgt == tgt[:, None], exc_pkd, 0).amax(dim=1)
@@ -364,3 +371,18 @@ def health_counts(state: SparseSwimState) -> tuple[torch.Tensor, torch.Tensor]:
     false_alarms = (ent_valid & truth & (sev >= SEV_SUSPECT)).sum()
     detected = (ent_valid & ~truth & (sev == SEV_DOWN)).sum()
     return false_alarms, (alive_count * dead_count - detected) & 0xFFFFFFFF
+
+
+def beliefs_about(state: SparseSwimState, target: int) -> torch.Tensor:
+    """[N] packed: every node's belief about one target."""
+    n = state.exc_tgt.shape[0]
+    tgt = torch.full((n,), target, dtype=torch.int64, device=state.exc_tgt.device)
+    return _lookup(state.exc_tgt, state.exc_pkd, tgt)
+
+
+def accuracy(state: SparseSwimState) -> torch.Tensor:
+    """Approximate fraction of correct beliefs (float32; see
+    ``swim.accuracy``)."""
+    n = state.exc_tgt.shape[0]
+    total = torch.clamp(state.alive.sum() * (n - 1), min=1)
+    return 1.0 - mismatches(state).to(torch.float32) / total.to(torch.float32)

@@ -84,6 +84,7 @@ def simulate_chunks(
     seed: int = 0,
     round_ms: float = 500.0,
     max_chunk: int | None = None,
+    telemetry: telemetry_mod.KernelTelemetry | None = None,
     faults=None,
     state=None,
     vis=None,
@@ -98,7 +99,10 @@ def simulate_chunks(
     the visibility latch under ``vis``.
 
     ``max_chunk`` copies the curves to the host every that many rounds
-    (results are identical either way). ``faults`` (a ``sim.faults``
+    (results are identical either way), and ``telemetry``
+    (``KernelTelemetry``) times and flushes each such piece as a chunk
+    and takes the run's curves at the end (empty ones for a zero-round
+    run). ``faults`` (a ``sim.faults``
     FaultPlan or CompiledFaults) injects chunk loss (the worst region's
     scalar), kill/revive churn (dead nodes neither gossip nor sync) and
     crash-with-state-wipe; a partition raises, as there is no region
@@ -150,18 +154,33 @@ def simulate_chunks(
         {k: np.zeros((0,)) for k in telemetry_mod.ROUND_CURVE_KEYS}
     ]
     for r0 in range(0, rounds, step):
-        rows = []
-        for i in range(r0, min(r0 + step, rounds)):
-            r = start_round + i
-            state, vis, curves = _round(
-                state, vis, last_seq, alive if alive_t is None else alive_t[i], r,
-                rng_mod.fold_in(base_key, r), cfg,
-                loss=None if loss_t is None else loss_t[i],
-                wipe=None if wipe_t is None else wipe_t[i],
-            )
-            rows.append(curves)
-        parts.append(telemetry_mod.stack_curves(rows, CURVE_DTYPES))
+        # run() takes the only reference to the chunk's start, so each
+        # round's input state is freed as the next is made.
+        box = [(state, vis)]
+        state = vis = None
+
+        def run():
+            state, vis = box.pop()
+            rows = []
+            for i in range(r0, min(r0 + step, rounds)):
+                r = start_round + i
+                state, vis, curves = _round(
+                    state, vis, last_seq, alive if alive_t is None else alive_t[i], r,
+                    rng_mod.fold_in(base_key, r), cfg,
+                    loss=None if loss_t is None else loss_t[i],
+                    wipe=None if wipe_t is None else wipe_t[i],
+                )
+                rows.append(curves)
+            return (state, vis), telemetry_mod.stack_curves(rows, CURVE_DTYPES)
+
+        if telemetry is None:
+            (state, vis), curves = run()
+        else:
+            (state, vis), curves = telemetry.run_chunk(start_round + r0, run)
+        parts.append(curves)
     merged = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    if telemetry is not None:
+        telemetry.on_run_end(merged)
 
     vis_np = vis.cpu().numpy()
     applied = vis_np >= 0

@@ -238,14 +238,18 @@ def simulate(
     seed: int = 0,
     state: ClusterState | None = None,
     max_chunk: int | None = None,
+    telemetry: telemetry_mod.KernelTelemetry | None = None,
     device=None,
 ) -> tuple[ClusterState, dict]:
     """Run ``cluster_round`` over the schedule. Returns the final state and
     per-round curves (numpy arrays of length ``schedule.rounds``, in the
     reference's dtypes). ``state`` resumes a run (never modified);
     ``max_chunk`` splits the run into pieces of at most that many rounds
-    with identical results. Runs on ``device`` (default CUDA; raises when
-    CUDA is absent and no device is given)."""
+    with identical results. ``telemetry`` (``KernelTelemetry``) times and
+    flushes each piece as a chunk (the whole run is one chunk when
+    unchunked) and takes the merged curves at the end; curves and state
+    are the same with it or without. Runs on ``device`` (default CUDA;
+    raises when CUDA is absent and no device is given)."""
     device = resolve_device(device)
     start_round = 0 if state is None else int(state.round)
     max_head = (start_round + schedule.rounds) * max(
@@ -260,13 +264,22 @@ def simulate(
         cur = state
         parts = []
         for start in range(0, schedule.rounds, max_chunk):
-            stop = min(start + max_chunk, schedule.rounds)
-            cur, curves = simulate(
-                cfg, topo, schedule.slice(start, stop), seed=seed, state=cur,
-                device=device,
-            )
+            part = schedule.slice(start, min(start + max_chunk, schedule.rounds))
+            box = [cur]  # the piece takes the only reference to its start
+            cur = None
+
+            def run():
+                return simulate(cfg, topo, part, seed=seed, state=box.pop(), device=device)
+
+            if telemetry is None:
+                cur, curves = run()
+            else:
+                cur, curves = telemetry.run_chunk(start_round + start, run)
             parts.append(curves)
-        return cur, {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+        merged = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+        if telemetry is not None:
+            telemetry.on_run_end(merged)
+        return cur, merged
 
     topo = Topology(*(None if x is None else x.to(device) for x in topo))
     n_regions = int(topo.region.max()) + 1
@@ -307,20 +320,33 @@ def simulate(
         state = init_cluster(cfg, len(schedule.sample_writer), device)
     offset = int(state.round)
     base_key = rng_mod.PRNGKey(seed, device)
-    rows = []
-    for i in range(rounds):
-        key = rng_mod.fold_in(base_key, offset + i)
-        state, stats = cluster_round(
-            state, topo, writes[i], partition[i], s_writer, s_ver, s_round,
-            key, cfg,
-            loss=None if loss is None else loss[i],
-            probe_loss=None if probe_loss is None else probe_loss[i],
-            kill=None if kill is None else kill[i],
-            revive=None if revive is None else revive[i],
-            wipe=None if wipe is None else wipe[i],
-        )
-        rows.append(stats)
-    return state, telemetry_mod.stack_curves(rows)
+    # run() takes the only reference to the start state, so each round's
+    # input state is freed as the next is made.
+    box = [state]
+    state = None
+
+    def run():
+        state = box.pop()
+        rows = []
+        for i in range(rounds):
+            key = rng_mod.fold_in(base_key, offset + i)
+            state, stats = cluster_round(
+                state, topo, writes[i], partition[i], s_writer, s_ver, s_round,
+                key, cfg,
+                loss=None if loss is None else loss[i],
+                probe_loss=None if probe_loss is None else probe_loss[i],
+                kill=None if kill is None else kill[i],
+                revive=None if revive is None else revive[i],
+                wipe=None if wipe is None else wipe[i],
+            )
+            rows.append(stats)
+        return state, telemetry_mod.stack_curves(rows)
+
+    if telemetry is None:
+        return run()
+    final, curves = telemetry.run_chunk(offset, run)
+    telemetry.on_run_end(curves)
+    return final, curves
 
 
 def visibility_latencies(

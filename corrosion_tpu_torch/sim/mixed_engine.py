@@ -350,13 +350,16 @@ def simulate_mixed(
     streams: StreamSpec,
     seed: int = 0,
     max_chunk: int | None = None,
+    telemetry: telemetry_mod.KernelTelemetry | None = None,
     state: MixedState | None = None,
     device=None,
 ):
     """Run ``mixed_round`` over the schedule. Returns (final, curves).
 
     ``max_chunk`` copies the curves to the host every that many rounds
-    (results are identical either way). ``state`` resumes a run (never
+    (results are identical either way), and ``telemetry``
+    (``KernelTelemetry``) times and flushes each such piece as a chunk
+    and takes the run's curves at the end. ``state`` resumes a run (never
     modified): a state whose ``round`` is k continues at absolute round k
     over the schedule's remaining rounds (pass its tail), with round keys
     and the stream commits indexed by k + r, equal to the uninterrupted
@@ -409,18 +412,34 @@ def simulate_mixed(
         {k: np.zeros((0,)) for k in telemetry_mod.ROUND_CURVE_KEYS}
     ]
     for r0 in range(0, rounds, step):
-        rows = []
-        for i in range(r0, min(r0 + step, rounds)):
-            state, stats = mixed_round(
-                state, topo, writes[i], commit[i], partition[i],
-                None if kill is None else kill[i],
-                None if revive is None else revive[i],
-                spec, s_w, s_v, s_r, rng_mod.fold_in(base_key, offset + i),
-                cfg, ccfg, has_churn,
-                loss=None if loss is None else loss[i],
-                probe_loss=None if probe_loss is None else probe_loss[i],
-                wipe=None if wipe is None else wipe[i],
-            )
-            rows.append(stats)
-        parts.append(telemetry_mod.stack_curves(rows, CURVE_DTYPES))
-    return state, {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+        # run() takes the only reference to the chunk's start, so each
+        # round's input state is freed as the next is made.
+        box = [state]
+        state = None
+
+        def run():
+            state = box.pop()
+            rows = []
+            for i in range(r0, min(r0 + step, rounds)):
+                state, stats = mixed_round(
+                    state, topo, writes[i], commit[i], partition[i],
+                    None if kill is None else kill[i],
+                    None if revive is None else revive[i],
+                    spec, s_w, s_v, s_r, rng_mod.fold_in(base_key, offset + i),
+                    cfg, ccfg, has_churn,
+                    loss=None if loss is None else loss[i],
+                    probe_loss=None if probe_loss is None else probe_loss[i],
+                    wipe=None if wipe is None else wipe[i],
+                )
+                rows.append(stats)
+            return state, telemetry_mod.stack_curves(rows, CURVE_DTYPES)
+
+        if telemetry is None:
+            state, curves = run()
+        else:
+            state, curves = telemetry.run_chunk(offset + r0, run)
+        parts.append(curves)
+    merged = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    if telemetry is not None:
+        telemetry.on_run_end(merged)
+    return state, merged

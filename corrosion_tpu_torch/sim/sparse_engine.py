@@ -323,14 +323,18 @@ def simulate_sparse(
     seed: int = 0,
     resume: dict | None = None,
     stop_after_epoch: int | None = None,
+    telemetry: telemetry_mod.KernelTelemetry | None = None,
     device=None,
 ):
     """Run the epoch-rotated any-node-writes simulation. Returns
     (final SparseState, swim state, vis_round, curves, info). ``resume``
     (``info["resume"]`` of an earlier run, or ``initial_resume``) continues
     from its next epoch and is never modified; ``stop_after_epoch`` ends
-    the run after that epoch. Runs on ``device`` (default CUDA; raises
-    when CUDA is absent and no device is given)."""
+    the run after that epoch. ``telemetry`` (``KernelTelemetry``) treats
+    every epoch as a chunk: timed and flushed, the run's curves taken at
+    the end (a resumed run appends with a ``mode="a"`` recorder). Runs on
+    ``device`` (default CUDA; raises when CUDA is absent and no device is
+    given)."""
     device = resolve_device(device)
     sp = cfg.sparse
     n = cfg.n_nodes
@@ -427,19 +431,32 @@ def simulate_sparse(
             planner.slot_of[np.asarray(schedule.sample_writer)]
             if n_samples else np.zeros(0, np.int32)
         )
-        rows = []
-        for i in range(el):
-            sstate, swim_state, vis_round, stats = _sparse_round(
-                sstate, swim_state, vis_round, topo, writes_slots[i], part[i],
-                None if kill is None else kill[i],
-                None if revive is None else revive[i],
-                e0 + i,
-                None if loss is None else loss[i],
-                None if probe is None else probe[i],
-                s_slot, s_ver, s_round, base_key, cfg, sp,
-            )
-            rows.append(stats)
-        curve_parts.append(telemetry_mod.stack_curves(rows))
+        # run() takes the only reference to the epoch's start, so each
+        # round's input state is freed as the next is made.
+        box = [(sstate, swim_state, vis_round)]
+        sstate = swim_state = vis_round = None
+
+        def run():
+            carry, rows = box.pop(), []
+            for i in range(el):
+                *carry, stats = _sparse_round(
+                    *carry, topo, writes_slots[i], part[i],
+                    None if kill is None else kill[i],
+                    None if revive is None else revive[i],
+                    e0 + i,
+                    None if loss is None else loss[i],
+                    None if probe is None else probe[i],
+                    s_slot, s_ver, s_round, base_key, cfg, sp,
+                )
+                rows.append(stats)
+            return tuple(carry), telemetry_mod.stack_curves(rows)
+
+        if telemetry is None:
+            (sstate, swim_state, vis_round), curves = run()
+        else:
+            # An epoch boundary is a chunk boundary.
+            (sstate, swim_state, vis_round), curves = telemetry.run_chunk(e0, run)
+        curve_parts.append(curves)
 
         # Epoch-end cold visibility at epoch granularity (exact for
         # zero-lag demotions: those were visible everywhere while hot).
@@ -459,6 +476,8 @@ def simulate_sparse(
         {k: np.concatenate([p[k] for p in curve_parts]) for k in curve_parts[0]}
         if curve_parts else {}
     )
+    if telemetry is not None and curve_parts:
+        telemetry.on_run_end(merged)
     info["resume"] = {
         "planner": planner.snapshot(),
         "sstate": sstate,

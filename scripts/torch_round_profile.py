@@ -5,7 +5,8 @@ the card.
     python3 scripts/torch_round_profile.py
         [--config wan_100k|wan_100k_adaptive|merge_10k|anywrite_sparse|
                   mixed_storm|anti_entropy_chunks|anti_entropy_chunks_100k]
-        [--warm 12] [--rounds 6] [--out build/torch_round_profile.json]
+        [--warm 12] [--rounds 6] [--telemetry]
+        [--out build/torch_round_profile.json]
 
 Runs the ``--config`` builder (``wan_100k()`` by default;
 ``wan_100k_adaptive`` is ``wan_100k()`` with the adaptive-dissemination
@@ -28,7 +29,13 @@ the exported trace:
   trace lost: ``no_launch_record_ms_per_round`` says how much);
 - the top kernels by device time and the ported kernels' share;
 - host syncs per round (``gossip.HOST_SYNCS``) and kernel launches per
-  round.
+  round;
+- ``warm_ms_per_round``: CUDA events around the warm rounds, which run
+  without the profiler.
+
+``--telemetry`` passes every engine call a ``KernelTelemetry`` recording a
+flight (``build/flight_<config>.jsonl``), so runs with and without it,
+taken in turns in one call, give the recorder's cost.
 
 Needs one CUDA device. Writes the summary as JSON to ``--out``, with the
 card's name and power limit (nvidia-smi).
@@ -126,6 +133,7 @@ def main(argv=None) -> int:
     ap.add_argument("--config", choices=CONFIGS, default="wan_100k")
     ap.add_argument("--warm", type=int, default=12)
     ap.add_argument("--rounds", type=int, default=6)
+    ap.add_argument("--telemetry", action="store_true")
     ap.add_argument("--out", default="build/torch_round_profile.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -134,6 +142,25 @@ def main(argv=None) -> int:
     from corrosion_tpu_torch.models import baselines
     from corrosion_tpu_torch.ops import gossip, onehot
     from corrosion_tpu_torch.sim import chunk_engine, engine, health, mixed_engine, sparse_engine
+    from corrosion_tpu_torch.sim import telemetry
+
+    tele = None
+    if args.telemetry:
+        Path("build").mkdir(exist_ok=True)
+        tele = telemetry.KernelTelemetry(recorder=telemetry.FlightRecorder(
+            f"build/flight_{args.config}.jsonl", mode="w"))
+    warm = {}
+
+    def timed_warm(fn):
+        """Run the warm rounds between CUDA events; return what fn does."""
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        warm["ms"] = a.elapsed_time(b)
+        return out
 
     if args.config.startswith("anti_entropy_chunks"):
         ccfg, origin, last, _ = baselines.anti_entropy_chunks(
@@ -145,7 +172,7 @@ def main(argv=None) -> int:
             st, vis = state or (None, None)
             st, m = chunk_engine.simulate_chunks(
                 ccfg, origin, last, rounds, seed=0, state=st, vis=vis, start_round=r0,
-                device="cuda",
+                telemetry=tele, device="cuda",
             )
             return st, m["vis"]
     elif args.config == "mixed_storm":
@@ -155,12 +182,12 @@ def main(argv=None) -> int:
         def run(state, r0, rounds):
             return mixed_engine.simulate_mixed(
                 cfg, ccfg, topo, sched.slice(r0, r0 + rounds), spec, seed=0, state=state,
-                device="cuda",
+                telemetry=tele, device="cuda",
             )[0]
     else:
         run = None
     if run is not None:
-        state = run(None, 0, args.warm) if args.warm else None
+        state = timed_warm(lambda: run(None, 0, args.warm)) if args.warm else None
         torch.cuda.synchronize()
         gossip.reset_host_syncs()
         onehot.reset_launches()
@@ -171,7 +198,7 @@ def main(argv=None) -> int:
             run(state, args.warm, args.rounds)
             b.record()
             b.synchronize()
-        return report(args, prof, a.elapsed_time(b), nodes, writers, gossip, onehot)
+        return report(args, prof, a.elapsed_time(b), nodes, writers, gossip, onehot, warm)
 
     adaptive = args.config == "wan_100k_adaptive"
     cfg, topo, sched = getattr(baselines, "wan_100k" if adaptive else args.config)(device="cuda")
@@ -187,12 +214,13 @@ def main(argv=None) -> int:
         def run(resume, rounds_end):
             return sparse_engine.simulate_sparse(
                 cfg, topo, sched, seed=0, resume=resume,
-                stop_after_epoch=rounds_end // e_len - 1, device="cuda",
+                stop_after_epoch=rounds_end // e_len - 1, telemetry=tele, device="cuda",
             )[4]["resume"]
 
-        state = run(None, args.warm) if args.warm else None
+        state = timed_warm(lambda: run(None, args.warm)) if args.warm else None
     else:
-        state, _ = engine.simulate(cfg, topo, sched.slice(0, args.warm), seed=0, device="cuda")
+        state, _ = timed_warm(lambda: engine.simulate(
+            cfg, topo, sched.slice(0, args.warm), seed=0, telemetry=tele, device="cuda"))
     torch.cuda.synchronize()
     gossip.reset_host_syncs()
     onehot.reset_launches()
@@ -204,14 +232,15 @@ def main(argv=None) -> int:
         if sparse:
             run(state, args.warm + args.rounds)
         else:
-            engine.simulate(cfg, topo, window, seed=0, state=state, device="cuda")
+            engine.simulate(cfg, topo, window, seed=0, state=state, telemetry=tele,
+                            device="cuda")
         b.record()
         b.synchronize()
     return report(args, prof, a.elapsed_time(b), cfg.n_nodes, cfg.gossip.n_writers, gossip,
-                  onehot)
+                  onehot, warm)
 
 
-def report(args, prof, window_ms, nodes, writers, gossip, onehot) -> int:
+def report(args, prof, window_ms, nodes, writers, gossip, onehot, warm) -> int:
     """Analyse the window, add the card and the run's counts, write and
     print the summary."""
     out = analyse(trace_events(prof), window_ms, args.rounds)
@@ -221,7 +250,8 @@ def report(args, prof, window_ms, nodes, writers, gossip, onehot) -> int:
     ).stdout.strip().splitlines()[0]
     out.update(
         config=args.config, card=smi, nodes=nodes,
-        writers=writers, warm=args.warm, rounds=args.rounds,
+        writers=writers, warm=args.warm, rounds=args.rounds, telemetry=args.telemetry,
+        warm_ms_per_round=warm["ms"] / args.warm if args.warm else None,
         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
         device=torch.cuda.get_device_name(0),
         host_syncs_per_round={k: v / args.rounds for k, v in gossip.HOST_SYNCS.items()},

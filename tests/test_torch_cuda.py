@@ -332,3 +332,34 @@ def test_chunk_and_mixed_runs_equal_the_cpu_runs(cuda):
         assert card.keys() == want.keys()
         bad = [k for k in card if not np.array_equal(card[k], want[k])]
         assert not bad, bad
+
+
+# The curve consumers at test size: the card's demo flight is the CPU's
+# line for line (bar the wall clock), and the invariant suite's dense and
+# sparse reports on the card equal the CPU's.
+def test_demo_flight_and_invariant_reports_equal_the_cpu(cuda, tmp_path):
+    import json
+
+    from corrosion_tpu_torch.sim import faults, health, invariants
+
+    def lines(path):
+        out = []
+        for line in open(path):
+            rec = json.loads(line)
+            rec.pop("t_unix", None)
+            rec.pop("wall_s", None)
+            out.append(rec)
+        return out
+
+    kw = dict(nodes=96, rounds=48, churn=True, seed=0, geo=True, adaptive=True)
+    onehot.reset_launches()
+    card = health.record_demo_flight(str(tmp_path / "card.jsonl"), **kw, device="cuda")
+    assert onehot.LAUNCHES["table_gather"] > 0 and onehot.LAUNCHES["window_delivery"] > 0
+    cpu = health.record_demo_flight(str(tmp_path / "cpu.jsonl"), **kw, device="cpu")
+    assert {k: v for k, v in card.items() if k != "flight"} == \
+           {k: v for k, v in cpu.items() if k != "flight"}
+    assert lines(tmp_path / "card.jsonl") == lines(tmp_path / "cpu.jsonl")
+    plan = faults.named_scenarios(24, 4, 48, protect=invariants.PROTECTED)["kitchen-sink"]
+    for eng in ("dense", "sparse"):
+        a = invariants.RUNNERS[eng](plan, seed=0, device="cuda").to_dict()
+        assert a == invariants.RUNNERS[eng](plan, seed=0, device="cpu").to_dict(), eng

@@ -28,7 +28,9 @@ def test_port_imports_no_jax_and_no_reference():
         "import corrosion_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 25, names\n"
+        "assert len(names) >= 30, names\n"
+        "assert {'corrosion_tpu_torch.obs.epidemic', 'corrosion_tpu_torch.sim.invariants',\n"
+        "        'corrosion_tpu_torch.sim.checkpoint', 'corrosion_tpu_torch.sim.trace'} <= set(names)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'corrosion_tpu' or m.startswith('corrosion_tpu.'))\n"
         "assert not bad, bad\n"
@@ -40,10 +42,12 @@ def test_port_imports_no_jax_and_no_reference():
 
 def test_entry_points_raise_without_cuda():
     res = _run(
-        "import torch\n"
+        "import os, torch\n"
         "assert not torch.cuda.is_available()\n"
         "from corrosion_tpu_torch.models import baselines\n"
-        "from corrosion_tpu_torch.sim import chunk_engine, engine, mixed_engine\n"
+        "from corrosion_tpu_torch.sim import chunk_engine, engine, health, invariants, mixed_engine\n"
+        "from corrosion_tpu_torch.sim import faults\n"
+        "plan = faults.named_scenarios(24, 4, 48)['loss-burst']\n"
         "kw = dict(n=40, n_regions=2, n_writers=4, rounds=4, samples=4)\n"
         "cfg, topo, sched = baselines.wan_100k(device='cpu', **kw)\n"
         "mkw = dict(n=64, streams=2, last_seq=63, rounds=4, samples=4)\n"
@@ -55,7 +59,9 @@ def test_entry_points_raise_without_cuda():
         "             lambda: chunk_engine.simulate_chunks(ccfg, origin, last, 2),\n"
         "             lambda: mixed_engine.simulate_mixed(*mixed),\n"
         "             lambda: baselines.mixed_storm(**mkw),\n"
-        "             lambda: baselines.anti_entropy_chunks(n=16)):\n"
+        "             lambda: baselines.anti_entropy_chunks(n=16),\n"
+        "             lambda: health.record_demo_flight(os.devnull, nodes=32, rounds=16),\n"
+        "             lambda: invariants.run_dense(plan)):\n"
         "    try:\n"
         "        call()\n"
         "    except RuntimeError as e:\n"
