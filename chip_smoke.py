@@ -67,7 +67,8 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    n=48, streams=4)`` plain and under a fault plan (loss, churn, a wipe
    that spares the origins), and ``mixed_storm(n=64, streams=2, rounds=24)``
    without cells, with cells, under kill/revive/wipe and adaptive with
-   ``prop_observe`` (conservation);
+   ``prop_observe`` (conservation). The CPU side of every small run goes
+   in one worker process while the card runs its side;
 5. full-size ``wan_100k()`` (100,000 nodes, 20 regions, 512 writers), all
    240 rounds in chunks of 12: its four kernels launched, the watermark
    invariants;
@@ -90,8 +91,8 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    convergence round;
 10. the chunk plane: ``anti_entropy_chunks()`` (1,000 nodes, 16 streams
    of 8,192 seqs, 240 rounds: converged), then at 100,000 nodes (1.6 M
-   (node, stream) rows: the interval invariants, reassembly that never
-   falls), 24 rounds a call; no kernel launched;
+   (node, stream) rows, the first 48 rounds: the interval invariants,
+   reassembly that never falls), 24 rounds a call; no kernel launched;
 11. ``mixed_storm()`` (1,000 nodes, 64 writers, 16 big transactions of
    2,048 seqs, 512 cells, 200 rounds), 25 rounds a call: converged on both
    planes with every node's cells equal to the serial-merge ground truth
@@ -104,7 +105,20 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    the reference CI's tolerance 0.35; the invariant suite on the
    ``kitchen-sink`` fault plan on all four engines, every report ok and
    the card's facts, violations and recovery equal to the CPU's; and a
-   ``save_state``/``load_state`` round trip of the churn_32 run on the card.
+   ``save_state``/``load_state`` round trip of the churn_32 run on the card;
+13. the shard driver and the elastic plane: full-width ``wan_100k()`` on
+   a (2, 2) mesh of card positions (all on one card when there is one),
+   48 rounds in calls of 12: curves equal to phase 5's first 48 rounds but
+   the exchange's byte keys, the final state equal to phase 5's at round
+   48, the exchange bytes equal to ``traffic_model`` and each position's
+   state bytes equal to the prediction; ``anywrite_sparse(n=2000, ...)``
+   on 4 positions and the merge_10k burst at n=2560 (the legacy delivery)
+   on 2, each equal to its unsharded card run; the elastic drills
+   (``reshard_{dense,sparse,chunk,mixed}_4to8``, ``preempt_dense_churn``)
+   on the card, each equal to its uninterrupted run, the preemption's
+   recovery machinery fired, the budget gate ok on its survival fields,
+   each report equal to the CPU's. Phase 3 times the kernels at the shard
+   bodies' row blocks.
 
 Phases 5 (wan_100k), 10 (anti_entropy_chunks at 1,000 nodes) and 11 pass
 ``telemetry=KernelTelemetry(recorder=FlightRecorder(...), progress=
@@ -113,8 +127,8 @@ must replay to the run's curves, key for key and round for round, and the
 recorder's ``device_step_ms`` is logged beside the CUDA-event ms/round.
 
 The launch counts are reset just before each main-path run (phases 5-8
-and 11, the pairs of runs of phases 9 and 10, and phase 12) and read just
-after it. The last lines are a ``kernels`` JSON line,
+and 11, the pairs of runs of phases 9 and 10, phase 12, and each of phase
+13's four paths) and read just after it. Each phase logs its wall time. The last lines are a ``kernels`` JSON line,
 the nvidia-smi line, and the result line ``{"ok": true, "device": {...}}``.
 Each kernel's entry carries its launches summed over the paths and,
 under ``by_path``, each path's launches and the times and bound of every
@@ -127,6 +141,7 @@ import gc
 import json
 import math
 import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -173,7 +188,18 @@ PATH_KERNELS = {
     "anti_entropy_chunks": (),
     "mixed_storm": ("rowmax", "rowgather", "delivery_reduce", "window_delivery"),
     "consumers": ("rowmax", "rowgather", "delivery_reduce", "window_delivery", "table_gather"),
+    # Phase 13: the shard driver's bodies and the elastic drills.
+    "wan_100k_sharded": ("rowmax", "rowgather", "delivery_reduce", "window_delivery"),
+    "anywrite_sparse_sharded": ("table_gather", "rowmax", "rowgather", "delivery_reduce"),
+    "merge_10k_sharded": ("rowgather_wide", "rowsum", "rowmax", "rowgather", "delivery_reduce"),
+    "elastic": ("rowmax", "rowgather", "delivery_reduce", "window_delivery", "table_gather"),
 }
+# Phase 13 runs wan_100k's first rounds sharded; phase 5 keeps its state
+# and curves there to hold them to.
+SHARDED_ROUNDS = 48
+ELASTIC_DRILLS = ("reshard_dense_4to8", "reshard_sparse_4to8", "reshard_chunk_4to8",
+                  "reshard_mixed_4to8", "preempt_dense_churn")
+CHUNK_100K_ROUNDS = 48  # phase 10's 100,000-node run (the 1,000-node run takes all 240)
 REPO = Path(__file__).resolve().parent
 FLIGHTS = REPO / "build" / "flights"  # flight records of the telemetry-carrying phases
 
@@ -618,22 +644,26 @@ def check_kernels(onehot, device) -> list:
     gather_case("merge_10k", "legacy base gather", u24(n, w), widx, wide=True)
 
     # The legacy window assembly: one power of two per admitted message.
-    bits = torch.where(
-        torch.rand((n, kk), generator=g).to(device) < 0.5,
-        1 << torch.randint(0, 32, (n, kk), generator=g).to(device), 0,
-    )
-    measure(
-        "rowsum", "merge_10k", f"[{n},{kk}]->[{n},{w}]", (widx, bits),
-        lambda widx, bits: onehot.rowsum(widx, bits, None, w),
-        lambda widx, bits: onehot.rowsum_plain(widx, bits, None, w),
-        # No one PyTorch call makes a fresh zero-filled plane holding the
-        # sums: the two-call composition is timed beside it.
-        None,
-        (widx, bits), widx.numel(),
-        zeros_scatter_add_ms=lambda widx, bits: torch.zeros(
-            (n, w), dtype=torch.int64, device=device).scatter_add_(1, widx, bits),
-    )
-    del widx, bits, idx
+    def rowsum_case(path, widx, w):
+        n, kk = widx.shape
+        bits = torch.where(
+            torch.rand((n, kk), generator=g).to(device) < 0.5,
+            1 << torch.randint(0, 32, (n, kk), generator=g).to(device), 0,
+        )
+        measure(
+            "rowsum", path, f"[{n},{kk}]->[{n},{w}]", (widx, bits),
+            lambda widx, bits: onehot.rowsum(widx, bits, None, w),
+            lambda widx, bits: onehot.rowsum_plain(widx, bits, None, w),
+            # No one PyTorch call makes a fresh zero-filled plane holding the
+            # sums: the two-call composition is timed beside it.
+            None,
+            (widx, bits), widx.numel(),
+            zeros_scatter_add_ms=lambda widx, bits: torch.zeros(
+                (n, w), dtype=torch.int64, device=device).scatter_add_(1, widx, bits),
+        )
+
+    rowsum_case("merge_10k", widx, w)
+    del widx, idx
 
     # anywrite_sparse: N = 100,000 rows, kk = 320 messages (fanout 5 x queue
     # 64), W = 2,048 hot slots, K = 256 cells, S = 256 samples, sync cohort
@@ -694,6 +724,36 @@ def check_kernels(onehot, device) -> list:
     table_case("mixed_storm", "adaptive n=64 queue saturation", heads,
                torch.randint(0, w, (64, 16), generator=g).to(device))
     del idx, heads
+
+    # The shard bodies of phase 13, one row block a position (the sync
+    # grants, visibility and rotate run whole, at their paths' shapes):
+    # wan_100k on 4 positions, [25,000, 144] a body over 512 writers and
+    # 256 cells; anywrite_sparse n=2000 on 4, [500, 320] over 56 hot
+    # slots and 256 cells, with rotate's table_gather at [2000, 64];
+    # the merge_10k burst n=2560 on 2, [1280, 144] over 2,560 writers and
+    # 1,024 cells (the legacy delivery); the elastic drills' dense wan
+    # workload n=64 on 8, [8, 144] over 16 writers and 256 cells.
+    for path, n, kk, w, k in (("wan_100k_sharded", 25_000, 144, 512, 256),
+                              ("anywrite_sparse_sharded", 500, 320, 56, 256),
+                              ("elastic", 8, 144, 16, 256)):
+        idx = rowmax_case(path, n, kk, k)
+        gather_case(path, "base gather", u24(n, w), torch.randint(0, w, (n, kk), generator=g).to(device))
+        gather_case(path, "CRDT winner check", u24(n, k), idx)
+        window_case(path, n, kk, w)
+    table_case("anywrite_sparse_sharded", "rotate",
+               (torch.rand((56,), generator=g) < 0.4).to(torch.int64).to(device),
+               torch.randint(0, 56, (2000, 64), generator=g).to(device))
+    # The sparse drill's rotate: 8 hot slots, n=64, queue 64.
+    table_case("elastic", "rotate", (torch.rand((8,), generator=g) < 0.4).to(torch.int64).to(device),
+               torch.randint(0, 8, (64, 64), generator=g).to(device))
+    n, kk, w, k = 1280, 144, 2560, 1024
+    idx = rowmax_case("merge_10k_sharded", n, kk, k)
+    gather_case("merge_10k_sharded", "CRDT winner check", u24(n, k), idx)
+    reduce_case("merge_10k_sharded", n, kk, w, 1 << 20, 1 << 20)
+    widx = torch.randint(0, w, (n, kk), generator=g).to(device)
+    gather_case("merge_10k_sharded", "legacy base gather", u24(n, w), widx, wide=True)
+    rowsum_case("merge_10k_sharded", widx, w)
+    del idx, widx
     for row in out:
         times = ", ".join(
             f"{k} {v:.4f}" for k, v in row.items() if k.endswith("ms") and v is not None
@@ -855,29 +915,68 @@ def _small_run(builder, kw, transform, chunk, adapt, dev):
     return flat, curves, info, sched.rounds
 
 
+def _with_knobs(gossip, knobs: dict, fn):
+    """``fn()`` with the ``ops.gossip`` module settings ``knobs`` in force."""
+    saved = {k: getattr(gossip, k) for k in knobs}
+    try:
+        for k, v in knobs.items():
+            setattr(gossip, k, v)
+        return fn()
+    finally:
+        for k, v in saved.items():
+            setattr(gossip, k, v)
+
+
+def cpu_small_runs(out: str) -> int:
+    """``python3 chip_smoke.py --cpu-small-runs OUT``: every run of
+    ``SMALL_RUNS`` on the CPU (the plain versions), in order, each one's
+    ``_small_run`` result and its seconds pickled into ``OUT``. Phase 4
+    starts it as a worker process."""
+    from corrosion_tpu_torch.ops import gossip
+
+    runs = []
+    for _, builder, kw, transform, chunk, adapt, knobs in SMALL_RUNS:
+        t0 = time.perf_counter()
+        run = _with_knobs(gossip, knobs,
+                          lambda: _small_run(builder, kw, transform, chunk, adapt, "cpu"))
+        runs.append((*run, time.perf_counter() - t0))
+    Path(out).write_bytes(pickle.dumps(runs))
+    return 0
+
+
 def check_small_runs(onehot, gossip):
     """Each small run on the card (kernels) equals the CPU run (plain
     versions); the merge_10k runs launch the two wide-path kernels, the
     anywrite runs demote, heal and launch ``table_gather``, the adaptive
-    runs launch ``table_gather`` and kill rumors."""
-    for label, builder, kw, transform, chunk, adapt, knobs in SMALL_RUNS:
-        runs = {}
-        saved = {k: getattr(gossip, k) for k in knobs}
-        try:
-            for k, v in knobs.items():
-                setattr(gossip, k, v)
-            for dev in ("cuda", "cpu"):
-                onehot.reset_launches()
-                t0 = time.perf_counter()
-                out = _small_run(builder, kw, transform, chunk, adapt, dev)
-                if dev == "cuda":
-                    torch.cuda.synchronize()
-                    launches = dict(onehot.LAUNCHES)
-                runs[dev] = (*out, time.perf_counter() - t0)
-        finally:
-            for k, v in saved.items():
-                setattr(gossip, k, v)
-        (fa, ca, ia, rounds, ta), (fb, cb, ib, _, tb) = runs["cuda"], runs["cpu"]
+    runs launch ``table_gather`` and kill rumors. The CPU runs go in one
+    worker process (``cpu_small_runs``, no card visible to it) while the
+    card runs its side; the worker has ended before the checks, so the
+    timed phases after this one have the host to themselves."""
+    out_path = REPO / "build" / "small_runs_cpu.pkl"
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    out_path.unlink(missing_ok=True)
+    worker = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--cpu-small-runs", str(out_path)],
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+    )
+    card = []
+    try:
+        for _, builder, kw, transform, chunk, adapt, knobs in SMALL_RUNS:
+            onehot.reset_launches()
+            t0 = time.perf_counter()
+            out = _with_knobs(gossip, knobs,
+                              lambda: _small_run(builder, kw, transform, chunk, adapt, "cuda"))
+            torch.cuda.synchronize()
+            card.append((*out, time.perf_counter() - t0, dict(onehot.LAUNCHES)))
+        rc = worker.wait()
+    finally:
+        if worker.poll() is None:
+            worker.kill()
+            worker.wait()
+    assert rc == 0, f"phase 4: the CPU side of the small runs failed (exit code {rc})"
+    cpu = pickle.loads(out_path.read_bytes())
+    for (label, builder, kw, transform, chunk, adapt, knobs), ra, rb in zip(SMALL_RUNS, card, cpu):
+        (fa, ca, ia, rounds, ta, launches), (fb, cb, ib, _, tb) = ra, rb
         bad = [k for k in ca if not np.array_equal(ca[k], cb[k])]
         bad += [k for k in fa if not np.array_equal(fa[k], fb[k])]
         assert not bad and json.dumps(ia) == json.dumps(ib), \
@@ -908,7 +1007,7 @@ def check_small_runs(onehot, gossip):
                 check_conservation(label, ca)
                 assert ca["prop_rumor_kills"].sum() > 0, label
         extra = f"; info {json.dumps(ia)}; cold_healed={int(ca['cold_healed'].sum())}" if ia else ""
-        log(f"phase 4: {label} ({rounds} rounds): card {ta:.1f} s == CPU "
+        log(f"phase 4: {label} ({rounds} rounds): card {ta:.1f} s == CPU (worker) "
             f"{tb:.1f} s ({len(ca)} curves, {len(fa)} state leaves); "
             f"need[-1]={int(ca['need'][-1])}{extra}; launches {json.dumps(launches)}")
 
@@ -1032,10 +1131,12 @@ def build_path(path: str):
     return getattr(baselines, path)(device="cuda")
 
 
-def full_run(onehot, gossip, phase: int, builder: str):
+def full_run(onehot, gossip, phase: int, builder: str, keep: dict | None = None):
     """A main path at full size, every round of its schedule, one call per
     chunk (dense engine) or epoch (sparse engine), with the launch counts
-    reset just before and read just after."""
+    reset just before and read just after. ``keep`` takes the state, the
+    curves and the CUDA-event ms after ``SHARDED_ROUNDS`` rounds."""
+    from corrosion_tpu_torch.parallel import mesh as mesh_mod
     from corrosion_tpu_torch.sim import sparse_engine
 
     cfg, topo, sched = build_path(builder)
@@ -1069,6 +1170,10 @@ def full_run(onehot, gossip, phase: int, builder: str):
         log(f"phase {phase}: rounds {done}-{done + rounds - 1}: {ms / rounds:.1f} ms/round"
             + "".join(f", {k} {v}" for k, v in info.items()))
         done += rounds
+        if keep is not None and done == SHARDED_ROUNDS:
+            # Held on the host, so the later phases' peaks stay their own.
+            keep.update(state=mesh_mod.to_host(state), ms=elapsed,
+                        curves={k: np.concatenate([p[k] for p in parts]) for k in parts[0]})
     wall = time.perf_counter() - t_wall
     launches = dict(onehot.LAUNCHES)
     syncs = dict(gossip.HOST_SYNCS)
@@ -1180,8 +1285,9 @@ def check_intervals(have, last_seq, n_streams: int) -> None:
 def chunk_runs(onehot, gossip, phase: int = 10) -> dict:
     """``anti_entropy_chunks()`` at the reference's size (1,000 nodes, 16
     streams of 8,192 seqs, 240 rounds: converged) and at 100,000 nodes
-    (1.6 M (node, stream) rows: the interval invariants, reassembly that
-    never falls), 24 rounds a call, each call resuming the last. The
+    (1.6 M (node, stream) rows, ``CHUNK_100K_ROUNDS`` rounds: the interval
+    invariants, reassembly that never falls), 24 rounds a call, each call
+    resuming the last. The
     launch counts are reset before the pair and read after it (the plane
     launches no kernel). Returns them."""
     from corrosion_tpu_torch.models import baselines
@@ -1190,6 +1296,8 @@ def chunk_runs(onehot, gossip, phase: int = 10) -> dict:
     onehot.reset_launches()
     for n in (1000, 100_000):
         cfg, origin, last, rounds = baselines.anti_entropy_chunks(n=n, device="cuda")
+        if n == 100_000:
+            rounds = CHUNK_100K_ROUNDS
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         gossip.reset_host_syncs()
@@ -1392,6 +1500,197 @@ def consumers(onehot, phase: int = 12) -> dict:
     return launches
 
 
+# ---- phase 13: the shard driver and the elastic plane ------------------------
+
+
+def _same_on_card(a, b) -> list:
+    """Paths of the leaves where two state trees (placed or whole) differ,
+    compared on the card."""
+    from corrosion_tpu_torch.parallel import mesh as mesh_mod
+    from corrosion_tpu_torch.sim.checkpoint import _flatten
+
+    fa, fb = _flatten(mesh_mod.assemble(a)), _flatten(mesh_mod.assemble(b))
+    assert [p for p, _, _ in fa] == [p for p, _, _ in fb], "state trees differ in structure"
+    return [p for (p, x, _), (_, y, _) in zip(fa, fb) if not torch.equal(x, y.to(x.device))]
+
+
+def _curve_diff(a: dict, b: dict, skip=()) -> list:
+    return [k for k in a if k not in skip and not np.array_equal(a[k], b[k])]
+
+
+def _timed(fn):
+    """``fn()`` between two CUDA events: (its result, ms)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def sharded_runs(onehot, gossip, kept: dict, phase: int = 13) -> dict:
+    """The shard driver and the elastic plane on the card, each path's
+    launch counts reset just before it and read just after:
+
+    (a) full-width ``wan_100k()`` on a (2, 2) mesh of card positions,
+        ``SHARDED_ROUNDS`` rounds in calls of 12: curves equal phase 5's
+        first rounds (but the xshard keys), the final state equals phase
+        5's at that round, the exchange bytes equal ``traffic_model``,
+        each position holds the predicted bytes;
+    (b) ``anywrite_sparse`` at phase 4's n=2000 on 4 positions == the
+        unsharded card run;
+    (c) the merge_10k burst at n=2560 (legacy delivery) on 2 positions ==
+        the unsharded card run;
+    (d) the elastic drills on the card (``ELASTIC_DRILLS``): each equal to
+        its uninterrupted run, the preemption's recovery machinery fired,
+        the budget gate's survival fields ok, each report equal to the
+        CPU's.
+
+    Returns the launch counts by path."""
+    from corrosion_tpu_torch import parallel
+    from corrosion_tpu_torch.elastic import report, scenarios
+    from corrosion_tpu_torch.models import baselines
+    from corrosion_tpu_torch.obs import epidemic
+    from corrosion_tpu_torch.parallel import mesh as mesh_mod
+    from corrosion_tpu_torch.sim import engine, sparse_engine
+    from corrosion_tpu_torch.sim.telemetry import XSHARD_CURVE_KEYS
+
+    t_phase = time.perf_counter()
+    by_path = {}
+
+    # (a) wan_100k at full width on a (2, 2) mesh.
+    cfg, topo, sched = build_path("wan_100k")
+    mesh = parallel.make_wan_mesh(2, 2)
+    log(f"phase {phase}: {mesh!r}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    onehot.reset_launches()
+    gossip.reset_host_syncs()
+    state, parts, elapsed = None, [], 0.0
+    for r0 in range(0, SHARDED_ROUNDS, 12):
+        (state, curves), ms = _timed(lambda: parallel.simulate_sharded(
+            cfg, topo, sched.slice(r0, r0 + 12), mesh, seed=0, state=state
+        ))
+        elapsed += ms
+        parts.append(curves)
+    by_path["wan_100k_sharded"] = launches = dict(onehot.LAUNCHES)
+    syncs = dict(gossip.HOST_SYNCS)
+    peak = torch.cuda.max_memory_allocated()
+    curves = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    missing = [k for k in PATH_KERNELS["wan_100k_sharded"] if launches[k] == 0]
+    assert not missing, f"wan_100k sharded: kernels never launched: {missing}"
+    bad = _curve_diff(kept["curves"], curves, XSHARD_CURVE_KEYS)
+    assert not bad, f"wan_100k sharded: curves differ from phase 5's in {bad}"
+    bad = _same_on_card(state, kept["state"])
+    assert not bad, f"wan_100k sharded: final state differs from phase 5's in {bad}"
+    ok, problems = epidemic.xshard_model_check(curves, cfg.gossip, mesh)
+    assert ok, problems
+    tm = parallel.traffic_model(cfg.gossip, mesh)
+    per = parallel.per_device_state_bytes(state)
+    predicted = mesh_mod.predicted_per_device_bytes(
+        state, mesh_mod.cluster_state_specs(state, mesh), mesh
+    )
+    assert sorted(per) == list(range(mesh.size)) and set(per.values()) == {predicted}, per
+    whole = sum(x.numel() * x.element_size() for x in mesh_mod.tree_leaves(mesh_mod.assemble(state)))
+    log(f"phase {phase}: wan_100k N={cfg.n_nodes} on {mesh.size} positions, {SHARDED_ROUNDS} "
+        f"rounds: {elapsed / SHARDED_ROUNDS:.1f} ms/round sharded against "
+        f"{kept['ms'] / SHARDED_ROUNDS:.1f} unsharded (phase 5, CUDA events; all positions share "
+        f"one card, so no speed claim), peak memory {peak / 2**30:.2f} GiB; curves equal phase "
+        f"5's first {SHARDED_ROUNDS} rounds, final state equal leaf for leaf; exchange bytes a "
+        f"round ici {curves['xshard_bytes_ici'][0]:.0f}, dcn {curves['xshard_bytes_dcn'][0]:.0f} "
+        f"== traffic_model ({tm['xshard_bytes_ici']:.0f}, {tm['xshard_bytes_dcn']:.0f}); state "
+        f"bytes a position {predicted} == predicted ({predicted / whole:.4f} of the whole "
+        f"{whole}); launches {json.dumps(launches)}; host syncs {json.dumps(syncs)}")
+    del state, parts, kept["state"]
+
+    # (b) anywrite_sparse at n=2000 on 4 positions.
+    cfg, topo, sched = baselines.anywrite_sparse(device="cuda", **SPARSE_SMALL)
+    onehot.reset_launches()
+    got, ms = _timed(lambda: parallel.simulate_sparse_sharded(cfg, topo, sched, mesh, seed=0))
+    by_path["anywrite_sparse_sharded"] = launches = dict(onehot.LAUNCHES)
+    want, ms_whole = _timed(lambda: sparse_engine.simulate_sparse(cfg, topo, sched, seed=0,
+                                                                  device="cuda"))
+    missing = [k for k in PATH_KERNELS["anywrite_sparse_sharded"] if launches[k] == 0]
+    assert not missing, f"anywrite_sparse sharded: kernels never launched: {missing}"
+    bad = _same_on_card(tuple(got[:3]), tuple(want[:3]))
+    bad += _curve_diff(want[3], got[3], XSHARD_CURVE_KEYS)
+    assert not bad, f"anywrite_sparse sharded differs from the unsharded card run in {bad}"
+    assert {k: v for k, v in got[4].items() if k != "resume"} == \
+           {k: v for k, v in want[4].items() if k != "resume"}
+    ok, problems = epidemic.xshard_model_check(got[3], cfg.gossip, mesh)
+    assert ok, problems
+    rounds = len(got[3]["need"])
+    log(f"phase {phase}: anywrite_sparse n={cfg.n_nodes} on {mesh.size} positions, {rounds} "
+        f"rounds == the unsharded card run ({ms / rounds:.1f} against {ms_whole / rounds:.1f} "
+        f"ms/round); exchange bytes a round ici {got[3]['xshard_bytes_ici'][0]:.0f}, dcn "
+        f"{got[3]['xshard_bytes_dcn'][0]:.0f} == traffic_model; launches {json.dumps(launches)}")
+    del got, want
+
+    # (c) the merge_10k burst at n=2560 (legacy delivery) on 2 positions.
+    cfg, topo, sched = baselines.merge_10k(device="cuda", n=2560, rounds=48)
+    sched = _burst(sched, engine.Schedule)
+    mesh2 = parallel.make_mesh(2)
+    onehot.reset_launches()
+    (final, curves), ms = _timed(lambda: parallel.simulate_sharded(
+        cfg, topo, sched, mesh2, seed=0, max_chunk=24
+    ))
+    by_path["merge_10k_sharded"] = launches = dict(onehot.LAUNCHES)
+    (whole, want), ms_whole = _timed(lambda: engine.simulate(
+        cfg, topo, sched, seed=0, max_chunk=24, device="cuda"
+    ))
+    missing = [k for k in PATH_KERNELS["merge_10k_sharded"] if launches[k] == 0]
+    assert not missing, f"merge_10k sharded: kernels never launched: {missing}"
+    bad = _same_on_card(final, whole) + _curve_diff(want, curves, XSHARD_CURVE_KEYS)
+    assert not bad, f"merge_10k sharded differs from the unsharded card run in {bad}"
+    ok, problems = epidemic.xshard_model_check(curves, cfg.gossip, mesh2)
+    assert ok, problems
+    log(f"phase {phase}: merge_10k burst n={cfg.n_nodes} (legacy delivery) on {mesh2.size} "
+        f"positions, {sched.rounds} rounds == the unsharded card run ({ms / sched.rounds:.1f} "
+        f"against {ms_whole / sched.rounds:.1f} ms/round); exchange bytes a round ici "
+        f"{curves['xshard_bytes_ici'][0]:.0f}; launches {json.dumps(launches)}")
+    del final, whole
+
+    # (d) the elastic drills, on the card and then on the CPU.
+    ckpt = REPO / "build" / "elastic"
+    onehot.reset_launches()
+    t0 = time.perf_counter()
+    card = {n: scenarios.run_scenario(n, checkpoint_dir=str(ckpt / "cuda" / n), device="cuda")
+            for n in ELASTIC_DRILLS}
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    by_path["elastic"] = launches = dict(onehot.LAUNCHES)
+    t0 = time.perf_counter()
+    cpu = {n: scenarios.run_scenario(n, checkpoint_dir=str(ckpt / "cpu" / n), device="cpu")
+           for n in ELASTIC_DRILLS}
+    cpu_s = time.perf_counter() - t0
+    missing = [k for k in PATH_KERNELS["elastic"] if launches[k] == 0]
+    assert not missing, f"elastic drills: kernels never launched: {missing}"
+    for n in ELASTIC_DRILLS:
+        rep = card[n]
+        assert rep["ok"] and rep["bit_identical"] and rep["reconcile"]["ok"], (n, rep["mismatches"])
+        walls = rep.pop("wall_s"), cpu[n].pop("wall_s")
+        assert rep == cpu[n], f"{n}: the card's report differs from the CPU's"
+        rep["wall_s"] = walls[0]
+    mach = card["preempt_dense_churn"]["machinery"]
+    assert mach["fired"] and mach["poison_changed"] and mach["replay_identical"], mach
+    budget = json.loads((REPO / "bench_budget.json").read_text())["elastic"]
+    # The survival fields only: the budget's wall ceilings are the CPU lane's.
+    gate = report.check_elastic_budget(
+        {"scenarios": list(card.values())},
+        dict(budget, scenarios={n: {} for n in ELASTIC_DRILLS}),
+    )
+    assert gate["ok"], gate["breaches"]
+    log(f"phase {phase}: elastic drills {', '.join(ELASTIC_DRILLS)} on the card: each equal "
+        f"to its uninterrupted run and its report equal to the CPU's; preempt machinery "
+        f"{json.dumps(mach)}; budget gate ok on the survival fields; card {card_s:.1f} s, CPU "
+        f"{cpu_s:.1f} s; walls on the card "
+        f"{json.dumps({n: round(report.wall_total(card[n]), 2) for n in ELASTIC_DRILLS})}; "
+        f"launches {json.dumps(launches)}")
+    log(f"phase {phase}: {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def kernel_rows(measured: list, by_path: dict) -> list:
     """The ``kernels`` line: one entry per kernel from phase 3's
     measurements and the main paths' launch counts."""
@@ -1438,6 +1737,13 @@ def main() -> int:
     log(f"phase 1: {smi} | torch: {kind} | torch {torch.__version__} cuda {torch.version.cuda}")
     torch.cuda.set_device(0)
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        log(f"chip_smoke: {what} took {now - laps[-1]:.1f} s ({now - t_start:.1f} s in all)")
+        laps.append(now)
+
     build_s = cuda_build.build(verbose=True)
     t_load = time.perf_counter()
     lib = cuda_build.load()
@@ -1447,16 +1753,24 @@ def main() -> int:
     measured = check_kernels(onehot, "cuda")
     check_tie_rules()
     check_small_runs(onehot, gossip)
-    by_path = {
-        path: full_run(onehot, gossip, phase, path)
-        for phase, path in (
-            (5, "wan_100k"), (6, "merge_10k"), (7, "anywrite_sparse"), (8, "wan_100k_adaptive"),
-        )
-    }
+    lap("phases 3-4")
+    by_path, kept = {}, {}
+    for phase, path in (
+        (5, "wan_100k"), (6, "merge_10k"), (7, "anywrite_sparse"), (8, "wan_100k_adaptive"),
+    ):
+        by_path[path] = full_run(onehot, gossip, phase, path,
+                                 keep=kept if path == "wan_100k" else None)
+        lap(f"phase {phase}")
     by_path["geo_10k"] = geo_run(onehot, gossip)
+    lap("phase 9")
     by_path["anti_entropy_chunks"] = chunk_runs(onehot, gossip)
+    lap("phase 10")
     by_path["mixed_storm"] = mixed_run(onehot, gossip)
+    lap("phase 11")
     by_path["consumers"] = consumers(onehot)
+    lap("phase 12")
+    by_path.update(sharded_runs(onehot, gossip, kept))
+    lap("phase 13")
     rows = kernel_rows(measured, by_path)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build to the end")
     print(json.dumps({"kernels": rows}), flush=True)
@@ -1468,4 +1782,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cpu-small-runs"]:
+        sys.exit(cpu_small_runs(sys.argv[2]))
     sys.exit(main())

@@ -10,6 +10,12 @@ holds a cluster's ``data`` and ``swim`` beside ``chunks``). These helpers
 turn such dicts into the port's tensors and back, without importing
 JAX: the caller flattens the reference's NamedTuples (``_asdict``) and
 hands over numpy arrays.
+
+Across meshes: ``placed_state_from_numpy`` puts a reference state (a
+sharded array read whole) on a port mesh, ``to_numpy`` reads a placed
+state back whole, ``mesh_dims``/``mesh_from_dims`` carry a mesh's layout
+either way, and ``load_placed_checkpoint`` resumes a ``corro-checkpoint/1``
+file written on any mesh, by either package, on a port mesh.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ from corrosion_tpu_torch.ops.intervals import IntervalSet
 from corrosion_tpu_torch.ops.sparse_writers import SparseState
 from corrosion_tpu_torch.ops.swim import SwimState
 from corrosion_tpu_torch.ops.swim_sparse import SparseSwimState
+from corrosion_tpu_torch.parallel import mesh as mesh_mod
+from corrosion_tpu_torch.parallel.mesh import Placed, mesh_dims, mesh_from_dims  # noqa: F401
 from corrosion_tpu_torch.sim.engine import ClusterState
 from corrosion_tpu_torch.sim.mixed_engine import MixedState
 
@@ -114,13 +122,51 @@ def topology_from_numpy(d: dict, device=None) -> Topology:
 
 
 def to_numpy(tree, name: str = ""):
-    """Any of the port's NamedTuples (nested) -> nested dict of numpy
-    arrays in the reference's dtypes (u32, i32, bool)."""
+    """Any of the port's NamedTuples (nested, or in tuples), plain or
+    placed over a mesh -> nested dicts of whole numpy arrays in the
+    reference's dtypes (u32, i32, bool)."""
     if tree is None:
         return None
     if hasattr(tree, "_fields"):
         return {f: to_numpy(getattr(tree, f), f) for f in tree._fields}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_numpy(t, name) for t in tree)
+    if isinstance(tree, Placed):
+        tree = tree.whole("cpu")
     a = tree.detach().cpu().numpy()
     if a.dtype == np.bool_:
         return a
     return a.astype(np.uint32 if name in U32_FIELDS else np.int32)
+
+
+_FROM_NUMPY = {
+    "cluster": (cluster_state_from_numpy, mesh_mod.cluster_state_specs),
+    "sparse": (sparse_state_from_numpy, mesh_mod.sparse_state_specs),
+    "chunk": (chunk_state_from_numpy, mesh_mod.node_major_specs),
+    "mixed": (mixed_state_from_numpy, mesh_mod.mixed_state_specs),
+}
+
+
+def placed_state_from_numpy(d: dict, mesh, kind: str = "cluster"):
+    """A reference state as nested numpy dicts (``kind``: cluster, sparse,
+    chunk or mixed) placed over the port's ``mesh`` under the spec tree
+    of that state."""
+    build, specs = _FROM_NUMPY[kind]
+    state = build(d, mesh.home)
+    return mesh_mod.place(state, specs(state, mesh), mesh)
+
+
+def load_placed_checkpoint(path: str, cfg, n_samples: int, mesh, *,
+                           expect_fingerprint: str | None = None):
+    """Resume a dense ``corro-checkpoint/1`` state written on any mesh by
+    either package: the state placed over the port's ``mesh``, and the
+    file's header (whose ``mesh`` names the mesh it was written on)."""
+    from corrosion_tpu_torch.sim import checkpoint
+
+    state = checkpoint.load_state(
+        path, cfg, n_samples, expect_fingerprint=expect_fingerprint, device=mesh.home
+    )
+    return (
+        mesh_mod.shard_cluster_state(state, mesh),
+        checkpoint.read_header(path),
+    )

@@ -21,7 +21,9 @@ redundant, and a rumor-age histogram of first deliveries on the
   ``vis_count`` and useful + dup == ``msgs`` every round, or the report
   refuses to stand (``checks_ok``);
 - ``oracle_coverage`` buckets a live cluster's delivery records on the
-  same axis.
+  same axis;
+- ``xshard_model_check`` holds a sharded run's measured exchange bytes to
+  ``parallel.traffic_model``.
 
 ``diff_reports`` flags regressions between two reports.
 """
@@ -38,6 +40,7 @@ from corrosion_tpu_torch.sim.telemetry import (
     PROP_REGIONS,
     RUMOR_AGE_EDGES,
     RUMOR_AGE_KEYS,
+    XSHARD_CURVE_KEYS,
     curve_array,
     replay_flight,
 )
@@ -503,6 +506,24 @@ def publish_epidemic(registry, rep: dict, engine: str | None = None) -> None:
       "wasted-push fraction of delivered copies (-1 = no traffic)")
     g("coverage_events", rep.get("coverage_events", 0),
       "first deliveries the rumor-age histogram bucketed")
+
+
+def xshard_model_check(curves: dict, cfg_gossip, mesh) -> tuple[bool, list]:
+    """A sharded run's measured per-round exchange bytes must equal
+    ``parallel.shard_driver.traffic_model``'s arithmetic exactly, every
+    round. Returns (ok, problems)."""
+    from corrosion_tpu_torch.parallel.shard_driver import traffic_model
+
+    tm = traffic_model(cfg_gossip, mesh)
+    problems = []
+    for key in XSHARD_CURVE_KEYS:
+        got = np.asarray(_arr(curves, key), dtype=np.float64)
+        want = float(tm[key])
+        if not np.array_equal(got, np.full_like(got, want)):
+            problems.append(
+                f"{key}: measured {got[got != want][:4].tolist()}... != model {want}"
+            )
+    return not problems, problems
 
 
 def oracle_coverage(records: dict, round_ms: float = 500.0) -> dict:

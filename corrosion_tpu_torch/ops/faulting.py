@@ -4,7 +4,8 @@ corrosion_tpu/ops/faulting.py).
 ``apply_loss``: receiver-side independent drop; a static config
 probability and a dynamic per-round one compose as independent processes
 (``p = a + b - a*b``). With no loss configured the mask passes through and
-no random numbers are drawn — the reference's static zero-cost skip.
+no random numbers are drawn — the reference's static zero-cost skip. A
+shard body draws at the full row count and keeps its rows (``full_rows``).
 
 ``wipe_nodes``: crash-with-state-wipe on the data plane; the membership
 twin is ``swim.apply_churn(..., wipe=...)``.
@@ -17,12 +18,20 @@ import torch
 from corrosion_tpu_torch import rng as rng_mod
 
 
-def apply_loss(key, ok, static_prob: float, dyn_prob=None):
+def apply_loss(key, ok, static_prob: float, dyn_prob=None, full_rows=None):
     """Drop each deliverable message with the combined loss probability.
-    Returns ``(ok', lost_count)``."""
+    Returns ``(ok', lost_count)``. ``full_rows`` = ``(n_total, row_start)``
+    is a shard body's: the mask is drawn at the full leading-row shape and
+    this shard's rows are sliced out, so the drops do not depend on the
+    mesh."""
     if static_prob <= 0.0 and dyn_prob is None:
         return ok, torch.zeros((), dtype=torch.int64, device=ok.device)
-    u = rng_mod.uniform(key, tuple(ok.shape))
+    if full_rows is None:
+        u = rng_mod.uniform(key, tuple(ok.shape))
+    else:
+        n_total, row_start = full_rows
+        u = rng_mod.uniform(key, (n_total,) + tuple(ok.shape[1:]))
+        u = u[row_start : row_start + ok.shape[0]]
     p = torch.tensor(static_prob, dtype=torch.float32, device=ok.device)
     if dyn_prob is not None:
         d = dyn_prob.to(torch.float32)

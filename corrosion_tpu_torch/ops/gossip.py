@@ -1,7 +1,7 @@
 """Changeset broadcast + anti-entropy sync (the data plane), in PyTorch.
 
 Counterpart of corrosion_tpu/ops/gossip.py for the dense engine's main
-path, unsharded: both delivery paths of ``_broadcast_round`` (the fast
+path: both delivery paths of ``_broadcast_round`` (the fast
 one-hot path for W <= ``_FAST_MAX_WRITERS`` under fresh per-holder
 budgets, and the legacy sort+scatter path for wider writer axes, stale
 re-admission or inherited budgets), the anti-entropy sessions of
@@ -10,7 +10,9 @@ re-admission or inherited budgets), the anti-entropy sessions of
 reads (``visibility``, ``total_need``, ``staleness``, ``queue_backlog``).
 ``track_writer_ids`` carries each queued version's global writer id beside
 its slot, for the rotating writer slots of ``ops/sparse_writers.py``.
-The module docstring of the reference describes the model.
+Under a ``ShardCtx`` the broadcast round is one mesh position's body of
+the explicit shard driver (``parallel/shard_driver.py``). The module
+docstring of the reference describes the model.
 
 The adaptive-dissemination plane rides the same rounds, each mechanism
 off by default: the duplicate-receipt rumor kill (``rumor_kill_k``, with
@@ -218,6 +220,31 @@ def make_topology(
         sync_phase=t(phase),
         sync_cohorts=None if cohorts is None else t(cohorts),
     )
+
+
+class ShardCtx(NamedTuple):
+    """Per-shard context of the explicit shard driver
+    (``parallel/shard_driver.py``; reference ``gossip.ShardCtx``).
+
+    With a context, ``_broadcast_round`` is the round body of one mesh
+    position: ``data`` holds only that position's row block, while ``topo``,
+    ``alive``, ``partition``, ``writes`` and ``loss`` are the replicated
+    full tables and the pending-queue tables arrive gathered (the round's
+    one batched exchange). Each cross-shard sum (the reference's
+    ``lax.psum``) is a ``yield`` of this position's partials, which the
+    driver answers with their sum over every position. Random draws whose
+    shape would depend on the shard are made at the full shape and
+    row-sliced, so a sharded round equals the unsharded one bit for bit.
+    The unsharded ``broadcast_round`` is the same body on a mesh of one
+    position (``row_start`` 0, the block's own queue tables).
+    """
+
+    axes: tuple  # mesh axis names, outer -> inner
+    row_start: int  # global node index of this position's first row
+    q_writer: torch.Tensor  # [N, Q] gathered queue tables
+    q_ver: torch.Tensor
+    q_tx: torch.Tensor
+    q_gw: torch.Tensor | None  # track_writer_ids configs only
 
 
 class DataState(NamedTuple):
@@ -666,19 +693,62 @@ def _legacy_delivery(data, head, contig, cells, m_w, m_v, m_tx, m_gw, m_ok, k_in
     )
 
 
+def _raise_writer_cols_(plane, w_rows, head) -> None:
+    """``plane[w_rows[w], w] = max(., head[w])`` in place for every writer
+    w; a row index past the plane's rows (a writer hosted on another
+    shard) drops out, as the reference's ``mode="drop"`` scatter. Each
+    writer owns its column, so the clamped rows of dropped writers write
+    back their own values."""
+    n, w = plane.shape
+    wi = torch.arange(w, device=plane.device)
+    rows = torch.clamp(w_rows, max=n - 1)
+    cur = plane[rows, wi]
+    plane[rows, wi] = torch.where(w_rows < n, torch.maximum(cur, head), cur)
+
+
 def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
-    """One broadcast-plane round (reference ``_broadcast_round``,
-    unsharded): local writes, source sampling, queue gather, loss, the
-    row sort, delivery reductions, window admission, the CRDT merge and
-    the queue rebuild, with the adaptive-dissemination switches where the
-    reference has them. Returns (DataState, stats)."""
+    """One broadcast-plane round, unsharded (reference ``broadcast_round``):
+    local writes, source sampling, queue gather, loss, the row sort,
+    delivery reductions, window admission, the CRDT merge and the queue
+    rebuild, with the adaptive-dissemination switches where the reference
+    has them. Returns (DataState, stats).
+
+    It is the shard body on a mesh of one position: the whole state is the
+    block, and each cross-shard sum is the body's own partials."""
+    shard = ShardCtx(axes=(), row_start=0, q_writer=data.q_writer, q_ver=data.q_ver,
+                     q_tx=data.q_tx, q_gw=data.q_gw)
+    body = _broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss, shard=shard)
+    partials = None
+    try:
+        while True:
+            partials = body.send(partials)
+    except StopIteration as done:
+        return done.value
+
+
+def _broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss, shard):
+    """The broadcast round's body (reference ``_broadcast_round``): a
+    generator that returns (DataState, stats). It is one mesh position's
+    body over its row block (``shard``) and yields a tuple of partials at
+    each cross-shard sum (the rumor kill's sender feedback, the pulled
+    counts, the round's stats), expecting their sum over every position
+    back."""
     track = cfg.track_writer_ids
     if track and topo.writer_ids is None:
         raise ValueError("track_writer_ids requires topo.writer_ids")
     w_count, q_cap = cfg.n_writers, cfg.queue
+    n_total = cfg.n_nodes
+    # Receiver rows owned by this body: the position's block (every
+    # delivery tensor below is [n, ...] and the node vectors are read at
+    # its rows); the queue tables are the gathered [N, Q] ones.
     n = data.contig.shape[0]
     dev = data.contig.device
-    nodes = torch.arange(n, device=dev)
+    rs = shard.row_start
+    rows = slice(rs, rs + n)
+    region_r, rstart_r = topo.region[rows], topo.region_start[rows]
+    rsize_r, won, alive_r = topo.region_size[rows], topo.writer_of_node[rows], alive[rows]
+    qf_w, qf_v, qf_t, qf_g = shard.q_writer, shard.q_ver, shard.q_tx, shard.q_gw
+    nodes = rs + torch.arange(n, device=dev)  # global node id of each row
     keys = rng_mod.split(rng, 3)
     k_near, k_far, k_loss = keys[0], keys[1], keys[2]
 
@@ -687,19 +757,21 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
         topo.writer_nodes
     ].to(torch.int64)
     head = data.head + writes
-    wi = torch.arange(w_count, device=dev)
+    # Writers hosted on other shards drop out of the scatters.
+    w_rows = torch.where(
+        (topo.writer_nodes >= rs) & (topo.writer_nodes < rs + n), topo.writer_nodes - rs, n
+    )
     contig = data.contig.clone()
-    contig[topo.writer_nodes, wi] = torch.maximum(contig[topo.writer_nodes, wi], head)
+    _raise_writer_cols_(contig, w_rows, head)
     contig_before = contig
 
     mw = cfg.max_writes_per_round
-    won = topo.writer_of_node
     won_safe = torch.clamp(won, min=0)
     nw = torch.where(won >= 0, writes[won_safe], 0)
     head_old_n = torch.where(won >= 0, data.head[won_safe], 0)
     ar_mw = torch.arange(mw, device=dev)
     new_ver = head_old_n[:, None] + 1 + ar_mw[None, :]
-    new_valid = (ar_mw[None, :] < nw[:, None]) & alive[:, None]
+    new_valid = (ar_mw[None, :] < nw[:, None]) & alive_r[:, None]
     new_writer = won[:, None].expand(n, mw)
     # Under rotating slots a node's global writer id IS its node id, so the
     # writer's own enqueue needs no table lookup.
@@ -718,15 +790,15 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
     f = cfg.fanout
     if f > 0:
         # ---- 2. source selection -------------------------------------------
-        near_off = rng_mod.randint(k_near, (n, cfg.fanout_near), 0, 1 << 30)
-        far = rng_mod.randint(k_far, (n, cfg.fanout_far), 0, n)
-        near = topo.region_start[:, None] + near_off % torch.clamp(
-            topo.region_size[:, None], min=1
-        )
+        # Drawn at the full [N, F] shape and row-sliced: every shard draws
+        # what the unsharded round draws.
+        near_off = rng_mod.randint(k_near, (n_total, cfg.fanout_near), 0, 1 << 30)[rows]
+        far = rng_mod.randint(k_far, (n_total, cfg.fanout_far), 0, n_total)[rows]
+        near = rstart_r[:, None] + near_off % torch.clamp(rsize_r[:, None], min=1)
         src = torch.cat([near, far], dim=1)  # [N, F]
         link_ok = (
-            ~partition[topo.region[:, None], topo.region[src]]
-            & alive[:, None]
+            ~partition[region_r[:, None], topo.region[src]]
+            & alive_r[:, None]
             & alive[src]
             & (src != nodes[:, None])
         )
@@ -734,7 +806,7 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
         if cfg.pull_switch_age > 0 and cfg.fanout_far > 0:
             # ---- (b) push->pull: saturated receivers drop their far slots
             # and escalate to a pull in this round's sync stage.
-            sat = _queue_saturation(data.q_writer, data.q_ver, head, alive, cfg)
+            sat = _queue_saturation(data.q_writer, data.q_ver, head, alive_r, cfg)
             link_ok = torch.cat(
                 [link_ok[:, : cfg.fanout_near], link_ok[:, cfg.fanout_near :] & ~sat[:, None]],
                 dim=1,
@@ -742,8 +814,8 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
             n_pulls = sat.sum()
         # ---- 3. delivery ---------------------------------------------------
         kk = f * q_cap
-        m_w = data.q_writer[src].reshape(n, kk)
-        m_v = data.q_ver[src].reshape(n, kk)
+        m_w = qf_w[src].reshape(n, kk)
+        m_v = qf_v[src].reshape(n, kk)
         # The global writer id of each message rides the delivery sorts as
         # a payload: the port's int64 sort keys have no room for it, and
         # need none. Within an epoch a slot has exactly one global writer,
@@ -752,12 +824,14 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
         # among invalid messages may order differently from the reference's
         # sort, but no mask admits them and the queue rebuild keeps none of
         # them (the old queue's own empty entries fill its tail first).
-        m_gw = data.q_gw[src].reshape(n, kk) if track else None
+        m_gw = qf_g[src].reshape(n, kk) if track else None
         m_ok = (
             link_ok[:, :, None].expand(n, f, q_cap).reshape(n, kk) & (m_w >= 0)
         )
-        dyn_loss = None if loss is None else loss[topo.region][:, None]
-        m_ok, n_lost = faulting.apply_loss(k_loss, m_ok, cfg.loss_prob, dyn_loss)
+        dyn_loss = None if loss is None else loss[region_r][:, None]
+        m_ok, n_lost = faulting.apply_loss(
+            k_loss, m_ok, cfg.loss_prob, dyn_loss, full_rows=(n_total, rs)
+        )
         n_msgs = m_ok.sum()
         if cfg.rumor_kill_k > 0:
             # ---- (a) duplicate receipts, counted per (node, slot) against
@@ -768,7 +842,12 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
             hits = _duplicate_hits(m_ok, m_w, m_v, data.q_writer, data.q_ver)
             cw = onehot.rowgather(contig_before, torch.clamp(m_w, min=0))
             red = (m_ok & (m_v <= cw)).reshape(n * f, q_cap).to(torch.int64)
-            hits = hits.index_add_(0, src.reshape(n * f), red)
+            # Sources live on any shard: the feedback scatters into the
+            # full [N, Q] plane, sums across shards, and this shard keeps
+            # its rows (the one cross-shard reduction of the kill).
+            fb = torch.zeros((n_total, q_cap), dtype=torch.int64, device=dev)
+            (fb,) = yield (fb.index_add_(0, src.reshape(n * f), red),)
+            hits = hits + fb[rows]
         k_in = cfg.rebroadcast_intake or cfg.fanout * 2
         fast = (
             cfg.rebroadcast_fresh_budget
@@ -780,7 +859,7 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
             out = _fast_delivery(data, head, contig, cells, m_w, m_v, m_gw, m_ok, k_in, cfg)
         else:
             # ---- 3b. legacy sort+scatter delivery --------------------------
-            m_tx = data.q_tx[src].reshape(n, kk)
+            m_tx = qf_t[src].reshape(n, kk)
             out = _legacy_delivery(
                 data, head, contig, cells, m_w, m_v, m_tx, m_gw, m_ok, k_in, cfg
             )
@@ -790,12 +869,16 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
         if cfg.prop_observe:
             prop_useful = prop_fresh.sum()
             prop_link = _region_link_matrix(
-                m_ok, topo.region, topo.region[src], q_cap, partition.shape[0]
+                m_ok, region_r, topo.region[src], q_cap, partition.shape[0]
             )
         # A source's budgets burn when at least one receiver pulled it.
+        # Sources live on any shard: a shard counts into the full vector,
+        # sums across shards and keeps its rows.
         pulled = torch.bincount(
-            torch.where(link_ok, src, n).reshape(-1), minlength=n + 1
-        )[:n]
+            torch.where(link_ok, src, n_total).reshape(-1), minlength=n_total + 1
+        )[:n_total]
+        (pulled,) = yield (pulled,)
+        pulled = pulled[rows]
         sent_any = pulled > 0
     else:
         n_msgs = zero
@@ -816,7 +899,7 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
 
     # Each writer's own column of seen rises to its new head. max commutes,
     # so this can follow the delivery reductions, which return a new plane.
-    seen[topo.writer_nodes, wi] = torch.maximum(seen[topo.writer_nodes, wi], head)
+    _raise_writer_cols_(seen, w_rows, head)
 
     # ---- 5. queue rebuild --------------------------------------------------
     occ = data.q_writer >= 0
@@ -858,10 +941,24 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
     q_dup = out[-1] if cfg.rumor_kill_k > 0 else data.q_dup
     q_writer = torch.where(keep, q_writer, -1)
 
+    # One coalesced cross-shard sum of the round's stats, with the
+    # window-live flag as a count (> 0 is the global OR) and, under
+    # prop_observe, the propagation counters. The u32 counters wrap as the
+    # reference's u32 psum does.
+    part = ((contig - contig_before).sum(), n_msgs, n_merges, n_degraded, n_lost,
+            oo_any_new.to(torch.int64))
+    if cfg.prop_observe:
+        part += (prop_useful, prop_link, n_kills, n_pulls)
+    total = yield part
+    applied_b, n_msgs, n_merges, n_degraded, n_lost, oo_cnt = total[:6]
+    applied_b, n_merges = applied_b & MASK, n_merges & MASK
+    oo_any_new = oo_cnt > 0
+    if cfg.prop_observe:
+        prop_useful, prop_link, n_kills, n_pulls = total[6:]
     stats = {
-        "applied_broadcast": (contig - contig_before).sum() & MASK,
+        "applied_broadcast": applied_b,
         "msgs": n_msgs,
-        "cell_merges": n_merges & MASK,
+        "cell_merges": n_merges,
         "window_degraded": n_degraded,
         "lost_msgs": n_lost,
     }

@@ -14,8 +14,9 @@ NamedTuple field, ``[0]`` for a tuple item, ``['k']`` for a dict key;
 ``None`` leaves dropped), and a JSON ``__header__`` with the schema,
 kind, config fingerprint, mesh dims and round. Leaves are stored in the
 reference's dtypes (u32, i32, bool: ``interop.to_numpy``) and load back
-into the port's int64 carriers. The fingerprint is a string the caller
-passes; loaders refuse a mismatched one.
+into the port's int64 carriers; a state placed over a mesh saves whole.
+The fingerprint is a string the caller passes; loaders refuse a
+mismatched one.
 """
 
 from __future__ import annotations
@@ -143,8 +144,16 @@ def _check_header(path: str, data, kind: str, expect_fingerprint: str | None) ->
         )
 
 
+def _whole(tree):
+    """A tree whose leaves may be placed per mesh position, as whole
+    tensors (``parallel.mesh.assemble``)."""
+    from corrosion_tpu_torch.parallel.mesh import assemble
+
+    return assemble(tree)
+
+
 def _leaf_arrays(tree) -> dict:
-    flat = _flatten(tree)
+    flat = _flatten(_whole(tree))
     arrays = {f"leaf{i}": _as_reference(leaf, name) for i, (_, leaf, name) in enumerate(flat)}
     arrays["__paths__"] = np.array(json.dumps([p for p, _, _ in flat]).encode())
     return arrays
@@ -178,7 +187,7 @@ def _load_leaves(data, template, what: str, implied: str, hint: str = "",
 
 def save_state(path: str, state: ClusterState, *, fingerprint: str = "", mesh_shape=()) -> None:
     arrays = _leaf_arrays(state)
-    arrays["__header__"] = _header_array("state", fingerprint, mesh_shape, int(state.round))
+    arrays["__header__"] = _header_array("state", fingerprint, mesh_shape, int(_whole(state.round)))
     np.savez_compressed(path, **arrays)
 
 

@@ -130,11 +130,14 @@ def cluster_round(
     kill=None,  # bool[N] churn: processes that die this round
     revive=None,  # bool[N] churn: processes that come back
     wipe=None,  # bool[N] crash-with-state-wipe (needs kill/revive)
+    bcast_fn=None,  # broadcast override (parallel/shard_driver)
 ) -> tuple[ClusterState, dict]:
     """One bulk-synchronous cluster round. Returns the next state and the
     round's stats dict (``ROUND_CURVE_KEYS``). Passing ``kill`` and
     ``revive`` selects the churn branch, whose 5-way key split differs
-    from the churn-free 4-way one, as in the reference."""
+    from the churn-free 4-way one, as in the reference. ``bcast_fn``
+    replaces ``gossip.broadcast_round`` (the shard driver's, whose
+    exchange bytes join the curves)."""
     has_churn = kill is not None
     if (revive is not None) != has_churn:
         raise ValueError("kill and revive masks go together")
@@ -156,8 +159,9 @@ def cluster_round(
 
     # Profiler ranges named like the reference's jax.named_scope blocks
     # (scripts/torch_round_profile.py attributes device time by them).
+    bfn = gossip_ops.broadcast_round if bcast_fn is None else bcast_fn
     with record_function("corro_broadcast"):
-        data, bstats = gossip_ops.broadcast_round(
+        data, bstats = bfn(
             data_pre, topo, alive, partition, writes, k_bcast, cfg.gossip,
             loss=loss,
         )
@@ -222,6 +226,8 @@ def cluster_round(
         queue_backlog=backlog,
         chaos_lost_msgs=bstats["lost_msgs"],
         chaos_wiped=0 if wipe is None else wipe.sum(),
+        xshard_bytes_ici=bstats.get("xshard_bytes_ici", 0),
+        xshard_bytes_dcn=bstats.get("xshard_bytes_dcn", 0),
         **lat_hist,
         **prop_stats,
     )
@@ -240,6 +246,7 @@ def simulate(
     max_chunk: int | None = None,
     telemetry: telemetry_mod.KernelTelemetry | None = None,
     device=None,
+    bcast_fn=None,
 ) -> tuple[ClusterState, dict]:
     """Run ``cluster_round`` over the schedule. Returns the final state and
     per-round curves (numpy arrays of length ``schedule.rounds``, in the
@@ -248,8 +255,10 @@ def simulate(
     with identical results. ``telemetry`` (``KernelTelemetry``) times and
     flushes each piece as a chunk (the whole run is one chunk when
     unchunked) and takes the merged curves at the end; curves and state
-    are the same with it or without. Runs on ``device`` (default CUDA;
-    raises when CUDA is absent and no device is given)."""
+    are the same with it or without. ``bcast_fn`` replaces the broadcast
+    plane's driver (``parallel.make_sharded_broadcast``). Runs on
+    ``device`` (default CUDA; raises when CUDA is absent and no device is
+    given)."""
     device = resolve_device(device)
     start_round = 0 if state is None else int(state.round)
     max_head = (start_round + schedule.rounds) * max(
@@ -269,7 +278,8 @@ def simulate(
             cur = None
 
             def run():
-                return simulate(cfg, topo, part, seed=seed, state=box.pop(), device=device)
+                return simulate(cfg, topo, part, seed=seed, state=box.pop(), device=device,
+                                bcast_fn=bcast_fn)
 
             if telemetry is None:
                 cur, curves = run()
@@ -338,6 +348,7 @@ def simulate(
                 kill=None if kill is None else kill[i],
                 revive=None if revive is None else revive[i],
                 wipe=None if wipe is None else wipe[i],
+                bcast_fn=bcast_fn,
             )
             rows.append(stats)
         return state, telemetry_mod.stack_curves(rows)

@@ -172,6 +172,7 @@ def mixed_round(
     loss=None,  # float32[R] chaos receiver-region loss
     probe_loss=None,  # float32[]
     wipe=None,  # bool[N] crash-with-state-wipe
+    bcast_fn=None,  # broadcast override (parallel/shard_driver)
 ) -> tuple[MixedState, dict]:
     """One composite round: commits, the chunk plane, admission of the
     reassembled big versions, broadcast, SWIM, sync (and the rejoin sync
@@ -234,10 +235,9 @@ def mixed_round(
             data, newly, streams.writer, streams.version, cfg.gossip
         )
 
+    bfn = gossip_ops.broadcast_round if bcast_fn is None else bcast_fn
     with record_function("corro_broadcast"):
-        data, bstats = gossip_ops.broadcast_round(
-            data, topo, alive, part, writes, k_b, cfg.gossip, loss=loss
-        )
+        data, bstats = bfn(data, topo, alive, part, writes, k_b, cfg.gossip, loss=loss)
     with record_function("corro_swim"):
         sw = swim_impl.swim_round(sw, k_sw, state.round, cfg.swim, probe_loss=probe_loss)
     with record_function("corro_sync"):
@@ -304,6 +304,8 @@ def mixed_round(
             queue_backlog=gossip_ops.queue_backlog(data),
             chaos_lost_msgs=(bstats["lost_msgs"] + cstats["lost_msgs"]) & MASK,
             chaos_wiped=0 if wipe is None else wipe.sum(),
+            xshard_bytes_ici=bstats.get("xshard_bytes_ici", 0),
+            xshard_bytes_dcn=bstats.get("xshard_bytes_dcn", 0),
             **telemetry_mod.delivery_latency_hist(lat, newly_vis),
             **prop_stats,
         )
@@ -353,6 +355,7 @@ def simulate_mixed(
     telemetry: telemetry_mod.KernelTelemetry | None = None,
     state: MixedState | None = None,
     device=None,
+    bcast_fn=None,
 ):
     """Run ``mixed_round`` over the schedule. Returns (final, curves).
 
@@ -363,8 +366,9 @@ def simulate_mixed(
     modified): a state whose ``round`` is k continues at absolute round k
     over the schedule's remaining rounds (pass its tail), with round keys
     and the stream commits indexed by k + r, equal to the uninterrupted
-    run. Runs on ``device`` (default CUDA; raises when CUDA is absent and
-    no device is given)."""
+    run. ``bcast_fn`` replaces the version plane's broadcast driver
+    (``parallel.make_sharded_broadcast``). Runs on ``device`` (default
+    CUDA; raises when CUDA is absent and no device is given)."""
     device = resolve_device(device)
     topo = Topology(*(None if x is None else x.to(device) for x in topo))
     if state is None:
@@ -430,6 +434,7 @@ def simulate_mixed(
                     loss=None if loss is None else loss[i],
                     probe_loss=None if probe_loss is None else probe_loss[i],
                     wipe=None if wipe is None else wipe[i],
+                    bcast_fn=bcast_fn,
                 )
                 rows.append(stats)
             return state, telemetry_mod.stack_curves(rows, CURVE_DTYPES)

@@ -208,9 +208,10 @@ class _Planner:
 
 def _sparse_round(st, sw, vr, topo, w_slots, part, kill, revive, r: int, loss,
                   probe_loss, s_slot, s_ver, s_round, base_key,
-                  cfg: SparseClusterConfig, sp: SparseConfig):
+                  cfg: SparseClusterConfig, sp: SparseConfig, bcast_fn=None):
     """One round of the epoch body (reference ``_epoch_scan_impl.body``).
-    Returns (sparse state, swim state, vis_round, stats)."""
+    Returns (sparse state, swim state, vis_round, stats). ``bcast_fn``
+    replaces ``gossip.broadcast_round`` (the shard driver's)."""
     swim_impl = swim_ops.impl(cfg.swim)
     key = rng_mod.fold_in(base_key, r)
     has_churn = kill is not None
@@ -225,10 +226,9 @@ def _sparse_round(st, sw, vr, topo, w_slots, part, kill, revive, r: int, loss,
     alive = sw.alive
     r_t = torch.tensor(r, dtype=torch.int64, device=alive.device)
 
+    bfn = gossip_ops.broadcast_round if bcast_fn is None else bcast_fn
     with record_function("corro_broadcast"):
-        data, bstats = gossip_ops.broadcast_round(
-            st.data, topo, alive, part, w_slots, k_b, cfg.gossip, loss=loss
-        )
+        data, bstats = bfn(st.data, topo, alive, part, w_slots, k_b, cfg.gossip, loss=loss)
     with record_function("corro_swim"):
         # After churn: revive bumps are rejoins, not flaps.
         inc_pre = sw.incarnation
@@ -290,6 +290,8 @@ def _sparse_round(st, sw, vr, topo, w_slots, part, kill, revive, r: int, loss,
         swim_flaps=(sw.incarnation != inc_pre).sum(),
         queue_backlog=backlog,
         chaos_lost_msgs=bstats["lost_msgs"],
+        xshard_bytes_ici=bstats.get("xshard_bytes_ici", 0),
+        xshard_bytes_dcn=bstats.get("xshard_bytes_dcn", 0),
         **lat_hist,
         **prop_stats,
     )
@@ -325,6 +327,7 @@ def simulate_sparse(
     stop_after_epoch: int | None = None,
     telemetry: telemetry_mod.KernelTelemetry | None = None,
     device=None,
+    bcast_fn=None,
 ):
     """Run the epoch-rotated any-node-writes simulation. Returns
     (final SparseState, swim state, vis_round, curves, info). ``resume``
@@ -332,9 +335,10 @@ def simulate_sparse(
     from its next epoch and is never modified; ``stop_after_epoch`` ends
     the run after that epoch. ``telemetry`` (``KernelTelemetry``) treats
     every epoch as a chunk: timed and flushed, the run's curves taken at
-    the end (a resumed run appends with a ``mode="a"`` recorder). Runs on
-    ``device`` (default CUDA; raises when CUDA is absent and no device is
-    given)."""
+    the end (a resumed run appends with a ``mode="a"`` recorder).
+    ``bcast_fn`` replaces the broadcast plane's driver
+    (``parallel.make_sharded_broadcast``). Runs on ``device`` (default
+    CUDA; raises when CUDA is absent and no device is given)."""
     device = resolve_device(device)
     sp = cfg.sparse
     n = cfg.n_nodes
@@ -446,7 +450,7 @@ def simulate_sparse(
                     e0 + i,
                     None if loss is None else loss[i],
                     None if probe is None else probe[i],
-                    s_slot, s_ver, s_round, base_key, cfg, sp,
+                    s_slot, s_ver, s_round, base_key, cfg, sp, bcast_fn,
                 )
                 rows.append(stats)
             return tuple(carry), telemetry_mod.stack_curves(rows)

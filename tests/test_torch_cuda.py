@@ -363,3 +363,48 @@ def test_demo_flight_and_invariant_reports_equal_the_cpu(cuda, tmp_path):
     for eng in ("dense", "sparse"):
         a = invariants.RUNNERS[eng](plan, seed=0, device="cuda").to_dict()
         assert a == invariants.RUNNERS[eng](plan, seed=0, device="cpu").to_dict(), eng
+
+
+# The shard driver on the card: a (2, 2) mesh of card positions (all on
+# one card when there is one) runs the delivery chain once per position
+# through the kernels, and equals the unsharded card run and the CPU's
+# sharded run; its exchange bytes are the traffic model's.
+def test_sharded_dense_run_equals_the_unsharded_card_run(cuda):
+    from corrosion_tpu_torch import interop, parallel
+    from corrosion_tpu_torch.models import baselines
+    from corrosion_tpu_torch.obs import epidemic
+    from corrosion_tpu_torch.sim import engine
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k2: v2 for k, v in tree.items() for k2, v2 in flat(v, f"{prefix}{k}.").items()}
+        return {prefix: tree}
+
+    def build(dev):
+        cfg, topo, sched = baselines.wan_100k(n=256, n_regions=4, n_writers=32, rounds=24,
+                                              samples=16, device=dev)
+        sched.writes[:8, :] = 1
+        return cfg, topo, sched.make_samples(16)
+
+    cfg, topo, sched = build("cuda")
+    mesh = parallel.make_wan_mesh(2, 2)
+    assert all(d.type == "cuda" for d in mesh.devices.flat)
+    onehot.reset_launches()
+    final, curves = parallel.simulate_sharded(cfg, topo, sched, mesh, seed=2)
+    torch.cuda.synchronize()
+    assert all(onehot.LAUNCHES[k] for k in ("rowmax", "rowgather", "delivery_reduce"))
+    assert all(b.device.type == "cuda" for b in final.data.contig.blocks)
+    ok, problems = epidemic.xshard_model_check(curves, cfg.gossip, mesh)
+    assert ok, problems
+    whole, unsharded = engine.simulate(cfg, topo, sched, seed=2, device="cuda")
+    card = flat({"state": interop.to_numpy(final), "curves": curves})
+    want = flat({"state": interop.to_numpy(whole), "curves": unsharded})
+    bad = [k for k in card if "xshard" not in k and not np.array_equal(card[k], want[k])]
+    assert not bad, bad
+    cfg, topo, sched = build("cpu")
+    cpu_final, cpu_curves = parallel.simulate_sharded(
+        cfg, topo, sched, parallel.make_wan_mesh(2, 2, device="cpu"), seed=2
+    )
+    cpu = flat({"state": interop.to_numpy(cpu_final), "curves": cpu_curves})
+    bad = [k for k in card if not np.array_equal(card[k], cpu[k])]
+    assert not bad, bad

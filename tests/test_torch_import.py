@@ -30,7 +30,12 @@ def test_port_imports_no_jax_and_no_reference():
         "for n in names: importlib.import_module(n)\n"
         "assert len(names) >= 30, names\n"
         "assert {'corrosion_tpu_torch.obs.epidemic', 'corrosion_tpu_torch.sim.invariants',\n"
-        "        'corrosion_tpu_torch.sim.checkpoint', 'corrosion_tpu_torch.sim.trace'} <= set(names)\n"
+        "        'corrosion_tpu_torch.sim.checkpoint', 'corrosion_tpu_torch.sim.trace',\n"
+        "        'corrosion_tpu_torch.parallel', 'corrosion_tpu_torch.parallel.mesh',\n"
+        "        'corrosion_tpu_torch.parallel.shard_driver', 'corrosion_tpu_torch.elastic',\n"
+        "        'corrosion_tpu_torch.elastic.report', 'corrosion_tpu_torch.elastic.reshard',\n"
+        "        'corrosion_tpu_torch.elastic.preempt',\n"
+        "        'corrosion_tpu_torch.elastic.scenarios'} <= set(names)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'corrosion_tpu' or m.startswith('corrosion_tpu.'))\n"
         "assert not bad, bad\n"
@@ -47,6 +52,8 @@ def test_entry_points_raise_without_cuda():
         "from corrosion_tpu_torch.models import baselines\n"
         "from corrosion_tpu_torch.sim import chunk_engine, engine, health, invariants, mixed_engine\n"
         "from corrosion_tpu_torch.sim import faults\n"
+        "from corrosion_tpu_torch import parallel\n"
+        "from corrosion_tpu_torch.elastic import scenarios\n"
         "plan = faults.named_scenarios(24, 4, 48)['loss-burst']\n"
         "kw = dict(n=40, n_regions=2, n_writers=4, rounds=4, samples=4)\n"
         "cfg, topo, sched = baselines.wan_100k(device='cpu', **kw)\n"
@@ -61,7 +68,10 @@ def test_entry_points_raise_without_cuda():
         "             lambda: baselines.mixed_storm(**mkw),\n"
         "             lambda: baselines.anti_entropy_chunks(n=16),\n"
         "             lambda: health.record_demo_flight(os.devnull, nodes=32, rounds=16),\n"
-        "             lambda: invariants.run_dense(plan)):\n"
+        "             lambda: invariants.run_dense(plan),\n"
+        "             lambda: parallel.make_mesh(2),\n"
+        "             lambda: parallel.make_wan_mesh(2, 2),\n"
+        "             lambda: scenarios.run_scenario('reshard_dense_4to8')):\n"
         "    try:\n"
         "        call()\n"
         "    except RuntimeError as e:\n"
@@ -73,6 +83,9 @@ def test_entry_points_raise_without_cuda():
         "state, m = chunk_engine.simulate_chunks(ccfg, origin, last, 2, device='cpu')\n"
         "assert state.have.starts.device.type == m['vis'].device.type == 'cpu'\n"
         "final, curves = mixed_engine.simulate_mixed(*mixed, device='cpu')\n"
+        "mesh = parallel.make_wan_mesh(2, 2, device='cpu')\n"
+        "placed, _ = parallel.simulate_sharded(cfg, topo, sched, mesh)\n"
+        "assert all(b.device.type == 'cpu' for b in placed.data.contig.blocks)\n"
         "assert final.chunks.have.starts.device.type == 'cpu'\n"
         "print('ok')\n"
     )
