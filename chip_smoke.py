@@ -9,7 +9,9 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
 2. build the one kernel library from the sources in
    ``corrosion_tpu_torch/csrc``: one nvcc per ``.cu`` (sm_90a) and one
    host-compiler run of ``ops.cpp`` (the ``torch.ops.corro`` operators
-   every kernel launches through), all at once, then one link; load it;
+   every kernel launches through), all at once, then one link; load it.
+   The kernel-library ledger (``obs.ledger``) is installed first, so the
+   build and the load land in its window;
 3. each kernel against its plain PyTorch version on the same CUDA inputs,
    on edge cases (0-width axes, out-of-range indices, bit 31, and widths
    10,000 and 16,384, which take every row kernel's shared-memory opt-in;
@@ -33,8 +35,10 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    such runs taken in turns with the other functions timed at that shape),
    the host's enqueue time a call
    (``host_ms``, beside the library call's ``library_host_ms``),
-   torch.profiler's device time a call (``device_ms``) and
-   the old single-call window (``single_ms``). The row gathers are also
+   the kernel's device time a call from torch.profiler with the CUDA
+   activity alone (``device_ms``, the kernel only) and
+   the old single-call window (``single_ms``); a log line gives the
+   phase's seconds by part (``Split``). The row gathers are also
    timed in each form (``scalar_ms``, ``pairs_ms``), ``table_gather``
    beside a copy of its index (``clone_ms``: its bytes, no gather),
    ``delivery_reduce``
@@ -118,7 +122,18 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    on the card, each equal to its uninterrupted run, the preemption's
    recovery machinery fired, the budget gate ok on its survival fields,
    each report equal to the CPU's. Phase 3 times the kernels at the shard
-   bodies' row blocks.
+   bodies' row blocks;
+14. the bench harness and the device-cost plane: merge_10k in full (seed
+   1) with the ledger armed and ``KernelTelemetry(ledger=, watermarks=)``,
+   its plane attribution and roofline stage costs, the bench report put
+   together as the reference bench does and passed through
+   ``check_bench_invariants`` (``steady_compiles`` 0); the multi-device lane
+   (``measure_multichip``) at D = 1, 2, 4, 8 on card positions, equal
+   across D with exchange bytes equal to ``traffic_model``; the cost model
+   of the four engines at their tiny configs on the card, equal in flops,
+   bytes and kernel calls to the CPU's (built by phase 4's worker); and the
+   capacity curve against the card's memory, its 512-node point exact and
+   its 100,352-node point a placement measured here.
 
 Phases 5 (wan_100k), 10 (anti_entropy_chunks at 1,000 nodes) and 11 pass
 ``telemetry=KernelTelemetry(recorder=FlightRecorder(...), progress=
@@ -127,8 +142,11 @@ must replay to the run's curves, key for key and round for round, and the
 recorder's ``device_step_ms`` is logged beside the CUDA-event ms/round.
 
 The launch counts are reset just before each main-path run (phases 5-8
-and 11, the pairs of runs of phases 9 and 10, phase 12, and each of phase
-13's four paths) and read just after it. Each phase logs its wall time. The last lines are a ``kernels`` JSON line,
+and 11, the pairs of runs of phases 9 and 10, phase 12, each of phase
+13's four paths and each of phase 14's paths: the merge_10k run, its plane
+attribution, the multi-device lane's sharded runs, read at the lane's note
+that its attribution begins, that attribution, and the cost model) and
+read just after it. Each phase logs its wall time. The last lines are a ``kernels`` JSON line,
 the nvidia-smi line, and the result line ``{"ok": true, "device": {...}}``.
 Each kernel's entry carries its launches summed over the paths and,
 under ``by_path``, each path's launches and the times and bound of every
@@ -137,6 +155,7 @@ shape measured on it; its top-level times are those of its first shape.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -193,6 +212,16 @@ PATH_KERNELS = {
     "anywrite_sparse_sharded": ("table_gather", "rowmax", "rowgather", "delivery_reduce"),
     "merge_10k_sharded": ("rowgather_wide", "rowsum", "rowmax", "rowgather", "delivery_reduce"),
     "elastic": ("rowmax", "rowgather", "delivery_reduce", "window_delivery", "table_gather"),
+    # Phase 14: the bench harness (merge_10k's legacy delivery, the
+    # multi-device lane's 512-node fast path and its sparse plane, the
+    # cost model's tiny configs), and the plane attribution after each of
+    # the two runs (the composite steps over the final state).
+    "bench_merge_10k": ("rowgather_wide", "rowsum", "rowmax", "rowgather", "delivery_reduce"),
+    "bench_attribution": ("rowgather_wide", "rowmax", "rowgather", "delivery_reduce"),
+    "bench_multichip": ("rowmax", "rowgather", "delivery_reduce", "window_delivery",
+                        "table_gather"),
+    "bench_multichip_attribution": ("rowmax", "rowgather", "delivery_reduce"),
+    "bench_costs": ("rowmax", "rowgather", "delivery_reduce", "table_gather"),
 }
 # Phase 13 runs wan_100k's first rounds sharded; phase 5 keeps its state
 # and curves there to hold them to.
@@ -238,8 +267,54 @@ def _prefix(key: str) -> str:
     return key[: -len("ms")]  # "ms" -> "", "plain_ms" -> "plain_"
 
 
-def run_ms(fns: dict, inputs: tuple, bytes_per_call: int) -> dict:
-    """Milliseconds a call of each ``fns[key](*inputs)``, four ways:
+class Split:
+    """Seconds of phase 3 by part, summed over its sites (``PARTS``);
+    ``other`` is what the parts leave of the phase's wall: making the
+    inputs, the bounds' touched-word counts, logging."""
+
+    PARTS = ("equality checks", "input copies", "timed event runs", "collector", "single_ms",
+             "device_ms")
+
+    def __init__(self):
+        self.s = dict.fromkeys(self.PARTS, 0.0)
+        self.t0 = time.perf_counter()
+
+    @contextlib.contextmanager
+    def part(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.s[name] += time.perf_counter() - t0
+
+    def line(self) -> str:
+        total = time.perf_counter() - self.t0
+        parts = dict(self.s, other=total - sum(self.s.values()))
+        return f"{total:.1f} s: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+
+
+def kernel_device_ms(fn, run, calls: int) -> tuple[float, int]:
+    """Device ms a call of ``fn`` from torch.profiler with the CUDA
+    activity alone, read from the profiler's own event list: one run of
+    ``calls`` calls while tracing starts (the schedule's warm-up step,
+    discarded), then one recorded run; every device event (kernel, copy,
+    set) of the recorded step counts. Returns (ms, device events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            run(fn, calls)
+            torch.cuda.synchronize()
+            prof.step()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / calls, len(events)
+
+
+def run_ms(fns: dict, inputs: tuple, bytes_per_call: int, split: Split) -> dict:
+    """Milliseconds a call of each ``fns[key](*inputs)`` (``fns["ms"]`` the
+    kernel), three ways, and the kernel's device time:
 
     - ``key``: CUDA events around a run of back-to-back calls (at least
       ``RUN_CALLS`` and ``MIN_RUN_MS``), divided by the count; the median
@@ -249,19 +324,18 @@ def run_ms(fns: dict, inputs: tuple, bytes_per_call: int) -> dict:
     - ``<prefix>host_ms``: host time a call to enqueue those runs (median;
       a function of one launch never waits on the card here, one of many
       may once the launch queue fills);
-    - ``<prefix>device_ms``: device time a call (every kernel, copy and
-      set it launches) from torch.profiler over one more run;
-    - ``<prefix>single_ms``: the median single-call window (``cuda_ms``).
+    - ``<prefix>single_ms``: the median single-call window (``cuda_ms``);
+    - ``device_ms``: the kernel's device time a call (every kernel, copy
+      and set it launches) from torch.profiler over one more run
+      (``kernel_device_ms``), and ``device_events``, the device events
+      that run recorded.
 
-    Where ``key`` exceeds ``device_ms`` and meets ``host_ms``, the host
+    Where ``ms`` exceeds ``device_ms`` and meets ``host_ms``, the host
     sets the pace."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    from corrosion_tpu_torch.profiling import device_events_by_range, trace_events
-
-    copies = [inputs] + [
-        tuple(t.clone() for t in inputs) for _ in range(L2_BYTES // max(bytes_per_call, 1))
-    ]
+    with split.part("input copies"):
+        copies = [inputs] + [
+            tuple(t.clone() for t in inputs) for _ in range(L2_BYTES // max(bytes_per_call, 1))
+        ]
 
     def run(fn, calls):
         for i in range(calls):
@@ -271,61 +345,46 @@ def run_ms(fns: dict, inputs: tuple, bytes_per_call: int) -> dict:
     # timed runs: at least RUN_CALLS calls and MIN_RUN_MS of events, in whole
     # cycles of the copies, so one host hiccup moves a run little.
     calls = {}
-    for key, fn in fns.items():
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        run(fn, RUN_CALLS)
-        b.record()
-        b.synchronize()
-        want = max(RUN_CALLS, math.ceil(MIN_RUN_MS * RUN_CALLS / max(a.elapsed_time(b), 1e-3)))
-        calls[key] = len(copies) * -(-want // len(copies))
     runs = {key: [] for key in fns}
-    for _ in range(RUNS):
+    with split.part("timed event runs"):
         for key, fn in fns.items():
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
-            gc.collect()
-            gc.disable()  # no collector pause inside a timed run (as timeit)
-            try:
-                a.record()
-                t0 = time.perf_counter()
-                run(fn, calls[key])
-                host = time.perf_counter() - t0
-                b.record()
-                b.synchronize()
-            finally:
-                gc.enable()
-            runs[key].append((a.elapsed_time(b) / calls[key], host * 1e3 / calls[key]))
+            a.record()
+            run(fn, RUN_CALLS)
+            b.record()
+            b.synchronize()
+            want = max(RUN_CALLS, math.ceil(MIN_RUN_MS * RUN_CALLS / max(a.elapsed_time(b), 1e-3)))
+            calls[key] = len(copies) * -(-want // len(copies))
+    # No collector pause inside a timed run (as timeit): one collection
+    # first, the collector off through the site's runs.
+    with split.part("collector"):
+        gc.collect()
+    gc.disable()
+    try:
+        with split.part("timed event runs"):
+            for _ in range(RUNS):
+                for key, fn in fns.items():
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    t0 = time.perf_counter()
+                    run(fn, calls[key])
+                    host = time.perf_counter() - t0
+                    b.record()
+                    b.synchronize()
+                    runs[key].append((a.elapsed_time(b) / calls[key], host * 1e3 / calls[key]))
+    finally:
+        gc.enable()
     out = {}
     for key, fn in fns.items():
         out[key] = statistics.median(t for t, _ in runs[key])
         out[_prefix(key) + "host_ms"] = statistics.median(h for _, h in runs[key])
-        out[_prefix(key) + "single_ms"] = cuda_ms(lambda: fn(*inputs))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        # The first ranges of a session can lose device events while tracing
-        # starts: a full untimed run of every function goes first.
-        with record_function("warm-up"):
-            for key, fn in fns.items():
-                run(fn, calls[key])
-            torch.cuda.synchronize()
-        for key, fn in fns.items():
-            with record_function(key):
-                run(fn, calls[key])
-                torch.cuda.synchronize()
-    device = dict.fromkeys(fns, 0.0)
-    for key, e in device_events_by_range(trace_events(prof), fns, by_own_start=True):
-        if key is not None:
-            device[key] += e["dur"] / 1e3
-    for key in fns:
-        out[_prefix(key) + "device_ms"] = device[key] / calls[key]
+        with split.part("single_ms"):
+            out[_prefix(key) + "single_ms"] = cuda_ms(lambda: fn(*inputs))
+    with split.part("device_ms"):
+        out["device_ms"], out["device_events"] = kernel_device_ms(fns["ms"], run, calls["ms"])
     return out
-
-
-def nbytes(*ts, int64_as: int = 8) -> int:
-    """Bytes of ``ts``, an int64 element counted as ``int64_as`` bytes (4:
-    the reference's u32 width for the port's int64-carried values)."""
-    return sum(t.numel() * (int64_as if t.dtype == torch.int64 else t.element_size()) for t in ts)
 
 
 def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
@@ -396,7 +455,11 @@ def check_kernels(onehot, device) -> list:
     """Exact equality kernel vs plain on edge cases and at the shapes each
     main path gives each kernel; returns one measurement per kernel and
     shape, in path order."""
+    from corrosion_tpu_torch.obs import costs
+
     g = torch.Generator().manual_seed(0)
+    split = Split()
+    t_edges = time.perf_counter()
     # Edge cases: 0-width axes, odd small shapes, both window widths, and
     # widths past every row kernel's 48 KB shared-memory default (16,384
     # columns: 64 KB for rowmax/rowsum and window_delivery at wk=32, 128 KB
@@ -475,6 +538,7 @@ def check_kernels(onehot, device) -> list:
         assert equal(onehot.table_gather(table, strided.contiguous()),
                      onehot.table_gather_plain(table, strided)), f"table_gather differs at W={w}, strided"
     torch.cuda.synchronize()
+    split.s["equality checks"] += time.perf_counter() - t_edges
     log("phase 3: edge cases equal (0-width axes, out-of-range, bit 31, wk 32/64, "
         "W 10,000 and 16,384; every gather form and semantics, row stride 0 and M, "
         "odd m and W, offset idx; table_gather W 0 to 100,000, n 0-3, one block +-1, "
@@ -482,24 +546,26 @@ def check_kernels(onehot, device) -> list:
 
     out = []
 
-    def measure(name, path, shape, inputs, kernel, plain, library, reads, ops, words=0, **extra):
+    def measure(name, path, shape, inputs, kernel, plain, library, args, **extra):
         """Exact equality of ``kernel(*inputs)`` and ``plain(*inputs)``, then
         the times of both, of ``library`` and of each ``extra`` function
-        (``run_ms``); the bound counts the tensors ``reads`` and ``words``
-        table words read once and the kernel's outputs written once, at
-        int64 (``bound``) and at the reference's u32 (``bound_u32``,
-        informational)."""
-        got, want = kernel(*inputs), plain(*inputs)
-        err = max_abs_err(got, want)
+        (``run_ms``); the bound is the cost model's formula
+        (``costs.kernel_cost``) for the kernel-bearing function ``name``
+        called on ``args``: each input read once, the table words a gather
+        addresses, the outputs written once, at int64 (``bound``) and at
+        the reference's u32 (``bound_u32``, informational)."""
+        with split.part("equality checks"):
+            got, want = kernel(*inputs), plain(*inputs)
+            err = max_abs_err(got, want)
         assert err == 0, f"{name} differs from its plain version at {path} {shape}"
         outs = got if isinstance(got, tuple) else (got,)
         del got, want
-        moved = nbytes(*reads, *outs) + 8 * words
-        moved_u32 = nbytes(*reads, *outs, int64_as=4) + 4 * words
+        moved, ops = costs.kernel_cost(name, args, outs)
+        moved_u32 = costs.kernel_cost(name, args, outs, int64_as=4)[0]
         fns = {"ms": kernel, "plain_ms": plain, **extra}
         if library is not None:
             fns["library_ms"] = library
-        times = run_ms(fns, inputs, moved)
+        times = run_ms(fns, inputs, moved, split)
         times.setdefault("library_ms", None)
         out.append(dict(name=name, path=path, shape=shape, err=err,
                         bound=bound(moved, ops), bound_u32=bound(moved_u32, ops), **times))
@@ -516,7 +582,7 @@ def check_kernels(onehot, device) -> list:
             lambda idx, val, mask, safe, zeros: onehot.rowmax_plain(idx, val, mask, k),
             # amax is idempotent, so repeating it in place times the call alone.
             lambda idx, val, mask, safe, zeros: zeros.scatter_reduce_(1, safe, val, "amax"),
-            (idx, val, mask), 2 * idx.numel(),
+            (idx, val, mask, k),
         )
         return idx
 
@@ -527,8 +593,6 @@ def check_kernels(onehot, device) -> list:
         r, w = table.shape
         m = gidx.shape[-1]
         full = gidx.expand(r, m)
-        touched = torch.zeros(table.shape, dtype=torch.bool, device=device)
-        touched.scatter_(1, full, True)
         name = "rowgather_wide" if wide else "rowgather"
         kern = onehot.rowgather_wide if wide else onehot.rowgather
         plain = onehot.rowgather_wide_plain if wide else onehot.rowgather_plain
@@ -536,12 +600,13 @@ def check_kernels(onehot, device) -> list:
         # exact as well; the kernel's own entry is the public wrapper, in the
         # form the rule picks.
         forms = {}
-        want = plain(table, full)
-        for f in onehot.GATHER_FORMS:
-            got = onehot._gather(name, table, full, wide, f)
-            assert equal(got, want), f"{name} {f} differs at {site}"
-            forms[f"{f}_ms"] = lambda t, i, f=f: onehot._gather(name, t, i.expand(r, m), wide, f)
-        del want, got
+        with split.part("equality checks"):
+            want = plain(table, full)
+            for f in onehot.GATHER_FORMS:
+                got = onehot._gather(name, table, full, wide, f)
+                assert equal(got, want), f"{name} {f} differs at {site}"
+                forms[f"{f}_ms"] = lambda t, i, f=f: onehot._gather(name, t, i.expand(r, m), wide, f)
+            del want, got
         measure(
             name, path, f"{site} [{r},{w}]<-"
             + (f"[{m}] broadcast" if gidx.dim() == 1 else f"[{r},{m}]")
@@ -551,7 +616,7 @@ def check_kernels(onehot, device) -> list:
             lambda t, i: plain(t, i.expand(r, m)),
             # Every index is in range, so gather on it needs no mask or clip.
             lambda t, i: torch.gather(t, 1, i.expand(r, m)),
-            (gidx,), r * m, int(touched.sum()),
+            (table, full),
             **forms,
         )
 
@@ -575,7 +640,7 @@ def check_kernels(onehot, device) -> list:
             lambda *a: onehot.delivery_reduce(*a, w),
             lambda *a: onehot.delivery_reduce_plain(*a, w),
             None,
-            (widx, d, v, applied, valid, seen), 4 * widx.numel(),
+            (widx, d, v, applied, valid, seen, w),
             **extra_fns,
         )
         return widx, d, valid
@@ -596,15 +661,13 @@ def check_kernels(onehot, device) -> list:
         widx, d, valid = reduce_case(path, n, kk, w, 40, 1 << 20)
         oo = torch.randint(0, 1 << 32, (1, n, w), generator=g).to(device)
         adv_m = torch.randint(0, 8, (n, kk), generator=g).to(device)
-        wtouched = torch.zeros((n, w), dtype=torch.bool, device=device)
-        wtouched.scatter_(1, widx, valid)
         measure(
             "window_delivery", path, f"[1,{n},{w}],[{n},{kk}]x4->[{n},{kk}],[1,{n},{w}]",
             (oo, widx, d, adv_m, valid),
             lambda *a: onehot.window_delivery(*a, 32, w),
             lambda *a: onehot.window_delivery_plain(*a, 32, w),
             None,
-            (widx, d, adv_m, valid), 8 * widx.numel(), int(wtouched.sum()),
+            (oo, widx, d, adv_m, valid, 32, w),
         )
 
     def table_case(path, site, table, tidx):
@@ -613,7 +676,7 @@ def check_kernels(onehot, device) -> list:
             onehot.table_gather, onehot.table_gather_plain,
             # The index is already in range, so take on it needs no clip.
             torch.take,
-            (table, tidx), tidx.numel(),
+            (table, tidx),
             # A copy of the index: the same bytes read and written, no gather.
             clone_ms=lambda table, tidx: tidx.clone(),
         )
@@ -657,7 +720,7 @@ def check_kernels(onehot, device) -> list:
             # No one PyTorch call makes a fresh zero-filled plane holding the
             # sums: the two-call composition is timed beside it.
             None,
-            (widx, bits), widx.numel(),
+            (widx, bits, None, w),
             zeros_scatter_add_ms=lambda widx, bits: torch.zeros(
                 (n, w), dtype=torch.int64, device=device).scatter_add_(1, widx, bits),
         )
@@ -761,8 +824,9 @@ def check_kernels(onehot, device) -> list:
         lib_host = row.get("library_host_ms")
         log(f"phase 3: {row['name']} {row['path']} {row['shape']} equal; host ms a call "
             f"{row['host_ms']:.4f} (library {'—' if lib_host is None else f'{lib_host:.4f}'}); "
-            f"{times}; bound {row['bound'][0]:.4f} ms ({row['bound'][1]}), at u32 "
-            f"{row['bound_u32'][0]:.4f}")
+            f"{times}; device events {row['device_events']}; bound {row['bound'][0]:.4f} ms "
+            f"({row['bound'][1]}), at u32 {row['bound_u32'][0]:.4f}")
+    log(f"phase 3: split {split.line()}")
     return out
 
 
@@ -930,8 +994,10 @@ def _with_knobs(gossip, knobs: dict, fn):
 def cpu_small_runs(out: str) -> int:
     """``python3 chip_smoke.py --cpu-small-runs OUT``: every run of
     ``SMALL_RUNS`` on the CPU (the plain versions), in order, each one's
-    ``_small_run`` result and its seconds pickled into ``OUT``. Phase 4
-    starts it as a worker process."""
+    ``_small_run`` result and its seconds, then the cost model of the four
+    engines on the CPU (phase 14 holds the card's to it), pickled into
+    ``OUT``. Phase 4 starts it as a worker process."""
+    from corrosion_tpu_torch.obs import costs
     from corrosion_tpu_torch.ops import gossip
 
     runs = []
@@ -940,18 +1006,23 @@ def cpu_small_runs(out: str) -> int:
         run = _with_knobs(gossip, knobs,
                           lambda: _small_run(builder, kw, transform, chunk, adapt, "cpu"))
         runs.append((*run, time.perf_counter() - t0))
-    Path(out).write_bytes(pickle.dumps(runs))
+    t0 = time.perf_counter()
+    model = costs.build_cost_model(device_counts=costs.DEVICE_COUNTS, device="cpu")
+    Path(out).write_bytes(pickle.dumps(
+        {"runs": runs, "cost_model": model, "cost_model_s": time.perf_counter() - t0}
+    ))
     return 0
 
 
-def check_small_runs(onehot, gossip):
+def check_small_runs(onehot, gossip) -> dict:
     """Each small run on the card (kernels) equals the CPU run (plain
     versions); the merge_10k runs launch the two wide-path kernels, the
     anywrite runs demote, heal and launch ``table_gather``, the adaptive
     runs launch ``table_gather`` and kill rumors. The CPU runs go in one
     worker process (``cpu_small_runs``, no card visible to it) while the
     card runs its side; the worker has ended before the checks, so the
-    timed phases after this one have the host to themselves."""
+    timed phases after this one have the host to themselves. Returns the
+    worker's CPU cost model (phase 14)."""
     out_path = REPO / "build" / "small_runs_cpu.pkl"
     out_path.parent.mkdir(parents=True, exist_ok=True)
     out_path.unlink(missing_ok=True)
@@ -974,7 +1045,8 @@ def check_small_runs(onehot, gossip):
             worker.kill()
             worker.wait()
     assert rc == 0, f"phase 4: the CPU side of the small runs failed (exit code {rc})"
-    cpu = pickle.loads(out_path.read_bytes())
+    worker_out = pickle.loads(out_path.read_bytes())
+    cpu = worker_out["runs"]
     for (label, builder, kw, transform, chunk, adapt, knobs), ra, rb in zip(SMALL_RUNS, card, cpu):
         (fa, ca, ia, rounds, ta, launches), (fb, cb, ib, _, tb) = ra, rb
         bad = [k for k in ca if not np.array_equal(ca[k], cb[k])]
@@ -1010,6 +1082,8 @@ def check_small_runs(onehot, gossip):
         log(f"phase 4: {label} ({rounds} rounds): card {ta:.1f} s == CPU (worker) "
             f"{tb:.1f} s ({len(ca)} curves, {len(fa)} state leaves); "
             f"need[-1]={int(ca['need'][-1])}{extra}; launches {json.dumps(launches)}")
+    log(f"phase 4: the worker built the CPU cost model in {worker_out['cost_model_s']:.1f} s")
+    return worker_out["cost_model"]
 
 
 def check_tie_rules() -> None:
@@ -1131,11 +1205,13 @@ def build_path(path: str):
     return getattr(baselines, path)(device="cuda")
 
 
-def full_run(onehot, gossip, phase: int, builder: str, keep: dict | None = None):
+def full_run(onehot, gossip, phase: int, builder: str, keep: dict | None = None,
+             walls: dict | None = None):
     """A main path at full size, every round of its schedule, one call per
     chunk (dense engine) or epoch (sparse engine), with the launch counts
     reset just before and read just after. ``keep`` takes the state, the
-    curves and the CUDA-event ms after ``SHARDED_ROUNDS`` rounds."""
+    curves and the CUDA-event ms after ``SHARDED_ROUNDS`` rounds; ``walls``
+    the run's wall seconds under ``builder``."""
     from corrosion_tpu_torch.parallel import mesh as mesh_mod
     from corrosion_tpu_torch.sim import sparse_engine
 
@@ -1175,6 +1251,8 @@ def full_run(onehot, gossip, phase: int, builder: str, keep: dict | None = None)
             keep.update(state=mesh_mod.to_host(state), ms=elapsed,
                         curves={k: np.concatenate([p[k] for p in parts]) for k in parts[0]})
     wall = time.perf_counter() - t_wall
+    if walls is not None:
+        walls[builder] = wall
     launches = dict(onehot.LAUNCHES)
     syncs = dict(gossip.HOST_SYNCS)
     curves = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
@@ -1691,6 +1769,198 @@ def sharded_runs(onehot, gossip, kept: dict, phase: int = 13) -> dict:
     return by_path
 
 
+# ---- phase 14: the bench harness and the device-cost plane -----------------
+
+
+def bench_harness(onehot, led, first_run_s: float, compile_ms: float, cpu_costs: dict,
+                  phase: int = 14) -> dict:
+    """The bench harness on the card, each path's launch counts reset just
+    before it and read just after (the 120-round run apart from the
+    attribution and roofline steps after it, the lane's sharded runs apart
+    from its attribution):
+
+    (a) merge_10k in full (the bench's flagship: 10,000 nodes, 120 rounds,
+        256 samples), seed 1, in calls of 24 rounds, with the ledger
+        ``led`` armed and ``KernelTelemetry(ledger=, watermarks=)``; then
+        ``plane_composite`` on its final state, ``attribute_planes``
+        (``iters`` 10) and ``roofline_stage_costs``; the report put
+        together as the bench puts it (``bench_context``,
+        ``rounded_step_report``, ``roofline_report``,
+        ``compile_split_report`` of ``first_run_s`` and ``compile_ms``),
+        passing ``check_bench_invariants`` with ``steady_compiles`` 0;
+    (b) ``measure_multichip`` on card positions, D in {1, 2, 4, 8}: curves
+        and final states equal across D, exchange bytes equal to
+        ``traffic_model`` (the lane raises otherwise);
+    (c) the cost model of the four engines at their tiny configs on the
+        card, its flops and bytes equal to the CPU's (``cpu_costs``, built
+        by phase 4's worker);
+    (d) ``capacity_model`` against the card's memory: the 512-node point
+        exact, the 100,352-node point a placement measured here.
+
+    Returns the launch counts by path."""
+    from corrosion_tpu_torch import parallel
+    from corrosion_tpu_torch.obs import costs
+    from corrosion_tpu_torch.ops import gossip as gossip_ops
+    from corrosion_tpu_torch.sim import benchlib, engine, health, telemetry
+
+    t_phase = time.perf_counter()
+    by_path = {}
+
+    # (a) merge_10k, armed.
+    cfg, topo, sched = build_path("merge_10k")
+    n, rounds, chunk = cfg.n_nodes, sched.rounds, 24
+    wm = costs.MemoryWatermarks()
+    tele = telemetry.KernelTelemetry(engine="dense", ledger=led, watermarks=wm)
+    torch.cuda.synchronize()
+    onehot.reset_launches()
+    led.arm("phase 14 timed merge_10k run (warmed by phases 2 and 6 at the same shapes)")
+    t0 = time.perf_counter()
+    final, curves = engine.simulate(cfg, topo, sched, seed=1, max_chunk=chunk, telemetry=tele,
+                                    device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_path["bench_merge_10k"] = launches = dict(onehot.LAUNCHES)
+    missing = [k for k in PATH_KERNELS["bench_merge_10k"] if launches[k] == 0]
+    assert not missing, f"merge_10k bench: kernels never launched: {missing}"
+    step_ms = wall / rounds * 1000.0
+    onehot.reset_launches()
+    composite, stages, carry0 = benchlib.plane_composite(cfg, topo, sched, final)
+    attr = telemetry.attribute_planes(composite, stages, carry0, iters=10)
+    plane, residual_ms = attr.scale(step_ms)
+    t_costs = time.perf_counter()
+    stage_costs = costs.roofline_stage_costs(composite, stages, carry0)
+    stage_s = time.perf_counter() - t_costs
+    torch.cuda.synchronize()
+    led.disarm()
+    by_path["bench_attribution"] = attr_launches = dict(onehot.LAUNCHES)
+    missing = [k for k in PATH_KERNELS["bench_attribution"] if attr_launches[k] == 0]
+    assert not missing, f"merge_10k attribution: kernels never launched: {missing}"
+    mem = costs.reconcile_memory(parallel.shard_cluster_state(final, parallel.make_mesh(1)),
+                                 watermarks=wm)
+    lat = engine.visibility_latencies(final, sched, cfg)
+    rep = health.report_from_curves(curves, engine="dense", round_ms=cfg.round_ms)
+    d = final.data
+    converged = bool((d.contig == d.head[None, :]).all())
+    applied = float(curves["applied_broadcast"].astype(np.float64).sum()
+                    + curves["applied_sync"].astype(np.float64).sum())
+    step_rep = benchlib.rounded_step_report(step_ms, plane)
+    p99 = lat["p99_s"]
+    report = telemetry.check_bench_invariants({
+        **benchlib.bench_context(cfg, n, rounds, chunk, device="cuda"),
+        "nodes": n,
+        "rounds": rounds,
+        "kernels": "cuda",
+        "metric": "p99_change_visibility_10k",
+        "value": round(p99, 2),
+        "unit": "s",
+        "vs_baseline": round(10.0 / p99, 2) if p99 > 0 else None,
+        "converged": converged,
+        "cells_converged": bool(gossip_ops.cells_agree(d, cfg.gossip)),
+        "unseen_pairs": lat["unseen"],
+        "p50_s": round(lat["p50_s"], 2),
+        "throughput_changes_per_s": round(applied / wall, 1),
+        **step_rep,
+        "step_inner_ms": round(tele.device_step_ms, 1),
+        **benchlib.compile_split_report(first_run_s, compile_ms),
+        "steady_compiles": led.armed_compiles,
+        "roofline": benchlib.roofline_report(stage_costs, step_rep["plane_ms"]),
+        "peak_live_bytes_per_device": max(wm.peak.values(), default=0),
+        "allocator_peak_bytes_per_device": max(wm.allocator_peak.values(), default=0),
+        "state_bytes_per_device": mem["state_bytes_per_position_max"],
+        "converged_round": rep.converged_round,
+        "staleness_p99": round(rep.staleness_p99, 1),
+        "queue_backlog_peak": rep.queue_backlog_peak,
+    })
+    assert report["steady_compiles"] == 0 and wm.samples == rounds // chunk, (
+        report["steady_compiles"], wm.samples)
+    log(f"phase {phase}: merge_10k bench N={n} {rounds} rounds (seed 1, ledger armed, "
+        f"{wm.samples} watermark samples): {step_ms:.1f} ms/round wall, step_inner_ms "
+        f"{report['step_inner_ms']}; composite {attr.full_ms:.1f} ms, overhead "
+        f"{attr.overhead_ms:.2f} ms, residual {residual_ms:.1f} ms; roofline stage costs "
+        f"counted in {stage_s:.1f} s; memory reconciled at rest ({json.dumps(mem['watermarks'])}); "
+        f"launches of the {rounds}-round run {json.dumps(launches)}, of the attribution and "
+        f"roofline steps {json.dumps(attr_launches)}")
+    log(f"phase {phase}: bench report {json.dumps(report)}")
+    del final, carry0, composite, d
+
+    # (b) the multi-device lane on card positions. Its progress notes
+    # split the counts: the sharded runs (a warm and a timed run of each
+    # plane at each D) end where the plane attribution at max(D) begins.
+    class Marks:
+        def __init__(self):
+            self.at = {}
+
+        def write(self, msg):
+            self.at[msg.strip()] = dict(onehot.LAUNCHES)
+
+        def flush(self):
+            pass
+
+    marks = Marks()
+    onehot.reset_launches()
+    t0 = time.perf_counter()
+    lane = telemetry.check_bench_invariants(benchlib.measure_multichip(device="cuda",
+                                                                       progress=marks))
+    torch.cuda.synchronize()
+    total = dict(onehot.LAUNCHES)
+    runs = marks.at[f"[multichip] D={max(benchlib.MULTICHIP_DEVICE_COUNTS)}: plane attribution"]
+    by_path["bench_multichip"] = runs
+    by_path["bench_multichip_attribution"] = lane_attr = {k: total[k] - runs[k] for k in total}
+    for path, launches in (("bench_multichip", runs), ("bench_multichip_attribution", lane_attr)):
+        missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
+        assert not missing, f"{path}: kernels never launched: {missing}"
+    assert lane["bit_identical_across_device_counts"], lane
+    log(f"phase {phase}: multichip lane D {lane['device_counts']} on card positions "
+        f"({time.perf_counter() - t0:.1f} s): curves and final states equal across D; exchange "
+        f"bytes a round ici {lane['xshard_bytes_per_round_ici']:.0f}, dcn "
+        f"{lane['xshard_bytes_per_round_dcn']:.0f} == traffic_model; launches of the sharded "
+        f"runs {json.dumps(runs)}, of the attribution and roofline steps {json.dumps(lane_attr)}")
+    log(f"phase {phase}: multichip report {json.dumps(lane)}")
+
+    # (c) the cost model on the card against the CPU's.
+    onehot.reset_launches()
+    t0 = time.perf_counter()
+    card = costs.build_cost_model(device_counts=costs.DEVICE_COUNTS, device="cuda")
+    card_s = time.perf_counter() - t0
+    by_path["bench_costs"] = launches = dict(onehot.LAUNCHES)
+    missing = [k for k in PATH_KERNELS["bench_costs"] if launches[k] == 0]
+    assert not missing, f"cost model: kernels never launched: {missing}"
+    assert sorted(card["entries"]) == sorted(cpu_costs["entries"])
+    unequal = {}
+    for key, e in card["entries"].items():
+        c = cpu_costs["entries"][key]
+        if any(e[m] != c[m] for m in ("flops", "bytes_accessed", "kernel_calls",
+                                      "config_fingerprint")):
+            unequal[key] = {op: [e["by_op"].get(op), c["by_op"].get(op)]
+                            for op in sorted(set(e["by_op"]) | set(c["by_op"]))
+                            if e["by_op"].get(op) != c["by_op"].get(op)}
+    assert not unequal, f"cost model card != CPU (ops [card, CPU]): {json.dumps(unequal)}"
+    same_mem = {k: all(e[m] == cpu_costs["entries"][k][m] for m in ("peak_bytes", "temp_bytes"))
+                for k, e in card["entries"].items()}
+    log(f"phase {phase}: cost model of {len(card['entries'])} entries on the card ({card_s:.1f} s) "
+        f"== the CPU's in flops, bytes, kernel calls and fingerprints; peak and temp bytes "
+        f"equal too: {json.dumps(same_mem)}")
+    log(f"phase {phase}: cost model " + json.dumps({
+        k: {m: e.get(m) for m in ("flops", "bytes_accessed", "ops", "peak_bytes", "temp_bytes",
+                                  "allocator_peak_bytes")}
+        for k, e in card["entries"].items()
+    }))
+
+    # (d) the capacity curve against the card's memory.
+    mesh8 = parallel.multichip_mesh(8)
+    cfg100k, _, sched100k = costs.flagship_cfg(100_352, device="cuda")
+    placed = costs.measure_placement(cfg100k, len(sched100k.sample_writer), mesh8)
+    cap = costs.capacity_model(device="cuda", measured_100k={
+        "nodes": 100_352, "device_count": 8, **placed,
+        "source": "chip_smoke.py phase 14: flagship_cfg(100_352) placed on 8 card positions",
+    })
+    assert cap["validation"]["lane_512"]["exact"], cap["validation"]
+    log(f"phase {phase}: capacity model against {cap['memory_bytes']} B of card memory: "
+        f"{json.dumps(cap)}")
+    log(f"phase {phase}: {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def kernel_rows(measured: list, by_path: dict) -> list:
     """The ``kernels`` line: one entry per kernel from phase 3's
     measurements and the main paths' launch counts."""
@@ -1714,6 +1984,7 @@ def kernel_rows(measured: list, by_path: dict) -> list:
                         "plain_ms": m["plain_ms"], "bound_ms": m["bound"][0],
                         "bound_by": m["bound"][1], "library_ms": m["library_ms"],
                         "host_ms": m["host_ms"], "library_host_ms": m.get("library_host_ms"),
+                        "device_events": m["device_events"],
                         **{k: v for k, v in m.items() if k.endswith("_ms") and k not in
                            ("ms", "plain_ms", "library_ms", "host_ms", "library_host_ms")},
                     }
@@ -1730,6 +2001,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from corrosion_tpu_torch import cuda_build
+    from corrosion_tpu_torch.obs import ledger
     from corrosion_tpu_torch.ops import gossip, onehot
 
     smi = smi_line()
@@ -1744,22 +2016,28 @@ def main() -> int:
         log(f"chip_smoke: {what} took {now - laps[-1]:.1f} s ({now - t_start:.1f} s in all)")
         laps.append(now)
 
-    build_s = cuda_build.build(verbose=True)
-    t_load = time.perf_counter()
-    lib = cuda_build.load()
+    # The ledger records the library's build and load from here on.
+    led = ledger.CompileLedger().watch_engines().install()
+    with led.window("phase 2: build and load") as built:
+        build_s = cuda_build.build(verbose=True)
+        t_load = time.perf_counter()
+        lib = cuda_build.load()
     log(f"phase 2: built the kernel library of {len(KERNELS)} kernels from "
         f"{len(cuda_build.SOURCES)} sources ({', '.join(cuda_build.SOURCES)}) in {build_s:.1f} s, "
-        f"loaded in {time.perf_counter() - t_load:.2f} s: {lib.name}")
+        f"loaded in {time.perf_counter() - t_load:.2f} s: {lib.name}; ledger window "
+        f"{json.dumps(built.to_record())}")
+    lap("phase 2")
     measured = check_kernels(onehot, "cuda")
+    lap("phase 3")
     check_tie_rules()
-    check_small_runs(onehot, gossip)
-    lap("phases 3-4")
-    by_path, kept = {}, {}
+    cpu_costs = check_small_runs(onehot, gossip)
+    lap("phase 4")
+    by_path, kept, walls = {}, {}, {}
     for phase, path in (
         (5, "wan_100k"), (6, "merge_10k"), (7, "anywrite_sparse"), (8, "wan_100k_adaptive"),
     ):
         by_path[path] = full_run(onehot, gossip, phase, path,
-                                 keep=kept if path == "wan_100k" else None)
+                                 keep=kept if path == "wan_100k" else None, walls=walls)
         lap(f"phase {phase}")
     by_path["geo_10k"] = geo_run(onehot, gossip)
     lap("phase 9")
@@ -1771,6 +2049,11 @@ def main() -> int:
     lap("phase 12")
     by_path.update(sharded_runs(onehot, gossip, kept))
     lap("phase 13")
+    # The first run of merge_10k in this process: phase 2's build and load,
+    # then phase 6's run.
+    by_path.update(bench_harness(onehot, led, built.wall_ms / 1e3 + walls["merge_10k"],
+                                 built.compile_ms, cpu_costs))
+    lap("phase 14")
     rows = kernel_rows(measured, by_path)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build to the end")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -10,6 +10,9 @@ runtime linked statically). No ninja. The library lands in
 source, the build flags and torch's version, so an edited kernel or flag
 never loads a stale build. ``load()`` builds on first use and loads the
 library with ``torch.ops.load_library``. Nothing here runs at import time.
+Each build that compiles and each load calls the registered listeners
+with its kind (``"build"``, ``"load"``) and wall seconds (``obs.ledger``
+keeps its ledger with them).
 """
 
 from __future__ import annotations
@@ -40,6 +43,13 @@ CXX_FLAGS = ("-std=c++20", "-O2", "-fPIC")
 LINK_LIBS = ("-lc10", "-ltorch_cpu")
 
 _loaded: Path | None = None
+# Callables (kind, seconds) told of every build that compiles and every load.
+LISTENERS: list = []
+
+
+def _notify(kind: str, seconds: float) -> None:
+    for fn in list(LISTENERS):
+        fn(kind, seconds)
 
 
 def _cxx_flags() -> tuple:
@@ -124,7 +134,9 @@ def build(verbose: bool = False) -> float:
         os.replace(tmp, out)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return time.perf_counter() - t0
+    secs = time.perf_counter() - t0
+    _notify("build", secs)
+    return secs
 
 
 def load() -> Path:
@@ -134,6 +146,8 @@ def load() -> Path:
     if _loaded is None:
         build()
         path = lib_path()
+        t0 = time.perf_counter()
         torch.ops.load_library(str(path))
         _loaded = path
+        _notify("load", time.perf_counter() - t0)
     return _loaded

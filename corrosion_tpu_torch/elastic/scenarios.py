@@ -19,8 +19,6 @@ the port does not hold yet: ``run_scenario`` refuses it by name.
 
 from __future__ import annotations
 
-import hashlib
-
 import numpy as np
 
 from corrosion_tpu_torch import interop, resolve_device
@@ -28,6 +26,7 @@ from corrosion_tpu_torch.elastic import preempt as preempt_mod
 from corrosion_tpu_torch.elastic import report as report_mod
 from corrosion_tpu_torch.elastic import reshard as reshard_mod
 from corrosion_tpu_torch.elastic.report import ELASTIC_SCHEMA
+from corrosion_tpu_torch.sim import benchlib
 
 # Grow, shrink, deep shrink (8->2 leaves the 2-D mesh for the 1-D) and a
 # cold one-position restore onto a full mesh.
@@ -47,16 +46,6 @@ def scenario_names() -> list:
         f"reshard_{e}_4to8" for e in RESHARD_ENGINES if e != "dense"
     ]
     return names + ["preempt_dense_churn", "soak_preempt"]
-
-
-def _fingerprint(*parts) -> str:
-    """A short hash of the drill's configuration: sha256 over the parts'
-    reprs (the reference's ``benchlib.config_fingerprint``)."""
-    h = hashlib.sha256()
-    for p in ("elastic",) + parts:
-        h.update(repr(p).encode())
-        h.update(b"\x00")
-    return h.hexdigest()[:16]
 
 
 def _dense_setup(device):
@@ -87,7 +76,7 @@ def run_reshard_scenario(
     if engine == "dense":
         cfg, topo, sched = _dense_setup(device)
         split = sched.rounds // 2
-        fp = _fingerprint(engine, cfg, d_from, d_to, seed)
+        fp = benchlib.config_fingerprint("elastic", engine, cfg, d_from, d_to, seed)
         run = reshard_mod.run_dense_resharded(
             cfg, topo, sched, mesh_from, mesh_to, split, seed=seed,
             checkpoint_dir=checkpoint_dir, fingerprint=fp,
@@ -100,7 +89,7 @@ def run_reshard_scenario(
             n=64, w_hot=8, rounds=32, n_regions=4, epoch_rounds=8, cohort=4, burst_writes=2,
             samples=32, k_dev=16, partition=True, seed=seed, device=device,
         )
-        fp = _fingerprint(engine, cfg, d_from, d_to, seed)
+        fp = benchlib.config_fingerprint("elastic", engine, cfg, d_from, d_to, seed)
         run = reshard_mod.run_sparse_resharded(
             cfg, topo, sched, mesh_from, mesh_to, split_epoch=2, seed=seed,
             checkpoint_dir=checkpoint_dir, fingerprint=fp,
@@ -120,7 +109,7 @@ def run_reshard_scenario(
         origin = np.asarray([0, 21, 42], np.int32)
         last_seq = np.full(3, 1023, np.int32)
         rounds, split = 24, 12
-        fp = _fingerprint(engine, ccfg, d_from, d_to, seed)
+        fp = benchlib.config_fingerprint("elastic", engine, ccfg, d_from, d_to, seed)
         run = reshard_mod.run_chunks_resharded(
             ccfg, origin, last_seq, rounds, mesh_from, mesh_to, split, seed=seed,
             checkpoint_dir=checkpoint_dir, fingerprint=fp,
@@ -137,7 +126,7 @@ def run_reshard_scenario(
             FaultPlan(rounds=24, name="elastic-mixed"), seed, device
         )
         split = 12
-        fp = _fingerprint(engine, cfg, ccfg, d_from, d_to, seed)
+        fp = benchlib.config_fingerprint("elastic", engine, cfg, ccfg, d_from, d_to, seed)
         run = reshard_mod.run_mixed_resharded(
             cfg, ccfg, topo, sched, spec, mesh_from, mesh_to, split, seed=seed,
             checkpoint_dir=checkpoint_dir, fingerprint=fp,
@@ -222,7 +211,7 @@ def run_preempt_scenario(
     )
     sched = faults_mod.apply_plan(sched, compiled, inv.STD_NODES, inv.STD_REGIONS)
     mesh = reshard_mod.virtual_mesh(devices, device)
-    fp = _fingerprint("preempt", cfg, devices, seed)
+    fp = benchlib.config_fingerprint("elastic", "preempt", cfg, devices, seed)
     run = preempt_mod.run_dense_preempted(
         cfg, topo, sched, mesh, plan.preempt_events(), PREEMPT_CHECKPOINT_EVERY, seed=seed,
         checkpoint_dir=checkpoint_dir, fingerprint=fp,

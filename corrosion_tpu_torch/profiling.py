@@ -5,8 +5,8 @@ range in which the host launched it: its correlation id names the
 runtime call that launched it, and that call's host timestamp falls
 inside the range. The trace can lose a launch record (the profiler drops
 some while a session starts); such an event is placed by its own start
-only where the caller asks. Used by ``chip_smoke.py`` (device time a launch in
-phase 3) and ``scripts/torch_round_profile.py`` (device time a plane).
+only where the caller asks. Used by ``scripts/torch_round_profile.py``
+(device time a plane).
 """
 
 from __future__ import annotations

@@ -12,11 +12,12 @@ of corrosion_tpu/sim/telemetry.py).
   registry (duck-typed: ``counter``/``gauge``/``histogram``) as
   ``corro_kernel_*`` series.
 - **KernelTelemetry**: the bundle of sinks the four engines' run functions take as
-  ``telemetry=``; it times each chunk, spans it, and flushes it.
-
-The compile ledger and memory watermarks of the reference's
-``KernelTelemetry`` and its plane attribution belong to the bench
-harness and are not part of this module.
+  ``telemetry=``; it times each chunk, spans it, opens a kernel-library
+  ledger window around it (``obs.ledger``), samples memory watermarks at
+  its boundary (``obs.costs``) and flushes it.
+- **Plane attribution** (the bench half): ``time_scan_step``,
+  ``PlaneAttribution``, ``attribute_planes`` and the emitted-report
+  invariants ``check_bench_invariants``.
 """
 
 from __future__ import annotations
@@ -414,6 +415,13 @@ class KernelTelemetry:
     exclude)``) takes one registry snapshot per chunk boundary at the
     absolute round reached, with the level gauges refreshed first.
     ``chunk_walls`` collects (rounds, wall seconds) per chunk.
+
+    ``ledger`` (``obs.ledger.CompileLedger``, duck-typed) opens a window
+    labelled ``<engine>@r<start>`` around each chunk: a kernel-library
+    build or load the chunk set off goes into the flight record (``kind:
+    "compile"``) and the registry, and an ARMED ledger turns one into a
+    ``RetraceError``. ``watermarks`` (``obs.costs.MemoryWatermarks``)
+    samples the live device bytes at every chunk boundary.
     """
 
     engine: str = "dense"
@@ -422,12 +430,15 @@ class KernelTelemetry:
     tracer: object | None = None
     progress: IO[str] | None = None
     chunk_walls: list = field(default_factory=list)
+    ledger: object | None = None
+    watermarks: object | None = None
     series: object | None = None
     series_exclude: tuple = ("corro_kernel_chunk_seconds",)
 
     def run_chunk(self, start_round: int, fn: Callable):
-        """Run one chunk ``fn() -> (state, curves)`` under a span, time it
-        until the card has finished it, then flush it to every sink.
+        """Run one chunk ``fn() -> (state, curves)`` under a span and a
+        ledger window, time it until the card has finished it, then sample
+        the watermarks and flush it to every sink.
 
         The port's round is eager, so the wall holds the host's enqueue of
         the chunk's launches as well as the device's work. No curve value
@@ -436,8 +447,12 @@ class KernelTelemetry:
             self.tracer.span("kernel_chunk", engine=self.engine, start_round=int(start_round))
             if self.tracer is not None else contextlib.nullcontext()
         )
+        ledger_cm = (
+            self.ledger.window(f"{self.engine}@r{int(start_round)}")
+            if self.ledger is not None else contextlib.nullcontext()
+        )
         t0 = time.perf_counter()
-        with span_cm as span:
+        with span_cm as span, ledger_cm as cwin:
             state, curves = fn()
             _synchronize(state)
             wall = time.perf_counter() - t0
@@ -445,6 +460,17 @@ class KernelTelemetry:
             if span is not None:
                 span.set_attr("rounds", n)
                 span.set_attr("wall_s", round(wall, 6))
+        if self.watermarks is not None:
+            # The chunk boundary: the carried state and the chunk's curves
+            # are live now.
+            self.watermarks.sample()
+        if cwin is not None and not cwin.nested and (cwin.compiles or cwin.fns):
+            # A nested window (this chunk ran inside a caller's window,
+            # which owns the attribution) reports nothing here.
+            if self.recorder is not None:
+                self.recorder.record_event(cwin.to_record())
+            if self.registry is not None:
+                self.ledger.publish_window(self.registry, cwin, engine=self.engine)
         self.on_chunk(start_round, curves, wall, n_rounds=n)
         return state, curves
 
@@ -508,3 +534,203 @@ def flight_path_from_argv(argv, default: str = "flight.jsonl") -> str | None:
         if a.startswith("--flight="):
             return a.split("=", 1)[1] or default
     return None
+
+
+# ---------------------------------------------------------------------------
+# Plane attribution (the bench half).
+
+
+def time_scan_step(step, carry, iters: int = 10) -> float:
+    """Warm ms an iteration of ``carry = step(carry, i)`` for i in
+    0..iters-1: one untimed warm-up step, then ``iters`` eager steps
+    bracketed by a wait for the card (nothing to wait for on the CPU) and
+    ``perf_counter``. The port has no scan to hide dispatch in, so the
+    host's enqueue of every launch is inside the number, as it is in a
+    real round of the port."""
+    _synchronize(step(carry, 0))
+    _synchronize(carry)
+    t0 = time.perf_counter()
+    out = carry
+    for i in range(iters):
+        out = step(out, i)
+    _synchronize(out)
+    return (time.perf_counter() - t0) / iters * 1000.0
+
+
+@dataclass(frozen=True)
+class PlaneAttribution:
+    """Cumulative-prefix stage timings for a composite step.
+
+    ``cum_ms[k]`` is the measured wall an iteration with the first ``k``
+    stages enabled (``cum_ms[0]`` = the empty step's overhead). The
+    increments telescope to the full composite exactly, which ``check``
+    asserts."""
+
+    stages: tuple
+    cum_ms: tuple
+
+    @property
+    def full_ms(self) -> float:
+        return self.cum_ms[-1]
+
+    @property
+    def overhead_ms(self) -> float:
+        return self.cum_ms[0]
+
+    @property
+    def increments(self) -> dict:
+        return {s: self.cum_ms[k + 1] - self.cum_ms[k] for k, s in enumerate(self.stages)}
+
+    def check(self, tol: float = 1e-9) -> None:
+        total = self.overhead_ms + sum(self.increments.values())
+        assert abs(total - self.full_ms) <= tol * max(abs(self.full_ms), 1.0), (
+            f"telescoping broken: overhead {self.overhead_ms} + increments "
+            f"{self.increments} != full {self.full_ms}"
+        )
+
+    def scale(self, step_ms: float) -> tuple[dict, float]:
+        """Project the measured stage fractions onto a run's real wall a
+        round: ``(plane_ms, residual_ms)`` with ``sum(plane_ms) +
+        residual_ms == step_ms`` by construction; the residual carries the
+        empty step's overhead, noise clamping and host work the composite
+        cannot see."""
+        self.check()
+        if self.full_ms <= 0:
+            return {s: 0.0 for s in self.stages}, step_ms
+        plane = {
+            s: max(inc, 0.0) / self.full_ms * step_ms for s, inc in self.increments.items()
+        }
+        residual = step_ms - sum(plane.values())
+        assert abs(sum(plane.values()) + residual - step_ms) <= 1e-9 * max(abs(step_ms), 1.0)
+        return plane, residual
+
+
+def check_bench_invariants(report: dict, tol: float = 1e-6, extra_provenance: tuple = ()) -> dict:
+    """Check the step-time invariants on an emitted bench report, as they
+    appear in the JSON, and return the report unchanged; raises ValueError
+    naming the offending field (a real exception, so ``python -O`` keeps
+    it).
+
+    - **Provenance**: ``platform``, ``nodes``, ``device_count`` and
+      ``config_fingerprint`` (and ``extra_provenance``) are required.
+    - For the base fields and every suffixed variant (``step_ms_100k``):
+      ``step_inner_ms <= step_ms``, and ``sum(plane_ms) + residual_ms ==
+      step_ms``.
+    - **Roofline**: a top-level ``plane_ms`` requires a ``roofline`` block
+      with an entry per plane carrying ``flops``/``bytes``/``flops_per_s``/
+      ``bytes_per_s``/``intensity``, the rates equal to ``flops (bytes) /
+      plane_ms`` recomputed from the emitted numbers.
+    - **Compile split**: ``compile_ms`` requires ``first_step_ms``, both
+      non-negative, and with ``first_run_incl_compile_s`` the split must
+      reconstruct it.
+    - **Steady state is build-free**: ``steady_compiles`` must be 0.
+    """
+    for name in ("platform", "nodes", "device_count", "config_fingerprint", *extra_provenance):
+        v = report.get(name)
+        if v is None or v == "":
+            raise ValueError(
+                f"bench report is missing provenance field {name!r}: every emitted "
+                f"bench JSON must be self-describing (platform, nodes, device_count, "
+                f"config_fingerprint) so a CPU-fallback run can never pass as an "
+                f"accelerator artifact"
+            )
+    suffixes = sorted({k[len("step_ms"):] for k in report if k.startswith("step_ms")})
+    for sfx in suffixes:
+        step = report[f"step_ms{sfx}"]
+        inner = report.get(f"step_inner_ms{sfx}")
+        if inner is not None and not inner <= step + tol:
+            raise ValueError(
+                f"step_inner_ms{sfx}={inner} > step_ms{sfx}={step}: "
+                f"chunk-execution windows exceed the run wall"
+            )
+        plane = report.get(f"plane_ms{sfx}")
+        if plane is not None:
+            residual = report.get(f"residual_ms{sfx}", 0.0)
+            total = sum(plane.values()) + residual
+            if not abs(total - step) <= tol * max(abs(step), 1.0):
+                raise ValueError(
+                    f"plane_ms{sfx} {plane} + residual_ms{sfx} {residual} = {total} != "
+                    f"step_ms{sfx} {step}: attribution must partition the measured step time"
+                )
+
+    plane = report.get("plane_ms")
+    if plane is not None:
+        roof = report.get("roofline")
+        if not isinstance(roof, dict):
+            raise ValueError(
+                "report carries plane_ms but no roofline block: every plane "
+                "attribution must also carry flops/bytes per plane "
+                "(obs/costs.roofline_stage_costs + benchlib.roofline_report)"
+            )
+        missing = set(plane) - set(roof)
+        if missing:
+            raise ValueError(
+                f"roofline is missing plane(s) {sorted(missing)}: the flop/byte "
+                f"attribution must cover every timed plane"
+            )
+        for name, entry in roof.items():
+            for f in ("flops", "bytes", "flops_per_s", "bytes_per_s", "intensity"):
+                if f not in entry:
+                    raise ValueError(f"roofline.{name} is missing {f!r}")
+            ms = plane.get(name)
+            if ms and entry["flops_per_s"] is not None:
+                want = entry["flops"] / (ms / 1000.0)
+                if abs(entry["flops_per_s"] - want) > 5e-3 * max(want, 1.0):
+                    raise ValueError(
+                        f"roofline.{name}.flops_per_s {entry['flops_per_s']} != "
+                        f"flops/plane_ms {want:.1f}: achieved rates must be derived "
+                        f"from the emitted numbers"
+                    )
+            if ms and entry["bytes_per_s"] is not None:
+                want = entry["bytes"] / (ms / 1000.0)
+                if abs(entry["bytes_per_s"] - want) > 5e-3 * max(want, 1.0):
+                    raise ValueError(
+                        f"roofline.{name}.bytes_per_s {entry['bytes_per_s']} != "
+                        f"bytes/plane_ms {want:.1f}"
+                    )
+
+    compile_ms = report.get("compile_ms")
+    if compile_ms is not None:
+        first_step = report.get("first_step_ms")
+        if first_step is None:
+            raise ValueError(
+                "compile_ms without first_step_ms: the ledger split publishes both "
+                "halves of the first-run blob or neither"
+            )
+        if compile_ms < 0 or first_step < 0:
+            raise ValueError(
+                f"negative compile split: compile_ms={compile_ms} first_step_ms={first_step}"
+            )
+        first_run_s = report.get("first_run_incl_compile_s")
+        if first_run_s is not None:
+            total = compile_ms + first_step
+            want = first_run_s * 1000.0
+            if abs(total - want) > 0.5 + tol * max(want, 1.0):
+                raise ValueError(
+                    f"compile_ms {compile_ms} + first_step_ms {first_step} = {total} != "
+                    f"first_run_incl_compile_s*1000 = {want}: the split must reconstruct "
+                    f"the first-run blob exactly"
+                )
+
+    steady = report.get("steady_compiles")
+    if steady is not None and steady != 0:
+        raise ValueError(
+            f"steady_compiles={steady}: the ledger observed a kernel-library build or "
+            f"load inside the armed timed window; the measurement must not publish"
+        )
+    return report
+
+
+def attribute_planes(make_step, stages: tuple, carry, iters: int = 10) -> PlaneAttribution:
+    """Cumulative-prefix attribution: time ``make_step(enabled)`` with the
+    stages enabled one at a time in execution order; a stage's cost is the
+    increment over the previous prefix. ``make_step(())`` must return a
+    valid (identity) step: its time is the overhead, kept visible as
+    ``overhead_ms``."""
+    cum = tuple(
+        time_scan_step(make_step(tuple(stages[:k])), carry, iters)
+        for k in range(len(stages) + 1)
+    )
+    attr = PlaneAttribution(stages=tuple(stages), cum_ms=cum)
+    attr.check()
+    return attr

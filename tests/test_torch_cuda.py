@@ -408,3 +408,74 @@ def test_sharded_dense_run_equals_the_unsharded_card_run(cuda):
     cpu = flat({"state": interop.to_numpy(cpu_final), "curves": cpu_curves})
     bad = [k for k in card if not np.array_equal(card[k], cpu[k])]
     assert not bad, bad
+
+
+# The kernel-library ledger's positive control: a real build (into a fresh
+# directory, not loaded) and the first launch's load are recorded, and an
+# armed ledger sees nothing more at the next launch. In a fresh
+# interpreter: this one may have the library loaded already.
+def test_ledger_records_a_real_build_and_load(cuda, tmp_path):
+    code = (
+        "from pathlib import Path\n"
+        "import torch\n"
+        "from corrosion_tpu_torch import cuda_build\n"
+        "from corrosion_tpu_torch.obs import ledger\n"
+        "from corrosion_tpu_torch.ops import onehot\n"
+        "led = ledger.CompileLedger().watch_engines().install()\n"
+        "home = cuda_build.BUILD_DIR\n"
+        f"cuda_build.BUILD_DIR = Path({str(tmp_path / 'build')!r})\n"
+        "with led.window('build') as b:\n"
+        "    secs = cuda_build.build()\n"
+        "assert b.kinds == {'build': 1} and b.compile_ms > 0 and secs > 0 and not b.fns, b\n"
+        "cuda_build.BUILD_DIR = home\n"
+        "idx = torch.zeros((2, 3), dtype=torch.int64, device='cuda')\n"
+        "with led.window('first launch') as w:\n"
+        "    onehot.rowmax(idx, idx + 1, None, 4)\n"
+        "assert w.kinds.get('load') == 1 and w.fns == dict.fromkeys(onehot.OPERATORS, 1), w\n"
+        "led.arm('steady')\n"
+        "with led.window('steady') as s:\n"
+        "    onehot.rowmax(idx, idx + 1, None, 4)\n"
+        "torch.cuda.synchronize()\n"
+        "assert s.compiles == 0 and not s.fns and led.armed_compiles == 0\n"
+        "print('recorded')\n"
+    )
+    repo = Path(__file__).resolve().parent.parent
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=repo, capture_output=True, text=True, timeout=900,
+        env=dict(os.environ, PYTHONPATH=str(repo)),
+    )
+    assert res.returncode == 0 and res.stdout.strip() == "recorded", res.stdout + res.stderr
+
+
+# The cost model counts a kernel-bearing function as one op whichever
+# implementation runs: the tiny dense entry on the card equals the CPU's.
+def test_cost_entry_on_the_card_equals_the_cpu(cuda):
+    from corrosion_tpu_torch.obs import costs
+
+    card = costs.cost_entry("dense", device="cuda")
+    cpu = costs.cost_entry("dense", device="cpu")
+    for k in ("flops", "bytes_accessed", "ops", "kernel_calls", "config_fingerprint"):
+        assert card[k] == cpu[k], (k, card[k], cpu[k])
+    assert 0 < card["allocator_peak_bytes"]
+
+
+# Watermarks sampled at each chunk boundary on the card: the allocator's
+# live bytes, never above its peak, covering the placement at rest.
+def test_watermarks_on_the_card(cuda):
+    from corrosion_tpu_torch import parallel
+    from corrosion_tpu_torch.models import baselines
+    from corrosion_tpu_torch.obs import costs
+    from corrosion_tpu_torch.sim import engine, telemetry
+
+    cfg, topo, sched = baselines.wan_100k(n=2000, n_regions=4, n_writers=64, rounds=24,
+                                          device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wm = costs.MemoryWatermarks()
+    final, _ = engine.simulate(cfg, topo, sched, seed=0, max_chunk=8, device="cuda",
+                               telemetry=telemetry.KernelTelemetry(watermarks=wm))
+    assert wm.samples == 3 and set(wm.peak) >= {"cuda:0"}
+    assert 0 < wm.peak["cuda:0"] <= wm.allocator_peak["cuda:0"] <= torch.cuda.max_memory_allocated()
+    rep = costs.reconcile_memory(parallel.shard_cluster_state(final, parallel.make_mesh(1)),
+                                 watermarks=wm)
+    assert rep["held_bytes_by_device"]["cuda:0"] <= wm.peak["cuda:0"]

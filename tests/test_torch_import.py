@@ -35,7 +35,8 @@ def test_port_imports_no_jax_and_no_reference():
         "        'corrosion_tpu_torch.parallel.shard_driver', 'corrosion_tpu_torch.elastic',\n"
         "        'corrosion_tpu_torch.elastic.report', 'corrosion_tpu_torch.elastic.reshard',\n"
         "        'corrosion_tpu_torch.elastic.preempt',\n"
-        "        'corrosion_tpu_torch.elastic.scenarios'} <= set(names)\n"
+        "        'corrosion_tpu_torch.elastic.scenarios', 'corrosion_tpu_torch.sim.benchlib',\n"
+        "        'corrosion_tpu_torch.obs.ledger', 'corrosion_tpu_torch.obs.costs'} <= set(names)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'corrosion_tpu' or m.startswith('corrosion_tpu.'))\n"
         "assert not bad, bad\n"
@@ -87,6 +88,31 @@ def test_entry_points_raise_without_cuda():
         "placed, _ = parallel.simulate_sharded(cfg, topo, sched, mesh)\n"
         "assert all(b.device.type == 'cpu' for b in placed.data.contig.blocks)\n"
         "assert final.chunks.have.starts.device.type == 'cpu'\n"
+        "print('ok')\n"
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_bench_and_cost_modules_need_no_cuda_and_no_triton():
+    res = _run(
+        "import sys, torch\n"
+        "assert not torch.cuda.is_available()\n"
+        "from corrosion_tpu_torch.sim import benchlib, telemetry\n"
+        "from corrosion_tpu_torch.obs import costs, ledger\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'corrosion_tpu', 'triton'))\n"
+        "assert not bad, bad\n"
+        "assert telemetry.check_bench_invariants and telemetry.attribute_planes\n"
+        "for call in (lambda: costs.cost_entry('chunk'),\n"
+        "             lambda: costs.build_cost_model(engines=('chunk',)),\n"
+        "             lambda: costs.capacity_model(node_counts=(4096,)),\n"
+        "             lambda: benchlib.measure_multichip(device_counts=(1,))):\n"
+        "    try:\n"
+        "        call()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'CUDA' in str(e), e\n"
+        "    else:\n"
+        "        raise SystemExit('ran without CUDA and without a device')\n"
         "print('ok')\n"
     )
     assert res.returncode == 0, res.stderr

@@ -1,6 +1,6 @@
 """Device time by profiler range (``corrosion_tpu_torch.profiling``), on a
-hand-written chrome trace: the attribution that ``chip_smoke.py`` phase 3
-and ``scripts/torch_round_profile.py`` read device time through."""
+hand-written chrome trace: the attribution that
+``scripts/torch_round_profile.py`` reads device time through."""
 
 from corrosion_tpu_torch.profiling import device_events_by_range, launch_times
 
