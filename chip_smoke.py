@@ -72,10 +72,18 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    that spares the origins), and ``mixed_storm(n=64, streams=2, rounds=24)``
    without cells, with cells, under kill/revive/wipe and adaptive with
    ``prop_observe`` (conservation). The CPU side of every small run goes
-   in one worker process while the card runs its side;
+   in one worker process, started with the card's side and checked after
+   phase 11: it runs at the lowest priority with a core left to this
+   process, beside phases 4-11;
 5. full-size ``wan_100k()`` (100,000 nodes, 20 regions, 512 writers), all
    240 rounds in chunks of 12: its four kernels launched, the watermark
-   invariants;
+   invariants; its telemetry also carries the port's metrics bridge (a
+   ``MetricsRegistry``, a ``Tracer`` exporting to ``build/flights`` and a
+   ``MetricSeriesRecorder`` with ``clock=None``): one series header and 20
+   samples at rounds 12, 24, ..., 240, ``corro_kernel_rounds_total`` 240
+   and every ``corro_kernel_*_total`` counter its curve's float64 sum, 20
+   ``kernel_chunk`` spans, and the endurance report over the series ok
+   (the soak lane's kernel detectors at 100,000 nodes);
 6. full-size ``merge_10k()`` (10,000 nodes, 10,000 writers), all 120
    rounds in chunks of 12: ``rowgather_wide``, ``rowmax``, ``rowgather``
    and ``delivery_reduce`` launched, the watermark invariants;
@@ -118,11 +126,14 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    state bytes equal to the prediction; ``anywrite_sparse(n=2000, ...)``
    on 4 positions and the merge_10k burst at n=2560 (the legacy delivery)
    on 2, each equal to its unsharded card run; the elastic drills
-   (``reshard_{dense,sparse,chunk,mixed}_4to8``, ``preempt_dense_churn``)
-   on the card, each equal to its uninterrupted run, the preemption's
-   recovery machinery fired, the budget gate ok on its survival fields,
-   each report equal to the CPU's. Phase 3 times the kernels at the shard
-   bodies' row blocks;
+   (``reshard_{dense,sparse,chunk,mixed}_4to8``, ``preempt_dense_churn``,
+   ``soak_preempt``) on the card, each equal to its uninterrupted run, the
+   preemption's recovery machinery fired, the soak drill's counter resets
+   classified as restarts in a series of one header, the budget gate ok on
+   its survival fields, each report equal to the CPU's (run in one worker
+   process, ``python3 chip_smoke.py --cpu-elastic-drills OUT``, while the
+   card runs its side). Phase 3 times the kernels at the shard bodies' row
+   blocks;
 14. the bench harness and the device-cost plane: merge_10k in full (seed
    1) with the ledger armed and ``KernelTelemetry(ledger=, watermarks=)``,
    its plane attribution and roofline stage costs, the bench report put
@@ -133,7 +144,18 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    of the four engines at their tiny configs on the card, equal in flops,
    bytes and kernel calls to the CPU's (built by phase 4's worker); and the
    capacity curve against the card's memory, its 512-node point exact and
-   its 100,352-node point a placement measured here.
+   its 100,352-node point a placement measured here;
+15. the host oracles against the card's planes (``sim/host_oracles.py``):
+   the reference's two possession-window traces through
+   ``gossip.broadcast_round`` on the card, fast delivery
+   (``delivery_reduce``, ``window_delivery``) and legacy (``rowgather_wide``,
+   ``rowsum``), possession and need sets equal to ``BookedVersions`` after
+   every delivered round; the writer rotation trace (``table_gather``),
+   claims equal to the bookies'; the interval sets against
+   ``Partial``/``RangeSet`` in eight small trials and at 1.6 M rows (32
+   batched chunk arrivals, 2,000 rows replayed on the host); and the native
+   codec built on the card's host (``build/native``), equal to the Python
+   codec.
 
 Phases 5 (wan_100k), 10 (anti_entropy_chunks at 1,000 nodes) and 11 pass
 ``telemetry=KernelTelemetry(recorder=FlightRecorder(...), progress=
@@ -143,10 +165,10 @@ recorder's ``device_step_ms`` is logged beside the CUDA-event ms/round.
 
 The launch counts are reset just before each main-path run (phases 5-8
 and 11, the pairs of runs of phases 9 and 10, phase 12, each of phase
-13's four paths and each of phase 14's paths: the merge_10k run, its plane
+13's four paths, each of phase 14's paths: the merge_10k run, its plane
 attribution, the multi-device lane's sharded runs, read at the lane's note
-that its attribution begins, that attribution, and the cost model) and
-read just after it. Each phase logs its wall time. The last lines are a ``kernels`` JSON line,
+that its attribution begins, that attribution, and the cost model, and
+each of phase 15's five paths) and read just after it. Each phase logs its wall time. The last lines are a ``kernels`` JSON line,
 the nvidia-smi line, and the result line ``{"ok": true, "device": {...}}``.
 Each kernel's entry carries its launches summed over the paths and,
 under ``by_path``, each path's launches and the times and bound of every
@@ -222,12 +244,20 @@ PATH_KERNELS = {
                         "table_gather"),
     "bench_multichip_attribution": ("rowmax", "rowgather", "delivery_reduce"),
     "bench_costs": ("rowmax", "rowgather", "delivery_reduce", "table_gather"),
+    # Phase 15: the host oracles against the card's planes (the possession
+    # window on each delivery path, the writer rotation, the chunk
+    # plane's interval sets, which have no kernel, and the native codec).
+    "window_bookie_fast": ("delivery_reduce", "window_delivery"),
+    "window_bookie_legacy": ("rowgather_wide", "rowsum", "delivery_reduce"),
+    "rotation_bookie": ("table_gather",),
+    "coverage_rangeset": (),
+    "native_codec": (),
 }
 # Phase 13 runs wan_100k's first rounds sharded; phase 5 keeps its state
 # and curves there to hold them to.
 SHARDED_ROUNDS = 48
 ELASTIC_DRILLS = ("reshard_dense_4to8", "reshard_sparse_4to8", "reshard_chunk_4to8",
-                  "reshard_mixed_4to8", "preempt_dense_churn")
+                  "reshard_mixed_4to8", "preempt_dense_churn", "soak_preempt")
 CHUNK_100K_ROUNDS = 48  # phase 10's 100,000-node run (the 1,000-node run takes all 240)
 REPO = Path(__file__).resolve().parent
 FLIGHTS = REPO / "build" / "flights"  # flight records of the telemetry-carrying phases
@@ -1000,6 +1030,7 @@ def cpu_small_runs(out: str) -> int:
     from corrosion_tpu_torch.obs import costs
     from corrosion_tpu_torch.ops import gossip
 
+    t_all = time.perf_counter()
     runs = []
     for _, builder, kw, transform, chunk, adapt, knobs in SMALL_RUNS:
         t0 = time.perf_counter()
@@ -1009,27 +1040,73 @@ def cpu_small_runs(out: str) -> int:
     t0 = time.perf_counter()
     model = costs.build_cost_model(device_counts=costs.DEVICE_COUNTS, device="cpu")
     Path(out).write_bytes(pickle.dumps(
-        {"runs": runs, "cost_model": model, "cost_model_s": time.perf_counter() - t0}
+        {"runs": runs, "cost_model": model, "cost_model_s": time.perf_counter() - t0,
+         "s": time.perf_counter() - t_all}
     ))
     return 0
 
 
-def check_small_runs(onehot, gossip) -> dict:
-    """Each small run on the card (kernels) equals the CPU run (plain
-    versions); the merge_10k runs launch the two wide-path kernels, the
-    anywrite runs demote, heal and launch ``table_gather``, the adaptive
-    runs launch ``table_gather`` and kill rumors. The CPU runs go in one
-    worker process (``cpu_small_runs``, no card visible to it) while the
-    card runs its side; the worker has ended before the checks, so the
-    timed phases after this one have the host to themselves. Returns the
-    worker's CPU cost model (phase 14)."""
-    out_path = REPO / "build" / "small_runs_cpu.pkl"
+def run_drills(device: str) -> dict:
+    """Every drill of ``ELASTIC_DRILLS`` on ``device``, its checkpoints
+    and the soak drill's series under ``build/elastic/<device>``."""
+    from corrosion_tpu_torch.elastic import scenarios
+
+    base = REPO / "build" / "elastic" / device
+    base.mkdir(parents=True, exist_ok=True)
+    return {
+        n: scenarios.run_scenario(
+            n, checkpoint_dir=str(base / n), device=device,
+            series_path=str(base / f"{n}.series.jsonl") if n == "soak_preempt" else None,
+        )
+        for n in ELASTIC_DRILLS
+    }
+
+
+def cpu_elastic_drills(out: str) -> int:
+    """``python3 chip_smoke.py --cpu-elastic-drills OUT``: the elastic
+    drills on the CPU and their seconds, pickled into ``OUT``. Phase 13
+    starts it as a worker process while the card runs its side."""
+    t0 = time.perf_counter()
+    reports = run_drills("cpu")
+    Path(out).write_bytes(pickle.dumps({"reports": reports, "s": time.perf_counter() - t0}))
+    return 0
+
+
+def start_worker(flag: str, out_path: Path) -> subprocess.Popen:
+    """This script with ``flag OUT`` in a process that sees no card, at
+    the lowest priority and with one thread fewer than the host's cores,
+    so this process's host thread always finds a core."""
     out_path.parent.mkdir(parents=True, exist_ok=True)
     out_path.unlink(missing_ok=True)
-    worker = subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--cpu-small-runs", str(out_path)],
-        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+    threads = str(max(1, len(os.sched_getaffinity(0)) - 1))
+    return subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), flag, str(out_path)],
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS=threads),
+        preexec_fn=lambda: os.nice(19),
     )
+
+
+def join_worker(worker: subprocess.Popen, out_path: Path, what: str):
+    """Wait for a worker and return what it pickled."""
+    rc = worker.wait()
+    assert rc == 0, f"{what} failed (exit code {rc})"
+    return pickle.loads(out_path.read_bytes())
+
+
+def stop_worker(worker: subprocess.Popen) -> None:
+    """Kill a worker still running (its caller failed first)."""
+    if worker.poll() is None:
+        worker.kill()
+        worker.wait()
+
+
+def start_small_runs(onehot, gossip) -> tuple:
+    """Phase 4's card side: each small run on the card, its launch counts
+    read just after it, while a worker process (``cpu_small_runs``, no card
+    visible to it) runs the CPU side. The worker goes on beside the next
+    phases; ``check_small_runs`` joins it. Returns what that takes."""
+    out_path = REPO / "build" / "small_runs_cpu.pkl"
+    worker = start_worker("--cpu-small-runs", out_path)
     card = []
     try:
         for _, builder, kw, transform, chunk, adapt, knobs in SMALL_RUNS:
@@ -1039,13 +1116,25 @@ def check_small_runs(onehot, gossip) -> dict:
                               lambda: _small_run(builder, kw, transform, chunk, adapt, "cuda"))
             torch.cuda.synchronize()
             card.append((*out, time.perf_counter() - t0, dict(onehot.LAUNCHES)))
-        rc = worker.wait()
+    except BaseException:
+        stop_worker(worker)
+        raise
+    return worker, out_path, card
+
+
+def check_small_runs(worker, out_path: Path, card: list) -> dict:
+    """Each small run on the card (kernels) equals the CPU run (plain
+    versions); the merge_10k runs launch the two wide-path kernels, the
+    anywrite runs demote, heal and launch ``table_gather``, the adaptive
+    runs launch ``table_gather`` and kill rumors. Joins phase 4's worker
+    first. Returns the worker's CPU cost model (phase 14)."""
+    t0 = time.perf_counter()
+    try:
+        worker_out = join_worker(worker, out_path, "phase 4: the CPU side of the small runs")
     finally:
-        if worker.poll() is None:
-            worker.kill()
-            worker.wait()
-    assert rc == 0, f"phase 4: the CPU side of the small runs failed (exit code {rc})"
-    worker_out = pickle.loads(out_path.read_bytes())
+        stop_worker(worker)
+    log(f"phase 4: the CPU side took {worker_out['s']:.1f} s in the worker, the card side "
+        f"{sum(r[4] for r in card):.1f} s; waited for the worker {time.perf_counter() - t0:.1f} s")
     cpu = worker_out["runs"]
     for (label, builder, kw, transform, chunk, adapt, knobs), ra, rb in zip(SMALL_RUNS, card, cpu):
         (fa, ca, ia, rounds, ta, launches), (fb, cb, ib, _, tb) = ra, rb
@@ -1132,14 +1221,110 @@ def check_conservation(label: str, curves: dict) -> None:
         f"{label}: rumor-age mass != vis_count"
 
 
-def flight_telemetry(name: str, engine: str):
+def flight_telemetry(name: str, engine: str, **bridge):
     """A ``KernelTelemetry`` recording a fresh flight at ``FLIGHTS/name``
-    and writing one progress line a chunk to stderr."""
+    and writing one progress line a chunk to stderr; ``bridge`` passes a
+    ``registry``, ``tracer`` and ``series`` on to it."""
     from corrosion_tpu_torch.sim import telemetry
 
     FLIGHTS.mkdir(parents=True, exist_ok=True)
     rec = telemetry.FlightRecorder(str(FLIGHTS / f"{name}.jsonl"), engine=engine, mode="w")
-    return telemetry.KernelTelemetry(engine=engine, recorder=rec, progress=sys.stderr)
+    return telemetry.KernelTelemetry(engine=engine, recorder=rec, progress=sys.stderr, **bridge)
+
+
+def bridge_telemetry(name: str, engine: str):
+    """``flight_telemetry`` carrying the port's metrics bridge as well: a
+    ``MetricsRegistry``, a ``Tracer`` exporting its spans to
+    ``FLIGHTS/name.spans.jsonl`` and a ``MetricSeriesRecorder`` at
+    ``FLIGHTS/name.series.jsonl`` with ``clock=None``, one sample a chunk."""
+    from corrosion_tpu_torch.obs.series import MetricSeriesRecorder
+    from corrosion_tpu_torch.utils.metrics import MetricsRegistry
+    from corrosion_tpu_torch.utils.tracing import Tracer
+
+    FLIGHTS.mkdir(parents=True, exist_ok=True)
+    spans = FLIGHTS / f"{name}.spans.jsonl"
+    spans.unlink(missing_ok=True)  # the tracer appends
+    return flight_telemetry(
+        name, engine, registry=MetricsRegistry(),
+        tracer=Tracer(service="chip_smoke", export_path=str(spans)),
+        series=MetricSeriesRecorder(str(FLIGHTS / f"{name}.series.jsonl"), source="kernel",
+                                    mode="w", clock=None),
+    )
+
+
+# The kernel lane's endurance detectors (the reference's
+# scripts/soak_smoke.py: t in rounds taken as seconds, no wedge pair, the
+# staleness ceiling and the false-alarm budget proportional to the
+# cluster's nodes, there 16) at N nodes; the leak ceilings of the two
+# kernel watermark gauges scale with N the same way from their defaults.
+SOAK_LANE_NODES = 16
+
+
+def kernel_endurance_kw(n_nodes: int) -> dict:
+    from corrosion_tpu_torch.obs import endurance
+
+    scale = n_nodes / SOAK_LANE_NODES
+    return dict(
+        t_scale_s=1.0, wedge_pairs=(),
+        leak_ceilings={
+            k: v * scale for k, v in endurance.DEFAULT_LEAK_CEILINGS.items()
+            if k.startswith("corro_kernel_")
+        },
+        slos=(
+            {"name": "convergence_staleness", "kind": "gauge",
+             "series": "corro_kernel_health_staleness_sum_last", "ceiling": 40.0 * n_nodes,
+             "objective": 0.80},
+            {"name": "probe_false_alarm_budget", "kind": "counter_budget",
+             "series": "corro_kernel_health_swim_false_alarms_last",
+             "allowed_per_hour": 3600.0 * n_nodes},
+        ),
+    )
+
+
+def check_bridge(tele, parts: list, n_nodes: int, phase: int, label: str) -> dict:
+    """Close the bridge's tracer and recorder and hold them to the run:
+    one series header and one sample a chunk at the absolute round
+    reached, ``corro_kernel_rounds_total`` the rounds run, every
+    ``corro_kernel_*_total`` counter its curve's float64 sum (chunk by
+    chunk, as the registry adds; and the whole curve's, for curves of
+    integers), one ``kernel_chunk`` span a chunk, and the endurance report
+    over the series ok. Returns the report."""
+    from corrosion_tpu_torch.obs import endurance, series
+    from corrosion_tpu_torch.sim import telemetry
+
+    tele.tracer.close()
+    tele.series.close()
+    ends = list(np.cumsum([len(p["need"]) for p in parts]))
+    data = series.replay_series(tele.series.path)
+    assert len(data["headers"]) == 1, f"{label}: {len(data['headers'])} series headers"
+    assert [s["t"] for s in data["samples"]] == [float(e) for e in ends], f"{label}: sample rounds"
+    reg = tele.registry
+    eng = tele.engine
+    assert reg.counter("corro_kernel_rounds_total").get(engine=eng) == float(ends[-1])
+    checked = 0
+    for k in parts[0]:
+        if k in telemetry.LINK_CURVE_KEYS or k in telemetry.RUMOR_AGE_KEYS:
+            continue
+        got = reg.counter(f"{telemetry.series_name(k)}_total").get(engine=eng)
+        chunked = 0.0
+        for p in parts:
+            chunked += float(np.asarray(p[k], np.float64).sum())
+        assert got == chunked, f"{label}: {k} counter {got} != {chunked}"
+        whole = np.concatenate([np.asarray(p[k], np.float64) for p in parts])
+        if np.array_equal(whole, np.round(whole)) and abs(whole).sum() < 2.0**53:
+            assert got == float(whole.sum()), f"{label}: {k} counter {got} != {whole.sum()}"
+        checked += 1
+    spans = [json.loads(x) for x in (FLIGHTS / f"{label}.spans.jsonl").read_text().splitlines()]
+    assert [s["name"] for s in spans] == ["kernel_chunk"] * len(parts), f"{label}: spans"
+    assert [s["attrs"]["start_round"] for s in spans] == [0, *ends[:-1]]
+    rep = endurance.build_report(data["samples"], label=label, **kernel_endurance_kw(n_nodes))
+    assert rep["ok"], f"{label}: endurance breaches {rep['breaches']}"
+    log(f"phase {phase}: {label} metrics bridge: {len(data['samples'])} series samples at "
+        f"t={ends[0]}..{ends[-1]}, {checked} corro_kernel_*_total counters equal to their "
+        f"curves' float64 sums, {len(spans)} kernel_chunk spans; endurance ok, armed "
+        f"{json.dumps(rep['detectors_armed'])}, leaks "
+        f"{json.dumps({k: v.get('slope_per_hour') for k, v in rep['leaks'].items()})}")
+    return rep
 
 
 def check_flight(tele, curves: dict, phase: int, label: str, ms_per_round: float) -> None:
@@ -1217,8 +1402,9 @@ def full_run(onehot, gossip, phase: int, builder: str, keep: dict | None = None,
 
     cfg, topo, sched = build_path(builder)
     sparse = builder == "anywrite_sparse"
-    # wan_100k carries the flight recorder: one chunk a 12-round call.
-    tele = flight_telemetry(builder, "dense") if builder == "wan_100k" else None
+    # wan_100k carries the flight recorder and the metrics bridge: one
+    # chunk a 12-round call.
+    tele = bridge_telemetry(builder, "dense") if builder == "wan_100k" else None
     if sparse:
         chunks = sparse_epochs(cfg, topo, sched)
     else:
@@ -1271,6 +1457,7 @@ def full_run(onehot, gossip, phase: int, builder: str, keep: dict | None = None,
         f"wall {wall:.1f} s, peak memory {peak / 2**30:.2f} GiB")
     if tele is not None:
         check_flight(tele, curves, phase, builder, elapsed / done)
+        check_bridge(tele, parts, cfg.n_nodes, phase, builder)
     if sparse:
         assert sum(i["dev_dropped"] for i in infos) == 0, "deviation entries dropped"
         assert sparse_engine.converged_sparse(state), "anywrite_sparse did not converge"
@@ -1627,7 +1814,6 @@ def sharded_runs(onehot, gossip, kept: dict, phase: int = 13) -> dict:
 
     Returns the launch counts by path."""
     from corrosion_tpu_torch import parallel
-    from corrosion_tpu_torch.elastic import report, scenarios
     from corrosion_tpu_torch.models import baselines
     from corrosion_tpu_torch.obs import epidemic
     from corrosion_tpu_torch.parallel import mesh as mesh_mod
@@ -1729,19 +1915,35 @@ def sharded_runs(onehot, gossip, kept: dict, phase: int = 13) -> dict:
         f"{curves['xshard_bytes_ici'][0]:.0f}; launches {json.dumps(launches)}")
     del final, whole
 
-    # (d) the elastic drills, on the card and then on the CPU.
-    ckpt = REPO / "build" / "elastic"
-    onehot.reset_launches()
-    t0 = time.perf_counter()
-    card = {n: scenarios.run_scenario(n, checkpoint_dir=str(ckpt / "cuda" / n), device="cuda")
-            for n in ELASTIC_DRILLS}
-    torch.cuda.synchronize()
-    card_s = time.perf_counter() - t0
-    by_path["elastic"] = launches = dict(onehot.LAUNCHES)
-    t0 = time.perf_counter()
-    cpu = {n: scenarios.run_scenario(n, checkpoint_dir=str(ckpt / "cpu" / n), device="cpu")
-           for n in ELASTIC_DRILLS}
-    cpu_s = time.perf_counter() - t0
+    by_path["elastic"] = elastic_drills(onehot, phase)
+    log(f"phase {phase}: {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
+def elastic_drills(onehot, phase: int = 13) -> dict:
+    """Phase 13 (d): the elastic drills (``ELASTIC_DRILLS``) on the card
+    and, in a worker process beside it, on the CPU: each equal to its
+    uninterrupted run, the preemption's recovery machinery fired, the soak
+    drill's resets classified as restarts in a series of one header, the
+    budget gate's survival fields ok, each report equal to the CPU's.
+    Returns the drills' launch counts."""
+    from corrosion_tpu_torch.elastic import report, scenarios
+    from corrosion_tpu_torch.obs import series
+
+    out_path = REPO / "build" / "elastic_cpu.pkl"
+    worker = start_worker("--cpu-elastic-drills", out_path)
+    try:
+        onehot.reset_launches()
+        t0 = time.perf_counter()
+        card = run_drills("cuda")
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = dict(onehot.LAUNCHES)
+        worker_out = join_worker(worker, out_path, "phase 13: the CPU side of the elastic drills")
+    finally:
+        stop_worker(worker)
+    wait_s = time.perf_counter() - t0 - card_s
+    cpu, cpu_s = worker_out["reports"], worker_out["s"]
     missing = [k for k in PATH_KERNELS["elastic"] if launches[k] == 0]
     assert not missing, f"elastic drills: kernels never launched: {missing}"
     for n in ELASTIC_DRILLS:
@@ -1752,6 +1954,14 @@ def sharded_runs(onehot, gossip, kept: dict, phase: int = 13) -> dict:
         rep["wall_s"] = walls[0]
     mach = card["preempt_dense_churn"]["machinery"]
     assert mach["fired"] and mach["poison_changed"] and mach["replay_identical"], mach
+    soak = card["soak_preempt"]
+    events = len(scenarios.PREEMPT_EVENTS)
+    for stem in ("corro_changes_committed", "corro_changes_applied"):
+        r = soak["endurance"]["resets"][stem]
+        assert r["kinds"] == ["restart"] and r["events"] == events, (stem, r)
+    for dev in ("cuda", "cpu"):
+        data = series.replay_series(str(REPO / "build" / "elastic" / dev / "soak_preempt.series.jsonl"))
+        assert len(data["headers"]) == 1 and len(data["samples"]) == scenarios.PREEMPT_ROUNDS, dev
     budget = json.loads((REPO / "bench_budget.json").read_text())["elastic"]
     # The survival fields only: the budget's wall ceilings are the CPU lane's.
     gate = report.check_elastic_budget(
@@ -1761,12 +1971,14 @@ def sharded_runs(onehot, gossip, kept: dict, phase: int = 13) -> dict:
     assert gate["ok"], gate["breaches"]
     log(f"phase {phase}: elastic drills {', '.join(ELASTIC_DRILLS)} on the card: each equal "
         f"to its uninterrupted run and its report equal to the CPU's; preempt machinery "
-        f"{json.dumps(mach)}; budget gate ok on the survival fields; card {card_s:.1f} s, CPU "
-        f"{cpu_s:.1f} s; walls on the card "
+        f"{json.dumps(mach)}; soak_preempt: one series header, {scenarios.PREEMPT_ROUNDS} "
+        f"samples, each counter's {events} resets classified restart, endurance armed "
+        f"{json.dumps(soak['endurance']['detectors_armed'])}; budget gate ok on the survival "
+        f"fields; card {card_s:.1f} s, CPU (worker, beside it) {cpu_s:.1f} s, waited for the "
+        f"worker {wait_s:.1f} s; walls on the card "
         f"{json.dumps({n: round(report.wall_total(card[n]), 2) for n in ELASTIC_DRILLS})}; "
         f"launches {json.dumps(launches)}")
-    log(f"phase {phase}: {time.perf_counter() - t_phase:.1f} s")
-    return by_path
+    return launches
 
 
 # ---- phase 14: the bench harness and the device-cost plane -----------------
@@ -1961,6 +2173,68 @@ def bench_harness(onehot, led, first_run_s: float, compile_ms: float, cpu_costs:
     return by_path
 
 
+# ---- phase 15: the host oracles against the card's planes -------------------
+
+
+def host_oracles(onehot, phase: int = 15) -> dict:
+    """``core/``'s bookkeeping against the planes it is the oracle for, on
+    the card, each path's launch counts reset just before it and read just
+    after (``sim/host_oracles.py``):
+
+    - ``window_bookie_fast`` and ``window_bookie_legacy``: the reference's
+      two possession-window traces through ``gossip.broadcast_round`` on a
+      3-node harness (``window_k`` 32), on the fast delivery and on the
+      legacy one, possession and need sets equal to ``BookedVersions``
+      after every delivered round;
+    - ``rotation_bookie``: promotion, forced demotion, ``cold_sync`` and
+      hot-slot delivery on 4 nodes, claims equal to the bookies';
+    - ``coverage_rangeset``: the reference's eight trials of the interval
+      sets against ``Partial``/``RangeSet``, then 32 batched chunk arrivals
+      into ``anti_entropy_chunks(n=100_000)``'s 1.6 M rows, 2,000 of them
+      replayed through ``RangeSet``;
+    - ``native_codec``: the native codec built on this host, against the
+      Python codec.
+
+    Returns the launch counts by path."""
+    from corrosion_tpu_torch.models import baselines
+    from corrosion_tpu_torch.sim import host_oracles as H
+
+    t_phase = time.perf_counter()
+    by_path, secs = {}, {}
+
+    def run(path: str, fn):
+        onehot.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[path] = round(time.perf_counter() - t0, 2)
+        by_path[path] = launches = dict(onehot.LAUNCHES)
+        missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
+        assert not missing, f"{path}: kernels never launched on its path: {missing}"
+        log(f"phase {phase}: {path} equal to its host oracle in {secs[path]:.2f} s: "
+            f"{json.dumps(out)}; launches {json.dumps(launches)}")
+
+    run("window_bookie_fast", lambda: H.window_bookie("cuda"))
+    run("window_bookie_legacy", lambda: H.window_bookie("cuda", legacy=True))
+    run("rotation_bookie", lambda: H.rotation_trace("cuda"))
+    ccfg, _, last_seq, _ = baselines.anti_entropy_chunks(n=100_000, device="cuda")
+    rows = ccfg.n_nodes * ccfg.n_streams
+
+    def coverage():
+        trials = H.coverage_trials("cuda")
+        t0 = time.perf_counter()
+        full = H.coverage_full_width(
+            "cuda", rows=rows, cap=ccfg.cap, last_seq=int(last_seq[0]), chunk_len=ccfg.chunk_len,
+        )
+        return {"trials": trials, "full_width": full, "full_width_s": round(time.perf_counter() - t0, 2)}
+
+    run("coverage_rangeset", coverage)
+    run("native_codec", H.native_codec)
+    log(f"phase {phase}: seconds by path {json.dumps(secs)}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def kernel_rows(measured: list, by_path: dict) -> list:
     """The ``kernels`` line: one entry per kernel from phase 3's
     measurements and the main paths' launch counts."""
@@ -2030,21 +2304,27 @@ def main() -> int:
     measured = check_kernels(onehot, "cuda")
     lap("phase 3")
     check_tie_rules()
-    cpu_costs = check_small_runs(onehot, gossip)
-    lap("phase 4")
+    small = start_small_runs(onehot, gossip)
+    lap("phase 4 on the card")
     by_path, kept, walls = {}, {}, {}
-    for phase, path in (
-        (5, "wan_100k"), (6, "merge_10k"), (7, "anywrite_sparse"), (8, "wan_100k_adaptive"),
-    ):
-        by_path[path] = full_run(onehot, gossip, phase, path,
-                                 keep=kept if path == "wan_100k" else None, walls=walls)
-        lap(f"phase {phase}")
-    by_path["geo_10k"] = geo_run(onehot, gossip)
-    lap("phase 9")
-    by_path["anti_entropy_chunks"] = chunk_runs(onehot, gossip)
-    lap("phase 10")
-    by_path["mixed_storm"] = mixed_run(onehot, gossip)
-    lap("phase 11")
+    try:
+        for phase, path in (
+            (5, "wan_100k"), (6, "merge_10k"), (7, "anywrite_sparse"), (8, "wan_100k_adaptive"),
+        ):
+            by_path[path] = full_run(onehot, gossip, phase, path,
+                                     keep=kept if path == "wan_100k" else None, walls=walls)
+            lap(f"phase {phase}")
+        by_path["geo_10k"] = geo_run(onehot, gossip)
+        lap("phase 9")
+        by_path["anti_entropy_chunks"] = chunk_runs(onehot, gossip)
+        lap("phase 10")
+        by_path["mixed_storm"] = mixed_run(onehot, gossip)
+        lap("phase 11")
+    except BaseException:
+        stop_worker(small[0])
+        raise
+    cpu_costs = check_small_runs(*small)
+    lap("phase 4's checks")
     by_path["consumers"] = consumers(onehot)
     lap("phase 12")
     by_path.update(sharded_runs(onehot, gossip, kept))
@@ -2054,6 +2334,8 @@ def main() -> int:
     by_path.update(bench_harness(onehot, led, built.wall_ms / 1e3 + walls["merge_10k"],
                                  built.compile_ms, cpu_costs))
     lap("phase 14")
+    by_path.update(host_oracles(onehot))
+    lap("phase 15")
     rows = kernel_rows(measured, by_path)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build to the end")
     print(json.dumps({"kernels": rows}), flush=True)
@@ -2067,4 +2349,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cpu-small-runs"]:
         sys.exit(cpu_small_runs(sys.argv[2]))
+    if sys.argv[1:2] == ["--cpu-elastic-drills"]:
+        sys.exit(cpu_elastic_drills(sys.argv[2]))
     sys.exit(main())

@@ -6,9 +6,8 @@ corrosion_tpu/elastic/).
   ``predicted_per_device_bytes`` reconciled exactly before every resume;
 - ``elastic.preempt``: a hard kill of one position's block, then recovery
   from the last checkpoint and a replay of the gap;
-- ``elastic.scenarios``: the named drills (the reshard matrix and
-  ``preempt_dense_churn``; ``soak_preempt`` waits for the port's host
-  planes);
+- ``elastic.scenarios``: the named drills (the reshard matrix,
+  ``preempt_dense_churn`` and ``soak_preempt``);
 - ``elastic.report``: the bit-exact diff helpers and the ``elastic`` gate
   of ``bench_budget.json``.
 

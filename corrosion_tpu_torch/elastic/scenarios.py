@@ -12,9 +12,10 @@ built in (counterpart of corrosion_tpu/elastic/scenarios.py).
   invariant, end equal to the never-preempted run, and show its recovery
   machinery fired.
 
-``soak_preempt``, the endurance tie-in, needs the metric-series recorder
-and the endurance detectors (``obs/series``, ``obs/endurance``), which
-the port does not hold yet: ``run_scenario`` refuses it by name.
+- **soak_preempt**: ``preempt_dense_churn``'s curves fed round by round
+  into a metric series whose counters restart at each preemption, through
+  a recorder re-``attach()``-ed at every event. The endurance detectors
+  must stay armed and classify every reset as a restart.
 """
 
 from __future__ import annotations
@@ -281,7 +282,109 @@ def run_preempt_scenario(
     return (result, run) if _return_run else result
 
 
-def run_scenario(name: str, seed: int = 0, checkpoint_dir: str | None = None, device=None) -> dict:
+def run_soak_preempt_scenario(
+    series_path: str, seed: int = 0, devices: int = 8, device=None,
+) -> dict:
+    """Preemption during a soak: the preempted dense run's curves (on
+    ``device``, default CUDA) feed a deterministic metric series (one
+    sample per round, counters cumulative and reset at each recovery, as
+    a relaunched process starts from zero), through a recorder that is
+    re-``attach()``-ed at every event (the idempotent-install contract
+    across an in-process reshard). The endurance detectors must stay
+    armed and classify every reset as a restart: no fake leak, wedge or
+    stall."""
+    from corrosion_tpu_torch.obs import endurance
+    from corrosion_tpu_torch.obs import series as series_mod
+    from corrosion_tpu_torch.utils.metrics import MetricsRegistry
+
+    scen, run = run_preempt_scenario(seed=seed, devices=devices, device=device, _return_run=True)
+
+    msgs = np.asarray(run.curves["msgs"], np.float64)
+    applied = np.asarray(run.curves["applied_broadcast"], np.float64)
+    need = np.asarray(run.curves["need"], np.float64)
+    event_rounds = {r for r, _ in run.events}
+
+    rec = series_mod.MetricSeriesRecorder.attach(
+        series_path, clock=None, source="elastic-soak", mode="w"
+    )
+    adoption_ok = True
+    attaches = 1
+    try:
+        reg = MetricsRegistry()
+        for r in range(run.rounds):
+            if r in event_rounds:
+                # The preempted process is replaced: counters restart
+                # from zero; the series recorder must be adopted, not
+                # reopened (no second header, no torn record).
+                reg = MetricsRegistry()
+                rec2 = series_mod.MetricSeriesRecorder.attach(series_path)
+                attaches += 1
+                adoption_ok = adoption_ok and (rec2 is rec)
+            reg.counter("corro_changes_committed").inc(float(msgs[r]))
+            reg.counter("corro_changes_applied").inc(float(applied[r]))
+            reg.gauge("corro_sync_needs").set(float(need[r]))
+            rec.sample(reg, t=float(r))
+    finally:
+        # attach() refcounts: one close per successful attach.
+        for _ in range(attaches):
+            rec.close()
+
+    data = series_mod.replay_series(series_path)
+    erep = endurance.build_report(
+        data["samples"], t_scale_s=scen["round_ms"] / 1000.0, label="elastic-soak-preempt",
+    )
+
+    violations: list = list(scen["violations"])
+    if len(data["headers"]) != 1:
+        violations.append(
+            f"{len(data['headers'])} series headers — re-attach across "
+            f"the preemption reopened instead of adopting"
+        )
+    if not adoption_ok:
+        violations.append("attach() returned a different recorder")
+    resets = erep["resets"]
+    for stem in ("corro_changes_committed", "corro_changes_applied"):
+        kinds = set((resets.get(stem) or {}).get("kinds", []))
+        n_ev = (resets.get(stem) or {}).get("events", 0)
+        if kinds != {"restart"} or n_ev != len(run.events):
+            violations.append(
+                f"counter {stem}: resets classified {sorted(kinds)} "
+                f"x{n_ev}, want {{'restart'}} x{len(run.events)}"
+            )
+    if not erep["detectors_armed"]["wedge"]:
+        violations.append("wedge detector never armed — harness failure")
+    if not erep["ok"]:
+        violations.extend(f"endurance: {b}" for b in erep["breaches"])
+
+    ok = scen["ok"] and not violations
+    return {
+        "schema": ELASTIC_SCHEMA,
+        "scenario": "soak_preempt",
+        "kind": "preempt",
+        "engine": "dense",
+        "devices": devices,
+        "bit_identical": scen["bit_identical"],
+        "mismatches": scen["mismatches"],
+        "violations": violations,
+        "machinery": scen["machinery"],
+        "reconcile": scen["reconcile"],
+        "endurance": {
+            "ok": erep["ok"],
+            "resets": erep["resets"],
+            "detectors_armed": erep["detectors_armed"],
+            "breaches": erep["breaches"],
+            "samples": erep["samples"],
+        },
+        "wall_s": scen["wall_s"],
+        "seed": seed,
+        "ok": bool(ok),
+    }
+
+
+def run_scenario(
+    name: str, seed: int = 0, checkpoint_dir: str | None = None,
+    series_path: str | None = None, device=None,
+) -> dict:
     """Dispatch a catalog name to its runner."""
     if name.startswith("reshard_"):
         engine, pair = name[len("reshard_"):].rsplit("_", 1)
@@ -292,9 +395,10 @@ def run_scenario(name: str, seed: int = 0, checkpoint_dir: str | None = None, de
     if name == "preempt_dense_churn":
         return run_preempt_scenario(seed=seed, checkpoint_dir=checkpoint_dir, device=device)
     if name == "soak_preempt":
-        raise NotImplementedError(
-            "soak_preempt needs the metric-series recorder and the endurance "
-            "detectors (obs/series, obs/endurance, utils/metrics), which the "
-            "port has not taken over yet: ROADMAP Queue 1 item 5, the host planes"
-        )
+        if series_path is None:
+            import tempfile
+
+            with tempfile.TemporaryDirectory() as td:
+                return run_soak_preempt_scenario(td + "/series.jsonl", seed=seed, device=device)
+        return run_soak_preempt_scenario(series_path, seed=seed, device=device)
     raise ValueError(f"unknown elastic scenario {name!r}; one of {scenario_names()}")

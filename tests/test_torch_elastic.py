@@ -188,9 +188,18 @@ def test_the_rest_of_the_catalog_holds(name, tmp_path):
     assert rep["checkpoint"]["schema"] == "corro-checkpoint/1"
 
 
-def test_soak_preempt_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tscenarios.run_scenario("soak_preempt", device="cpu")
+def test_soak_preempt_is_refused_by_name(monkeypatch, tmp_path):
+    """Names outside the catalog are refused; ``soak_preempt`` is in it
+    and dispatches to its runner with the caller's device and path (the
+    drill itself: ``test_torch_soak``)."""
+    calls = []
+    monkeypatch.setattr(tscenarios, "run_soak_preempt_scenario",
+                        lambda path, seed=0, device=None: calls.append((path, seed, device)) or {})
+    assert "soak_preempt" in tscenarios.scenario_names()
+    tscenarios.run_scenario("soak_preempt", seed=3, series_path=str(tmp_path / "s.jsonl"), device="cpu")
+    tscenarios.run_scenario("soak_preempt", device="cpu")
+    assert calls[0] == (str(tmp_path / "s.jsonl"), 3, "cpu")
+    assert calls[1][0].endswith("series.jsonl") and calls[1][2] == "cpu"
     with pytest.raises(ValueError, match="unknown elastic scenario"):
         tscenarios.run_scenario("drill_nothing", device="cpu")
 

@@ -14,8 +14,11 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 
 
-def _run(code: str) -> subprocess.CompletedProcess:
+def _run(code: str, **names) -> subprocess.CompletedProcess:
+    """Run ``code`` in a fresh interpreter, with each of ``names`` bound
+    to its value's ``repr`` first."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))
+    code = "".join(f"{k} = {v!r}\n" for k, v in names.items()) + code
     return subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=120,
@@ -37,13 +40,67 @@ def test_port_imports_no_jax_and_no_reference():
         "        'corrosion_tpu_torch.elastic.preempt',\n"
         "        'corrosion_tpu_torch.elastic.scenarios', 'corrosion_tpu_torch.sim.benchlib',\n"
         "        'corrosion_tpu_torch.obs.ledger', 'corrosion_tpu_torch.obs.costs'} <= set(names)\n"
+        "assert set(HOST_PLANES) <= set(names), set(HOST_PLANES) - set(names)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'corrosion_tpu' or m.startswith('corrosion_tpu.'))\n"
         "assert not bad, bad\n"
-        "print('clean', len(names))\n"
+        "print('clean', len(names))\n",
+        HOST_PLANES=HOST_PLANES,
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("clean")
+
+
+# The host planes: modules that import no torch, some of them only inside
+# functions (the soak drill's runner, ``record_process_sample``).
+HOST_PLANES = (
+    "corrosion_tpu_torch.native", "corrosion_tpu_torch.core", "corrosion_tpu_torch.core.values",
+    "corrosion_tpu_torch.core.ids", "corrosion_tpu_torch.core.hlc",
+    "corrosion_tpu_torch.core.changes", "corrosion_tpu_torch.core.intervals",
+    "corrosion_tpu_torch.core.bookkeeping", "corrosion_tpu_torch.utils",
+    "corrosion_tpu_torch.utils.metrics", "corrosion_tpu_torch.utils.tracing",
+    "corrosion_tpu_torch.utils.backoff", "corrosion_tpu_torch.utils.spawn",
+    "corrosion_tpu_torch.utils.tripwire", "corrosion_tpu_torch.utils.locks",
+    "corrosion_tpu_torch.utils.logfmt", "corrosion_tpu_torch.obs.series",
+    "corrosion_tpu_torch.obs.endurance", "corrosion_tpu_torch.sim.host_oracles",
+)
+
+
+def test_lazy_imports_of_the_host_planes_stay_in_the_port():
+    """Every import inside a function of the host planes (read from their
+    source) names the port or the standard library, never JAX or the
+    reference; and importing them compiles nothing: the native build
+    waits for ``native.build()``."""
+    import ast
+    import importlib.util
+
+    for name in HOST_PLANES + ("corrosion_tpu_torch.elastic.scenarios",):
+        src = Path(importlib.util.find_spec(name).origin).read_text()
+        for node in ast.walk(ast.parse(src)):
+            if isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            elif isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            else:
+                continue
+            for m in mods:
+                top = m.split(".")[0]
+                assert top not in ("jax", "jaxlib", "corrosion_tpu"), (name, m)
+    res = _run(
+        "import subprocess, sys\n"
+        "calls = []\n"
+        "real = subprocess.run\n"
+        "subprocess.run = lambda *a, **k: calls.append(a) or real(*a, **k)\n"
+        "import importlib\n"
+        "for n in HOST_PLANES: importlib.import_module(n)\n"
+        "from corrosion_tpu_torch import native\n"
+        "assert calls == [], calls\n"
+        "assert callable(native.build) and native.BUILD_DIR.endswith('build/native')\n"
+        "print('ok')\n",
+        HOST_PLANES=HOST_PLANES,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
 
 
 def test_entry_points_raise_without_cuda():
