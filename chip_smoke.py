@@ -83,7 +83,9 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    samples at rounds 12, 24, ..., 240, ``corro_kernel_rounds_total`` 240
    and every ``corro_kernel_*_total`` counter its curve's float64 sum, 20
    ``kernel_chunk`` spans, and the endurance report over the series ok
-   (the soak lane's kernel detectors at 100,000 nodes);
+   (the soak lane's kernel detectors at 100,000 nodes); the final cell
+   planes, watermarks, window words and alive mask are held on the host
+   for phase 15, which moves them back to the card and frees them;
 6. full-size ``merge_10k()`` (10,000 nodes, 10,000 writers), all 120
    rounds in chunks of 12: ``rowgather_wide``, ``rowmax``, ``rowgather``
    and ``delivery_reduce`` launched, the watermark invariants;
@@ -153,9 +155,25 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    every delivered round; the writer rotation trace (``table_gather``),
    claims equal to the bookies'; the interval sets against
    ``Partial``/``RangeSet`` in eight small trials and at 1.6 M rows (32
-   batched chunk arrivals, 2,000 rows replayed on the host); and the native
+   batched chunk arrivals, 2,000 rows replayed on the host); the native
    codec built on the card's host (``build/native``), equal to the Python
-   codec.
+   codec, with the transport's frames (kind 1 and kind 0, decoded by the
+   pure-Python decoder) and one loopback exchange of two ``Transport``s
+   on 127.0.0.1 (a frame, a datagram, a sync session); then the agent's
+   host oracles: the SQLite CRDT ``Store`` against the reference's six
+   random-stream trials (``crdt.apply_changes`` on the card), against the
+   engines' cell merge on 16 nodes x 256 cells (``rowmax``,
+   ``rowgather``) and against phase 5's final wan_100k cells (every
+   committed version in two orders == ``serial_merge_reference``; every
+   converged alive row equal to the store in one broadcast compare; at
+   round 48, kept by phase 13 on the host, 16 rows that fall short of
+   ``head`` each equal to a store of exactly the versions they hold); the
+   kernels' down-member GC beside the host ``Swim``'s GC and
+   adaptive transmissions; 40 seeds of sync's ring preference (the grants
+   merged into cells: ``rowmax``, ``rowgather``; node 0's row equal to a
+   store) and ``rtt_ring``'s edges; and ``obs.journey`` over
+   phase 5's flight with the schedule's write trace. The stores' files go
+   under ``build/host_oracles``.
 
 Phases 5 (wan_100k), 10 (anti_entropy_chunks at 1,000 nodes) and 11 pass
 ``telemetry=KernelTelemetry(recorder=FlightRecorder(...), progress=
@@ -168,7 +186,7 @@ and 11, the pairs of runs of phases 9 and 10, phase 12, each of phase
 13's four paths, each of phase 14's paths: the merge_10k run, its plane
 attribution, the multi-device lane's sharded runs, read at the lane's note
 that its attribution begins, that attribution, and the cost model, and
-each of phase 15's five paths) and read just after it. Each phase logs its wall time. The last lines are a ``kernels`` JSON line,
+each of phase 15's eleven paths) and read just after it. Each phase logs its wall time. The last lines are a ``kernels`` JSON line,
 the nvidia-smi line, and the result line ``{"ok": true, "device": {...}}``.
 Each kernel's entry carries its launches summed over the paths and,
 under ``by_path``, each path's launches and the times and bound of every
@@ -252,6 +270,16 @@ PATH_KERNELS = {
     "rotation_bookie": ("table_gather",),
     "coverage_rangeset": (),
     "native_codec": (),
+    # The agent's host oracles: the CRDT store against the cell merges
+    # (the trials' scatter merge and phase 5's final state launch nothing
+    # themselves), the host SWIM beside the kernels' GC, sync's ring
+    # preference, and write journeys over phase 5's flight.
+    "store_crdt_trials": (),
+    "store_crdt_plane": ("rowmax", "rowgather"),
+    "store_crdt_full": (),
+    "membership_gc": (),
+    "membership_rings": ("rowmax", "rowgather"),
+    "journey_wan_100k": (),
 }
 # Phase 13 runs wan_100k's first rounds sharded; phase 5 keeps its state
 # and curves there to hold them to.
@@ -1395,8 +1423,10 @@ def full_run(onehot, gossip, phase: int, builder: str, keep: dict | None = None,
     """A main path at full size, every round of its schedule, one call per
     chunk (dense engine) or epoch (sparse engine), with the launch counts
     reset just before and read just after. ``keep`` takes the state, the
-    curves and the CUDA-event ms after ``SHARDED_ROUNDS`` rounds; ``walls``
-    the run's wall seconds under ``builder``."""
+    curves and the CUDA-event ms after ``SHARDED_ROUNDS`` rounds, and under
+    ``final`` the last round's cell planes, ``head``, ``contig``, window
+    words and alive mask (on the host), the gossip config and the
+    schedule's writes; ``walls`` the run's wall seconds under its name."""
     from corrosion_tpu_torch.parallel import mesh as mesh_mod
     from corrosion_tpu_torch.sim import sparse_engine
 
@@ -1439,6 +1469,14 @@ def full_run(onehot, gossip, phase: int, builder: str, keep: dict | None = None,
     wall = time.perf_counter() - t_wall
     if walls is not None:
         walls[builder] = wall
+    if keep is not None:
+        # Phase 15 holds the final cells to the SQLite store and reads the
+        # flight's write journeys. The cell planes, the watermarks and the
+        # window words are held on the host, as round 48's are.
+        d = state.data
+        keep["final"] = dict(mesh_mod.to_host(dict(
+            cells=d.cells, head=d.head, contig=d.contig, oo=d.oo, alive=state.swim.alive)),
+            cfg=cfg.gossip, writes=sched.writes)
     launches = dict(onehot.LAUNCHES)
     syncs = dict(gossip.HOST_SYNCS)
     curves = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
@@ -1866,7 +1904,12 @@ def sharded_runs(onehot, gossip, kept: dict, phase: int = 13) -> dict:
         f"== traffic_model ({tm['xshard_bytes_ici']:.0f}, {tm['xshard_bytes_dcn']:.0f}); state "
         f"bytes a position {predicted} == predicted ({predicted / whole:.4f} of the whole "
         f"{whole}); launches {json.dumps(launches)}; host syncs {json.dumps(syncs)}")
-    del state, parts, kept["state"]
+    mid = kept.pop("state")
+    # Phase 15 holds round 48's rows that fall short of head to the SQLite
+    # store: the cells, watermarks and window words stay on the host.
+    kept["mid"] = dict(cells=mid.data.cells, head=mid.data.head, contig=mid.data.contig,
+                       oo=mid.data.oo, alive=mid.swim.alive)
+    del state, parts, mid
 
     # (b) anywrite_sparse at n=2000 on 4 positions.
     cfg, topo, sched = baselines.anywrite_sparse(device="cuda", **SPARSE_SMALL)
@@ -2176,8 +2219,9 @@ def bench_harness(onehot, led, first_run_s: float, compile_ms: float, cpu_costs:
 # ---- phase 15: the host oracles against the card's planes -------------------
 
 
-def host_oracles(onehot, phase: int = 15) -> dict:
-    """``core/``'s bookkeeping against the planes it is the oracle for, on
+def host_oracles(onehot, kept: dict, phase: int = 15) -> dict:
+    """The host oracles (``core/``'s bookkeeping, the agent's store, SWIM
+    and transport, ``obs.journey``) against the planes they stand for, on
     the card, each path's launch counts reset just before it and read just
     after (``sim/host_oracles.py``):
 
@@ -2193,10 +2237,37 @@ def host_oracles(onehot, phase: int = 15) -> dict:
       into ``anti_entropy_chunks(n=100_000)``'s 1.6 M rows, 2,000 of them
       replayed through ``RangeSet``;
     - ``native_codec``: the native codec built on this host, against the
-      Python codec.
+      Python codec; the transport's frames of kind 1 (native) and kind 0
+      (JSON) through the pure-Python decoder, one loopback exchange of two
+      ``Transport``s on 127.0.0.1 (a frame, a datagram, a sync session)
+      under 10 s, and which merge the store runs (the CRDT extension, or
+      Python where ``sqlite3ext.h`` is missing);
+    - ``store_crdt_trials``: the reference's six random-stream trials
+      through two ``Store``s in two orders and ``crdt.apply_changes`` on
+      the card;
+    - ``store_crdt_plane``: four seeded delivery batches through the
+      engines' cell merge (``rowmax``, ``rowgather``) on 16 nodes x 256
+      cells, each row equal to a ``Store`` of its changes;
+    - ``store_crdt_full``: phase 5's final wan_100k state (``kept["final"]``,
+      the host copy moved to the card and freed here): the store of every committed version in two orders ==
+      ``serial_merge_reference``, every converged alive row equal to it in
+      one broadcast compare (at least one); then the same at round 48
+      (``kept["mid"]``, phase 13's host copy, moved to the card), where 16
+      rows that fall short of ``head`` are each held to a store of exactly
+      the versions they hold (at least one);
+    - ``membership_gc``: the kernels' down-member GC (dense and sparse)
+      beside the host ``Swim``'s GC and adaptive transmissions, each under
+      10 s;
+    - ``membership_rings``: 40 seeds of ``gossip.sync_round``'s ring
+      preference, the grants merged into 64 cells (``rowmax``,
+      ``rowgather``), node 0's row equal to a store of what it holds, and
+      ``rtt_ring``'s exact edges;
+    - ``journey_wan_100k``: ``obs.journey`` over phase 5's flight with the
+      schedule's write trace, its totals reconciled with the flight.
 
     Returns the launch counts by path."""
     from corrosion_tpu_torch.models import baselines
+    from corrosion_tpu_torch.parallel import mesh as mesh_mod
     from corrosion_tpu_torch.sim import host_oracles as H
 
     t_phase = time.perf_counter()
@@ -2229,7 +2300,38 @@ def host_oracles(onehot, phase: int = 15) -> dict:
         return {"trials": trials, "full_width": full, "full_width_s": round(time.perf_counter() - t0, 2)}
 
     run("coverage_rangeset", coverage)
-    run("native_codec", H.native_codec)
+
+    def codec():
+        out = H.native_codec()
+        out["frames"] = H.transport_frames()
+        out["loopback"] = H.transport_loopback()
+        out["store_merge"] = "native" if H.store_merge() else "python"
+        return out
+
+    run("native_codec", codec)
+    run("store_crdt_trials", lambda: H.store_crdt_trials("cuda"))
+    run("store_crdt_plane", lambda: H.store_crdt_plane("cuda"))
+    final, mid = kept.pop("final"), kept.pop("mid")
+
+    def full():
+        # Both host copies (phase 5's last round, phase 13's round 48) go
+        # back to the card one at a time.
+        keys = ("cells", "head", "contig", "oo", "alive")
+        last = mesh_mod.assemble({k: final[k] for k in keys}, "cuda")
+        out = H.store_crdt_full(*(last[k] for k in keys), final["cfg"])
+        assert out["converged_rows"] >= 1, "wan_100k: no converged row to hold to the store"
+        del last
+        # Round 48, where rows fall short of head.
+        at_48 = mesh_mod.assemble(mid, "cuda")
+        out["round_48"] = H.store_crdt_full(*(at_48[k] for k in keys), final["cfg"])
+        assert out["round_48"]["short_rows_checked"] >= 1, "wan_100k: no short row at round 48"
+        return out
+
+    run("store_crdt_full", full)
+    run("membership_gc", lambda: H.membership_gc("cuda"))
+    run("membership_rings", lambda: H.membership_rings("cuda"))
+    run("journey_wan_100k",
+        lambda: H.journey_check(str(FLIGHTS / "wan_100k.jsonl"), final["writes"]))
     log(f"phase {phase}: seconds by path {json.dumps(secs)}; "
         f"{time.perf_counter() - t_phase:.1f} s")
     return by_path
@@ -2334,7 +2436,7 @@ def main() -> int:
     by_path.update(bench_harness(onehot, led, built.wall_ms / 1e3 + walls["merge_10k"],
                                  built.compile_ms, cpu_costs))
     lap("phase 14")
-    by_path.update(host_oracles(onehot))
+    by_path.update(host_oracles(onehot, kept))
     lap("phase 15")
     rows = kernel_rows(measured, by_path)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build to the end")

@@ -17,13 +17,26 @@ tests/test_mixed_engine.py); here they run on the card as well.
 - ``coverage_trials`` and ``coverage_full_width``: batched chunk arrivals
   into the chunk plane's interval sets against ``Partial``/``RangeSet``;
 - ``native_codec``: the native PK codec and value order against the
-  Python ones.
+  Python ones;
+- the agent's host oracles: the SQLite CRDT ``Store`` against the cell
+  merges (``store_crdt_trials``: the reference's random-stream trials
+  against ``crdt.apply_changes``; ``store_crdt_plane``: the engines'
+  row-dense merge; ``store_crdt_full``: a run's cells, converged rows
+  against a store of every committed version and short rows against a
+  store of exactly what they hold), the host ``Swim``'s down-member GC
+  beside the kernels' (``membership_gc``), sync's ring preference
+  (``membership_rings``), write journeys over a flight
+  (``journey_check``) and the transport's frames and a loopback exchange
+  (``transport_frames``, ``transport_loopback``). The stores' databases
+  go under ``DEFAULT_STORE_ROOT`` (``build/host_oracles``) or ``root``.
 """
 
 from __future__ import annotations
 
+import asyncio
 import math
 from contextlib import contextmanager
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -31,7 +44,7 @@ import torch
 from corrosion_tpu_torch import rng
 from corrosion_tpu_torch.core.bookkeeping import BookedVersions, Current, Partial
 from corrosion_tpu_torch.core.intervals import RangeSet
-from corrosion_tpu_torch.ops import gossip, intervals
+from corrosion_tpu_torch.ops import crdt, gossip, intervals
 from corrosion_tpu_torch.ops import sparse_writers as sw
 
 # -- the possession window against BookedVersions -----------------------------
@@ -443,3 +456,615 @@ def native_codec() -> dict:
             want = -1 if ka < kb else (1 if ka > kb else 0)
             assert mod.value_cmp(a, b) == want, (a, b)
     return {**status, "samples": len(CODEC_SAMPLES), "cmp_pairs": len(CMP_VALUES) ** 2}
+
+
+# -- the CRDT store against the cell merges -----------------------------------
+
+# One simulated cell is one row of this table (tests/test_crdt_differential.py's
+# mapping): key k, value ``value_rank``.
+CELLS_TABLE = "cells"
+CELLS_SCHEMA = f"CREATE TABLE {CELLS_TABLE} (k INTEGER NOT NULL PRIMARY KEY, v INTEGER)"
+# The store's own actor id; remote changes carry their writer's (``site_id``).
+STORE_SITE = b"\xff" * 16
+# The reference's random-stream trials: seed, trials, keys, changes a site.
+TRIAL_SEED = 7
+TRIALS = 6
+TRIAL_KEYS = 8
+TRIAL_CHANGES = 40
+# The 16-node plane: 8 writers of up to 64 versions, 4 delivery batches of
+# 64 entries a node, two cells a version.
+PLANE_NODES = 16
+PLANE_CELLS = 256
+PLANE_WRITERS = 8
+PLANE_MAX_VERSION = 64
+PLANE_BATCHES = 4
+PLANE_WIDTH = 64
+PLANE_CELLS_PER_WRITE = 2
+PLANE_SEED = 13
+# Rows of a full-width state held to a store of exactly their versions.
+FULL_SAMPLE = 16
+FULL_SEED = 5
+# The engines' round length (``ClusterConfig.round_ms``, which every
+# baseline keeps): a schedule's round r is wall time r * ROUND_MS.
+ROUND_MS = 500.0
+# The limit on each host exchange (the Swim checks, the loopback).
+HOST_LIMIT_S = 10.0
+DEFAULT_STORE_ROOT = Path(__file__).resolve().parents[2] / "build" / "host_oracles"
+
+
+def site_id(writer: int) -> bytes:
+    """Writer ``writer``'s fixed 16-byte site id."""
+    return int(writer).to_bytes(16, "big")
+
+
+def fresh_store(root, name: str):
+    """A new ``Store`` with the cells table at ``root/name``; any earlier
+    database of that name (and its WAL files) is removed first."""
+    from corrosion_tpu_torch.agent.store import Store
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    path = root / name
+    for p in (path, path.with_name(path.name + "-wal"), path.with_name(path.name + "-shm")):
+        p.unlink(missing_ok=True)
+    store = Store(str(path), STORE_SITE)
+    store.apply_schema(CELLS_SCHEMA)
+    return store
+
+
+def cell_change(key: int, cl: int, cv: int, val: int, site: bytes, db_version: int,
+                seq: int):
+    """One ``Change`` of cell ``key``: an odd ``cl`` writes column ``v``, an
+    even one is the row's delete marker."""
+    from corrosion_tpu_torch.core.values import Change, pack_columns
+
+    pk = pack_columns([int(key)])
+    if cl % 2 == 0:
+        return Change(table=CELLS_TABLE, pk=pk, cid=Change.DELETE_CID, val=None,
+                      col_version=int(cv), db_version=db_version, seq=seq, site_id=site,
+                      cl=int(cl))
+    return Change(table=CELLS_TABLE, pk=pk, cid="v", val=int(val), col_version=int(cv),
+                  db_version=db_version, seq=seq, site_id=site, cl=int(cl))
+
+
+def derived_changes(writers, versions, n_cells: int, cells_per_write: int) -> list:
+    """The changes of committed versions (``writers[i]``, ``versions[i]``),
+    in that order: slot j of a version is ``crdt.derive_change(w, v, j,
+    n_cells)`` as ``Change`` ``seq`` j of the writer's ``db_version`` v."""
+    w = torch.as_tensor(np.asarray(writers, np.int64))
+    v = torch.as_tensor(np.asarray(versions, np.int64))
+    slots = [[t.tolist() for t in crdt.derive_change(w, v, j, n_cells)]
+             for j in range(cells_per_write)]
+    out = []
+    for i, (wi, vi) in enumerate(zip(w.tolist(), v.tolist())):
+        site = site_id(wi)
+        for j, (key, cl, cv, vr) in enumerate(slots):
+            out.append(cell_change(key[i], cl[i], cv[i], vr[i], site, vi, j))
+    return out
+
+
+def store_cells(store, n_cells: int) -> tuple:
+    """The store's cells as three int64 arrays (cl, col_version, value):
+    cl from the causal-length table (0 where the store never saw the key),
+    col_version from the clock of column ``v``, the value from the table
+    (0 where the row is gone)."""
+    from corrosion_tpu_torch.core.values import unpack_columns
+
+    cl = np.zeros(n_cells, np.int64)
+    cv = np.zeros(n_cells, np.int64)
+    val = np.zeros(n_cells, np.int64)
+    conn = store.conn
+    for pk, c in conn.execute(f'SELECT pk, cl FROM "{CELLS_TABLE}__crdt_rows"'):
+        cl[unpack_columns(pk)[0]] = c
+    for pk, c in conn.execute(
+        f'SELECT pk, col_version FROM "{CELLS_TABLE}__crdt_clock" WHERE cid = \'v\''
+    ):
+        cv[unpack_columns(pk)[0]] = c
+    for k, v in conn.execute(f'SELECT k, v FROM "{CELLS_TABLE}"'):
+        val[k] = 0 if v is None else v
+    return cl, cv, val
+
+
+def cells_mismatch(cl, cv, vr, want: tuple) -> torch.Tensor:
+    """bool per row of the plane's cells ``cl``/``cv``/``vr`` ([..., K] on
+    any device) that differ from the store's ``want`` (``store_cells``),
+    as tests/test_crdt_differential.py compares them: the causal length
+    everywhere (0 where the store never saw the key), the col_version and
+    the value where the row is live (odd)."""
+    dev = cl.device
+    w_cl, w_cv, w_val = (torch.as_tensor(a, device=dev) for a in want)
+    live = (w_cl % 2) == 1
+    ok = (cl == w_cl) & (~live | ((cv == w_cv) & (vr == w_val)))
+    return ~ok.all(dim=-1)
+
+
+def _assert_stores_equal(a: tuple, b: tuple, where: str) -> None:
+    bad = [name for name, x, y in zip(("cl", "col_version", "value"), a, b)
+           if not np.array_equal(x, y)]
+    assert not bad, f"{where}: the two stores differ in {bad}"
+
+
+def store_merge(root=DEFAULT_STORE_ROOT) -> bool:
+    """Whether this host's store merges through the native CRDT helpers."""
+    store = fresh_store(root, "probe.db")
+    try:
+        return store.native_crdt
+    finally:
+        store.close()
+
+
+def random_changes(gen: np.random.Generator, n: int, site: bytes) -> list:
+    """tests/test_crdt_differential.py's stream: (key, cl, col_version,
+    value, site), about a sixth of them deletes (even cl)."""
+    out = []
+    for _ in range(n):
+        key = int(gen.integers(0, TRIAL_KEYS))
+        cl = int(gen.integers(1, 4))
+        cl = cl * 2 if gen.random() < 1 / 6 else cl * 2 - 1
+        cv = int(gen.integers(1, 6))
+        val = int(gen.integers(0, 1000))
+        out.append((key, cl, cv, val, site))
+    return out
+
+
+def _trial_changes(stream: list) -> list:
+    # A delete carries col_version 1 (the store's sentinel), as the
+    # reference test writes it; db_version is the stream position.
+    return [cell_change(k, cl, 1 if cl % 2 == 0 else cv, val, site, i + 1, 0)
+            for i, (k, cl, cv, val, site) in enumerate(stream)]
+
+
+def store_crdt_trials(device=None, root=DEFAULT_STORE_ROOT) -> dict:
+    """The reference's six random-stream trials: 40 + 40 changes of two
+    sites over 8 keys, through two ``Store``s in two orders and through
+    ``crdt.apply_changes`` on ``device`` in one batch; the stores must be
+    equal and the cells equal to them."""
+    gen = np.random.default_rng(TRIAL_SEED)
+    merges = "native" if store_merge(root) else "python"
+    for trial in range(TRIALS):
+        site_a, site_b = site_id(2 * trial + 1), site_id(2 * trial + 2)
+        stream = (random_changes(gen, TRIAL_CHANGES, site_a)
+                  + random_changes(gen, TRIAL_CHANGES, site_b))
+        order = gen.permutation(len(stream))
+        states = []
+        for name, chs in ((f"trial{trial}_a.db", stream),
+                          (f"trial{trial}_b.db", [stream[i] for i in order])):
+            store = fresh_store(root, name)
+            try:
+                store.apply_changes(_trial_changes(chs))
+                states.append(store_cells(store, TRIAL_KEYS))
+            finally:
+                store.close()
+        _assert_stores_equal(*states, f"trial {trial}")
+        key, cl, cv, val = torch.as_tensor([c[:4] for c in stream], device=device).T.contiguous()
+        # A delete carries no cell write: col_version and value 0 in the
+        # kernel, as the reference test gives them.
+        dele = cl % 2 == 0
+        batch = crdt.ChangeBatch(
+            key=key, cl=cl, col_version=torch.where(dele, 0, cv),
+            value_rank=torch.where(dele, 0, val),
+            mask=torch.ones(len(stream), dtype=torch.bool, device=device),
+        )
+        cells = crdt.apply_changes(crdt.make_cells(TRIAL_KEYS, device), batch)
+        assert not bool(cells_mismatch(*cells, states[0])), f"trial {trial}: cells differ"
+    return {"trials": TRIALS, "changes": TRIALS * 2 * TRIAL_CHANGES, "merge": merges}
+
+
+def plane_batches(device=None) -> tuple:
+    """The 16-node plane's delivery batches, drawn on the host from one
+    seeded ``torch.Generator``: per writer a head in [1, 64], per batch and
+    node 64 entries (writer, a version at or below its head) and a mask
+    that keeps a node-specific share of them. Returns (head, [(writer,
+    version, mask) on ``device``, ...])."""
+    g = torch.Generator().manual_seed(PLANE_SEED)
+    head = torch.randint(1, PLANE_MAX_VERSION + 1, (PLANE_WRITERS,), generator=g)
+    keep = torch.rand(PLANE_NODES, 1, generator=g)
+    out = []
+    for _ in range(PLANE_BATCHES):
+        w = torch.randint(0, PLANE_WRITERS, (PLANE_NODES, PLANE_WIDTH), generator=g)
+        v = 1 + (torch.rand(PLANE_NODES, PLANE_WIDTH, generator=g, dtype=torch.float64)
+                 * head[w]).long()
+        mask = torch.rand(PLANE_NODES, PLANE_WIDTH, generator=g) < keep
+        out.append(tuple(x.to(device) for x in (w, v, mask)))
+    return head, out
+
+
+def store_crdt_plane(device=None, root=DEFAULT_STORE_ROOT) -> dict:
+    """``plane_batches`` through the engines' row-dense cell merge
+    (``gossip._merge_versions_dense``, every row) on ``device``, each node's
+    row held to a ``Store`` fed that node's derived changes in a shuffled
+    order."""
+    cfg = gossip.GossipConfig(n_nodes=PLANE_NODES, n_writers=PLANE_WRITERS,
+                              n_cells=PLANE_CELLS, cells_per_write=PLANE_CELLS_PER_WRITE)
+    _, batches = plane_batches(device)
+    cells = crdt.make_cells(PLANE_NODES * PLANE_CELLS, device)
+    merges = 0
+    for w, v, mask in batches:
+        cells, m = gossip._merge_versions_dense(cells, None, w, v, mask, None,
+                                                PLANE_NODES, cfg)
+        merges += int(m)
+    rows = [c.reshape(PLANE_NODES, PLANE_CELLS) for c in cells]
+    host = [tuple(x.cpu().numpy() for x in b) for b in batches]
+    gen = np.random.default_rng(PLANE_SEED)
+    changes = 0
+    for node in range(PLANE_NODES):
+        pairs = [(int(w[node, i]), int(v[node, i])) for w, v, mask in host
+                 for i in np.nonzero(mask[node])[0]]
+        pairs = [pairs[i] for i in gen.permutation(len(pairs))]
+        chs = derived_changes([p[0] for p in pairs], [p[1] for p in pairs],
+                              PLANE_CELLS, PLANE_CELLS_PER_WRITE)
+        changes += len(chs)
+        store = fresh_store(root, f"plane_node{node}.db")
+        try:
+            store.apply_changes(chs)
+            want = store_cells(store, PLANE_CELLS)
+        finally:
+            store.close()
+        bad = cells_mismatch(*(r[node] for r in rows), want)
+        assert not bool(bad), f"node {node}: cells differ from its store"
+    return {"nodes": PLANE_NODES, "cells": PLANE_CELLS, "cell_merges": merges,
+            "store_changes": changes}
+
+
+def held_versions(contig_row: np.ndarray, oo_row: np.ndarray) -> tuple:
+    """(writers, versions) a node holds: each writer's prefix 1..contig and
+    the versions whose window bit is set (``oo_row`` [B, W], bit b of word
+    k is version contig + 1 + 32k + b)."""
+    ws, vs = [], []
+    for w, c in enumerate(contig_row.tolist()):
+        ws += [w] * c
+        vs += range(1, c + 1)
+        for k in range(oo_row.shape[0]):
+            word = int(oo_row[k, w]) & 0xFFFFFFFF
+            for b in range(32):
+                if (word >> b) & 1:
+                    ws.append(w)
+                    vs.append(c + 1 + 32 * k + b)
+    return ws, vs
+
+
+def store_crdt_full(cells, head, contig, oo, alive, cfg, root=DEFAULT_STORE_ROOT,
+                    sample: int = FULL_SAMPLE) -> dict:
+    """A run's cells (``crdt.CellState`` of [N * K] planes) against the
+    SQLite store, on the device that holds them, with the run's ``head``
+    [W], ``contig`` [N, W], window words ``oo`` [B, N, W] and ``alive`` [N]
+    (a ``DataState``'s fields). One store takes every
+    committed (w, v <= head[w]) in two seeded orders: the two must be equal,
+    and equal to ``gossip.serial_merge_reference(head)`` on ``device``.
+    Every alive row whose ``contig`` equals ``head`` must equal that store
+    (one broadcast compare on the device). Then ``sample`` rows whose
+    ``contig`` falls short of ``head`` (drawn with a seeded generator) are
+    each held to a store fed exactly the versions they hold, their prefix
+    and their window bits."""
+    k, n = cfg.n_cells, contig.shape[0]
+    h = head.cpu().numpy().astype(np.int64)
+    ws = np.repeat(np.arange(len(h)), h)
+    vs = np.arange(len(ws)) - np.repeat(np.cumsum(h) - h, h) + 1
+    gen = np.random.default_rng(FULL_SEED)
+    states = []
+    for name in ("full_a.db", "full_b.db"):
+        order = gen.permutation(len(ws))
+        store = fresh_store(root, name)
+        try:
+            store.apply_changes(derived_changes(ws[order], vs[order], k, cfg.cells_per_write))
+            states.append(store_cells(store, k))
+        finally:
+            store.close()
+    _assert_stores_equal(*states, "the committed versions")
+    want = states[0]
+    ref = gossip.serial_merge_reference(head, cfg, head.device)
+    assert not bool(cells_mismatch(*ref, want)), "serial_merge_reference differs from the store"
+    rows = [c.reshape(n, k) for c in cells]
+    conv = alive & (contig == head[None, :]).all(dim=1)
+    n_conv = int(conv.sum())
+    n_bad = int((cells_mismatch(*rows, want) & conv).sum())
+    assert n_bad == 0, f"{n_bad} of {n_conv} converged rows differ from the store"
+    out = {"versions": int(len(ws)), "store_changes": int(len(ws)) * cfg.cells_per_write,
+           "converged_rows": n_conv, "rows": n}
+    short = torch.nonzero((contig < head[None, :]).any(dim=1)).flatten().cpu()
+    out["short_rows"] = int(short.numel())
+    g = torch.Generator().manual_seed(FULL_SEED)
+    picks = short[torch.randperm(short.numel(), generator=g)[:sample]].tolist()
+    contig_h = contig[picks].cpu().numpy()
+    oo_h = oo[:, picks].cpu().numpy()
+    held = 0
+    for i, row in enumerate(picks):
+        rws, rvs = held_versions(contig_h[i], oo_h[:, i])
+        held += len(rws)
+        order = gen.permutation(len(rws))
+        store = fresh_store(root, f"row{row}.db")
+        try:
+            store.apply_changes(derived_changes(np.asarray(rws, np.int64)[order],
+                                                np.asarray(rvs, np.int64)[order],
+                                                k, cfg.cells_per_write))
+            got = store_cells(store, k)
+        finally:
+            store.close()
+        assert not bool(cells_mismatch(*(r[row] for r in rows), got)), \
+            f"row {row}: cells differ from its store"
+    out.update(short_rows_checked=len(picks), short_rows_versions=held)
+    return out
+
+
+# -- SWIM: the host's down-member GC against the kernels' ---------------------
+
+
+def kernel_gc_states(device=None) -> dict:
+    """tests/test_membership_adaptive.py's kernel GC cases on ``device``:
+    every node believes node 3 down at incarnation 2, then one SWIM round
+    at ``down_gc_rounds`` 1 (dense view; sparse exception tables) and 0
+    (sparse, GC off). Returns the three states after the round."""
+    from corrosion_tpu_torch.ops import swim, swim_sparse
+
+    key = rng.PRNGKey(0, device)
+    rnd = torch.zeros((), dtype=torch.int64, device=device)
+    down = swim.pack(torch.tensor(2, device=device), swim.SEV_DOWN)
+    cfg = swim.SwimConfig(n_nodes=8, down_gc_rounds=1)
+    st = swim.init_state(cfg, device)
+    view = st.view.clone()
+    view[:, 3] = down
+    alive = st.alive.clone()
+    alive[3] = False
+    out = {"dense": swim.swim_round(st._replace(view=view, alive=alive), key, rnd, cfg)}
+    for name, gc in (("sparse", 1), ("sparse_gc_off", 0)):
+        cfg = swim.SwimConfig(n_nodes=8, view_capacity=4, down_gc_rounds=gc)
+        st = swim_sparse.init_state(cfg, device)
+        tgt, pkd, alive = st.exc_tgt.clone(), st.exc_pkd.clone(), st.alive.clone()
+        tgt[:, 0] = 3
+        pkd[:, 0] = down
+        alive[3] = False
+        out[name] = swim_sparse.swim_round(
+            st._replace(exc_tgt=tgt, exc_pkd=pkd, alive=alive), key, rnd, cfg)
+    return out
+
+
+# _noop_send never acks, so every probe waits this out (the indirect ones
+# twice); the checks read the GC and the transmissions, not the waits.
+PROBE_TIMEOUT_S = 0.05
+
+
+async def _noop_send(addr, msg):
+    return True
+
+
+async def _host_gc(membership) -> dict:
+    members = membership.Members("me")
+    sw = membership.Swim(members, ("127.0.0.1", 0), _noop_send, max_transmissions=4,
+                         probe_timeout=PROBE_TIMEOUT_S)
+    sw.down_gc_s = 0.05
+    a, b = "aa" * 16, "bb" * 16
+    members.apply_update(a, ("10.0.0.1", 1), membership.ALIVE, 0)
+    members.apply_update(b, ("10.0.0.2", 1), membership.ALIVE, 0)
+    members.apply_update(b, ("10.0.0.2", 1), membership.DOWN, 0)
+    assert b in members.states
+    await asyncio.sleep(0.1)
+    await sw.probe_round()
+    assert b not in members.states, "the down member outlived the GC horizon"
+    assert a in members.states, "the GC forgot an alive member"
+    return {"forgotten": 1, "kept": 1}
+
+
+async def _host_adaptive(membership) -> dict:
+    members = membership.Members("me")
+    sw = membership.Swim(members, ("127.0.0.1", 0), _noop_send, max_transmissions=4,
+                         probe_timeout=PROBE_TIMEOUT_S)
+    for i in range(2):  # 3 nodes: self and two
+        members.apply_update(f"{i:032x}", ("10.0.0.1", i + 1), membership.ALIVE, 0)
+    await sw.probe_round()
+    tx_small, ind_small = sw.max_transmissions, sw.indirect_probes
+    for i in range(2, 31):  # 32 members
+        members.apply_update(f"{i:032x}", ("10.0.0.1", i + 1), membership.ALIVE, 0)
+    await sw.probe_round()
+    assert sw.max_transmissions > tx_small and sw.max_transmissions >= 7
+    assert sw.indirect_probes >= ind_small
+    return {"max_transmissions": [tx_small, sw.max_transmissions],
+            "indirect_probes": [ind_small, sw.indirect_probes]}
+
+
+def membership_gc(device=None) -> dict:
+    """The kernels' down-member GC (``kernel_gc_states``: the dense view and
+    the sparse tables forget node 3's down beliefs, and keep them with the
+    GC off) beside the host ``Swim``'s (a down member forgotten after
+    ``down_gc_s``, an alive one kept) and its cluster-size-adaptive
+    transmissions (3 -> 32 members), the two host checks side by side,
+    each under ``HOST_LIMIT_S`` seconds."""
+    from corrosion_tpu_torch.agent import membership
+    from corrosion_tpu_torch.ops import swim
+
+    st = kernel_gc_states(device)
+    assert not bool((swim.packed_sev(st["dense"].view[:, 3]) == swim.SEV_DOWN).any()), \
+        "dense: down beliefs survived the GC horizon"
+    for name, kept in (("sparse", False), ("sparse_gc_off", True)):
+        s = st[name]
+        slots = (swim.packed_sev(s.exc_pkd) == swim.SEV_DOWN) & (s.exc_tgt == 3)
+        assert bool(slots.any()) == kept, f"{name}: down slots {'freed' if kept else 'kept'}"
+
+    async def host():
+        # Both wait out probe timeouts, so they run side by side.
+        return await asyncio.gather(
+            asyncio.wait_for(_host_gc(membership), HOST_LIMIT_S),
+            asyncio.wait_for(_host_adaptive(membership), HOST_LIMIT_S),
+        )
+
+    gc, adaptive = asyncio.run(host())
+    return {"kernel_cases": len(st), "host_gc": gc, "host_adaptive": adaptive}
+
+
+# -- sync's ring preference and the host ring classifier ----------------------
+
+RING_SEEDS = 40
+# The harness carries cells, so the sync's grants go through the engines'
+# cell merge (rowmax, rowgather) and node 0's row can be held to a store.
+RING_CELLS = 64
+
+
+def ring_config(cfg_cls=None):
+    """The ring harness's gossip config (``cfg_cls`` builds it: the port's
+    ``GossipConfig`` by default)."""
+    return (cfg_cls or gossip.GossipConfig)(
+        n_nodes=9, n_writers=2, fanout_near=0, fanout_far=0, sync_interval=1,
+        sync_budget=4, sync_chunk=4, sync_peers=1, sync_candidates=8, n_cells=RING_CELLS,
+    )
+
+
+def ring_sync(device=None) -> list:
+    """tests/test_rtt_rings.py's need tie: node 0 may pull writer 0 from two
+    ring-0 holders in its own region or writer 1 from six ring-5 holders;
+    one ``gossip.sync_round`` a seed over ``RING_SEEDS`` seeds on
+    ``device``. Returns node 0's (contig, cells) after each."""
+    rtt = np.array([[0, 5, 5], [5, 0, 5], [5, 5, 0]], np.int32)
+    cfg = ring_config()
+    topo = gossip.make_topology([3, 3, 3], [1, 3], region_rtt=rtt, device=device)
+    data = gossip.init_data(cfg, device)
+    contig = data.contig.clone()
+    contig[[1, 2], 0] = 4
+    contig[[3, 4, 5, 6, 7, 8], 1] = 4
+    data = data._replace(head=torch.tensor([4, 4], device=device), contig=contig,
+                         seen=torch.maximum(data.seen, contig))
+    alive = torch.ones(9, dtype=torch.bool, device=device)
+    part = torch.zeros((3, 3), dtype=torch.bool, device=device)
+    rnd = torch.zeros((), dtype=torch.int64, device=device)
+    out = []
+    for seed in range(RING_SEEDS):
+        d, _ = gossip.sync_round(data, topo, alive, part, rnd, rng.PRNGKey(seed, device), cfg)
+        out.append((d.contig[0].tolist(),
+                    [c.reshape(9, RING_CELLS)[0].tolist() for c in d.cells]))
+    return out
+
+
+def membership_rings(device=None, root=DEFAULT_STORE_ROOT) -> dict:
+    """``ring_sync`` with the reference's margins (the ring-0 holder wins in
+    at least 35 of 40 seeds, a ring-5 holder alone in at most 3), node 0's
+    cells after each sync equal to a ``Store`` of the versions its contig
+    holds, and the host ``rtt_ring``'s exact edges (an RTT at an edge opens
+    the next ring)."""
+    from corrosion_tpu_torch.agent.membership import RING_BUCKETS_MS, rtt_ring
+
+    rows = ring_sync(device)
+    near = sum(c[0] > 0 for c, _ in rows)
+    far = sum(c[1] > 0 and not c[0] > 0 for c, _ in rows)
+    for seed, (contig, cells) in enumerate(rows):
+        ws, vs = held_versions(np.asarray(contig), np.zeros((0, 2), np.int64))
+        store = fresh_store(root, "ring.db")
+        try:
+            store.apply_changes(derived_changes(ws, vs, RING_CELLS, 1))
+            want = store_cells(store, RING_CELLS)
+        finally:
+            store.close()
+        got = [torch.as_tensor(c) for c in cells]
+        assert not bool(cells_mismatch(*got, want)), f"seed {seed}: node 0's cells"
+    assert near >= 35, f"ring 0 won {near} of {RING_SEEDS}"
+    assert far <= 3, f"ring 5 alone won {far} of {RING_SEEDS}"
+    for i, edge in enumerate(RING_BUCKETS_MS[:-1]):
+        assert rtt_ring(edge) == i + 1 and rtt_ring(edge - 0.001) == i, edge
+    assert rtt_ring(RING_BUCKETS_MS[-1]) == len(RING_BUCKETS_MS) - 1 and rtt_ring(0.0) == 0
+    return {"seeds": RING_SEEDS, "near": near, "far": far, "edges": len(RING_BUCKETS_MS)}
+
+
+# -- write journeys over a flight ---------------------------------------------
+
+
+def schedule_trace(writes: np.ndarray):
+    """The write ``Trace`` of a schedule: event (r * ROUND_MS, writer w's
+    hex id, v) for each version v writer w commits in round r."""
+    from corrosion_tpu_torch.sim.trace import Trace
+
+    writes = np.asarray(writes, np.int64)
+    head = np.zeros(writes.shape[1], np.int64)
+    events = []
+    for r, w in zip(*np.nonzero(writes)):
+        for _ in range(int(writes[r, w])):
+            head[w] += 1
+            events.append((int(r * ROUND_MS), f"{int(w):032x}", int(head[w])))
+    return Trace(events=events)
+
+
+def journey_check(flight_path: str, writes: np.ndarray) -> dict:
+    """``obs.journey.reconstruct_write_journeys`` of a flight against the
+    schedule's trace: one journey a committed version, the visibility
+    events the flight's ``vis_lat_b*`` sums, and attributed plus
+    unattributed equal to them. Returns the totals."""
+    from corrosion_tpu_torch.obs.journey import reconstruct_write_journeys
+    from corrosion_tpu_torch.sim.telemetry import VIS_LAT_KEYS, replay_flight
+
+    j = reconstruct_write_journeys(flight_path, schedule_trace(writes),
+                                   round_ms=ROUND_MS)
+    curves, _ = replay_flight(flight_path)
+    n_writes = int(np.asarray(writes, np.int64).sum())
+    assert j["trace_writes"] == len(j["writes"]) == n_writes, (j["trace_writes"], n_writes)
+    vis = float(sum(np.asarray(curves[k], np.float64).sum() for k in VIS_LAT_KEYS))
+    t = j["totals"]
+    assert t["vis_events"] == vis, (t["vis_events"], vis)
+    assert math.isclose(t["attributed"] + t["unattributed"], vis, rel_tol=1e-12, abs_tol=1e-6)
+    return {"trace_writes": j["trace_writes"], "flight_rounds": j["flight_rounds"], **t}
+
+
+# -- the transport's frames and a loopback exchange ---------------------------
+
+
+def transport_frames() -> dict:
+    """Frames of kind 1 (the native encoder) and kind 0 (JSON), each
+    decoded by the pure-Python decoder and by ``decode_frame_body``."""
+    import json
+
+    from corrosion_tpu_torch import native
+    from corrosion_tpu_torch.agent import transport as T
+
+    native.build()
+    assert native.available(), native.build_status()
+    msg = {"t": "bcast", "actor": b"\xab" * 16, "version": -3, "ok": True,
+           "changes": [["t", b"p", "c", 1.5, 1, 2, 3, b"s" * 16, 1]],
+           "nested": {"a": {"b": [2**62, None, False]}}}
+    frame = T.encode_frame(msg)
+    assert frame[4] == T.FRAME_BIN
+    obj, end = T._py_wire_decode(frame[5:])
+    assert end == len(frame) - 5 and obj == msg == T.decode_frame_body(frame[4:])
+    body = bytes([T.FRAME_JSON]) + json.dumps(T.encode_value(msg),
+                                              separators=(",", ":")).encode()
+    assert T.decode_frame_body(body) == msg
+    return {"binary_bytes": len(frame), "json_bytes": len(body) + 4}
+
+
+async def _loopback(server_mod, client_mod) -> dict:
+    got = {"frame": asyncio.get_running_loop().create_future(),
+           "datagram": asyncio.get_running_loop().create_future()}
+
+    async def handler(session, msg):
+        kind = msg.get("t")
+        if kind == "sync":
+            await session.send({"t": "sync_reply", "n": msg["n"] + 1, "blob": msg["blob"]})
+        elif kind in got and not got[kind].done():
+            got[kind].set_result(msg)
+
+    server, client = server_mod.Transport(), client_mod.Transport()
+    try:
+        addr = await server.serve("127.0.0.1", 0, handler)
+        frame = {"t": "frame", "actor": b"\x01" * 16, "changes": [[1, "v", None]]}
+        assert await client.send_frame(addr, frame)
+        assert await got["frame"] == frame
+        # The client's own datagram sockets are bound by serve().
+        await client.serve("127.0.0.1", 0, handler)
+        dgram = {"t": "datagram", "from": b"\x02" * 16, "inc": 3}
+        assert client.send_datagram(addr, dgram)
+        assert await got["datagram"] == dgram
+        session = await client.open_session(addr, {"t": "sync", "n": 41, "blob": b"\x00\xff"})
+        assert session is not None
+        try:
+            reply = await session.recv(timeout=5.0)
+        finally:
+            session.close()
+        assert reply == {"t": "sync_reply", "n": 42, "blob": b"\x00\xff"}, reply
+        return {"frame": True, "datagram": True, "session": True}
+    finally:
+        client.close()
+        server.close()
+
+
+def transport_loopback(server_mod=None, client_mod=None) -> dict:
+    """One exchange between two ``Transport``s on 127.0.0.1 (the port's
+    unless modules are given): a stream frame, a UDP datagram and a sync
+    session's request and reply, under ``HOST_LIMIT_S`` seconds."""
+    from corrosion_tpu_torch.agent import transport as T
+
+    return asyncio.run(asyncio.wait_for(
+        _loopback(server_mod or T, client_mod or T), HOST_LIMIT_S))

@@ -63,6 +63,12 @@ HOST_PLANES = (
     "corrosion_tpu_torch.utils.tripwire", "corrosion_tpu_torch.utils.locks",
     "corrosion_tpu_torch.utils.logfmt", "corrosion_tpu_torch.obs.series",
     "corrosion_tpu_torch.obs.endurance", "corrosion_tpu_torch.sim.host_oracles",
+    "corrosion_tpu_torch.obs", "corrosion_tpu_torch.obs.trajectory",
+    "corrosion_tpu_torch.obs.serving", "corrosion_tpu_torch.obs.timeline",
+    "corrosion_tpu_torch.obs.journey", "corrosion_tpu_torch.agent",
+    "corrosion_tpu_torch.agent.membership", "corrosion_tpu_torch.agent.config",
+    "corrosion_tpu_torch.agent.pgsql", "corrosion_tpu_torch.agent.store",
+    "corrosion_tpu_torch.agent.transport",
 )
 
 
@@ -98,6 +104,35 @@ def test_lazy_imports_of_the_host_planes_stay_in_the_port():
         "assert callable(native.build) and native.BUILD_DIR.endswith('build/native')\n"
         "print('ok')\n",
         HOST_PLANES=HOST_PLANES,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_the_agent_builds_nothing_until_native_build():
+    """Importing the agent (its store loads ``native`` and ``core/``) and
+    opening a store compiles nothing and writes nothing under
+    ``build/native``; the store's merge then is the extension only where
+    an earlier ``native.build()`` left it there."""
+    res = _run(
+        "import os, subprocess, sys, tempfile\n"
+        "calls = []\n"
+        "real = subprocess.run\n"
+        "subprocess.run = lambda *a, **k: calls.append(a) or real(*a, **k)\n"
+        "from corrosion_tpu_torch import native\n"
+        "before = sorted(os.listdir(native.BUILD_DIR)) if os.path.isdir(native.BUILD_DIR) else None\n"
+        "import corrosion_tpu_torch.agent as agent\n"
+        "from corrosion_tpu_torch.agent import transport\n"
+        "d = tempfile.mkdtemp()\n"
+        "s = agent.Store(os.path.join(d, 'a.db'), b'\\x01' * 16)\n"
+        "assert s.native_crdt == native.crdt_ext_available()\n"
+        "s.close()\n"
+        "assert transport._native is native\n"
+        "after = sorted(os.listdir(native.BUILD_DIR)) if os.path.isdir(native.BUILD_DIR) else None\n"
+        "assert calls == [] and before == after, (calls, before, after)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'corrosion_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"

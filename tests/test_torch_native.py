@@ -167,3 +167,33 @@ def test_crdt_ext_answers_as_the_reference(ext_conns):
         assert t.execute(sql, args).fetchall() == j.execute(sql, args).fetchall(), (sql, args)
     (packed,) = t.execute("SELECT crdt_pack_columns(?, ?, ?, ?)", (1, "hi", None, b"\x00")).fetchone()
     assert packed == tvalues.pack_columns([1, "hi", None, b"\x00"])
+
+
+# -- the transport's and the store's native cases ----------------------------
+
+# tests/test_native.py's cases that need the agent's transport and store,
+# run against the port's (the codec, the values module, the transport and
+# the store all swapped for the port's while a case runs).
+NATIVE_AGENT_CASES = (
+    "test_python_binary_decoder_parity",
+    "test_transport_frames_binary_and_json",
+    "test_store_uses_native_merge",
+)
+
+
+@pytest.mark.parametrize("case", NATIVE_AGENT_CASES)
+def test_reference_transport_and_store_cases_hold_on_the_port(case, port, tmp_path,
+                                                              monkeypatch):
+    import test_native as ref_native_tests
+    from corrosion_tpu_torch.agent import store as tstore
+    from corrosion_tpu_torch.agent import transport as ttransport
+    from test_torch_core import run_against
+
+    swaps = {
+        "corrosion_tpu.native": tnative,
+        "corrosion_tpu.core.values": tvalues,
+        "corrosion_tpu.agent.transport": ttransport,
+        "corrosion_tpu.agent.store": tstore,
+    }
+    run_against(ref_native_tests, case, swaps, monkeypatch, tmp_path=tmp_path)
+    assert ref_native_tests.native is tnative
