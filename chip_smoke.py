@@ -172,8 +172,20 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    adaptive transmissions; 40 seeds of sync's ring preference (the grants
    merged into cells: ``rowmax``, ``rowgather``; node 0's row equal to a
    store) and ``rtt_ring``'s edges; and ``obs.journey`` over
-   phase 5's flight with the schedule's write trace. The stores' files go
-   under ``build/host_oracles``.
+   phase 5's flight with the schedule's write trace. Then the agent
+   runtime: 16 of the port's agents live on 127.0.0.1
+   (``agent.testing.launch_test_agent``, bootstrapped at random), each
+   recorded by ``sim.trace.Trace``, take 48 conflicting upserts over HTTP
+   through ``CorrosionApiClient``; once their digests agree, a
+   subscription on agent 0 equals the table, every agent's change log
+   merged on the card in one shuffled batch (``crdt.apply_changes``)
+   equals every agent's rows, and agent 0's online backup restored into a
+   fresh agent through ``AdminClient`` has its digest; and the recorded
+   traffic replayed (``sim.trace.replay``) in a 10,000-node cluster on the
+   card (``rowmax``, ``rowgather``, ``delivery_reduce``,
+   ``window_delivery``): each writer's head equal to its agent's committed
+   versions and every alive node converged. The stores' files and the
+   agents' data directories go under ``build/host_oracles``.
 
 Phases 5 (wan_100k), 10 (anti_entropy_chunks at 1,000 nodes) and 11 pass
 ``telemetry=KernelTelemetry(recorder=FlightRecorder(...), progress=
@@ -186,7 +198,7 @@ and 11, the pairs of runs of phases 9 and 10, phase 12, each of phase
 13's four paths, each of phase 14's paths: the merge_10k run, its plane
 attribution, the multi-device lane's sharded runs, read at the lane's note
 that its attribution begins, that attribution, and the cost model, and
-each of phase 15's eleven paths) and read just after it. Each phase logs its wall time. The last lines are a ``kernels`` JSON line,
+each of phase 15's thirteen paths) and read just after it. Each phase logs its wall time. The last lines are a ``kernels`` JSON line,
 the nvidia-smi line, and the result line ``{"ok": true, "device": {...}}``.
 Each kernel's entry carries its launches summed over the paths and,
 under ``by_path``, each path's launches and the times and bound of every
@@ -280,6 +292,11 @@ PATH_KERNELS = {
     "membership_gc": (),
     "membership_rings": ("rowmax", "rowgather"),
     "journey_wan_100k": (),
+    # The agent runtime: the live cluster's change logs merged on the card
+    # (``apply_changes`` launches nothing), and its recorded traffic
+    # replayed at 10,000 nodes on the fast delivery path (W = 16).
+    "agent_cluster_live": (),
+    "agent_trace_replay": ("rowmax", "rowgather", "delivery_reduce", "window_delivery"),
 }
 # Phase 13 runs wan_100k's first rounds sharded; phase 5 keeps its state
 # and curves there to hold them to.
@@ -2263,7 +2280,16 @@ def host_oracles(onehot, kept: dict, phase: int = 15) -> dict:
       ``rowgather``), node 0's row equal to a store of what it holds, and
       ``rtt_ring``'s exact edges;
     - ``journey_wan_100k``: ``obs.journey`` over phase 5's flight with the
-      schedule's write trace, its totals reconciled with the flight.
+      schedule's write trace, its totals reconciled with the flight;
+    - ``agent_cluster_live``: 16 of the port's agents on 127.0.0.1, each
+      recorded by a ``Trace``, 48 conflicting upserts over HTTP; converged
+      digests, the subscription's view equal to the table, every change
+      log merged on the card equal to every agent's rows, the restored
+      online backup's digest equal;
+    - ``agent_trace_replay``: that trace replayed at 10,000 nodes, heads
+      equal to the agents' committed versions, every alive node
+      converged; the visibility percentiles logged beside the live
+      cluster's seconds to convergence.
 
     Returns the launch counts by path."""
     from corrosion_tpu_torch.models import baselines
@@ -2332,6 +2358,24 @@ def host_oracles(onehot, kept: dict, phase: int = 15) -> dict:
     run("membership_rings", lambda: H.membership_rings("cuda"))
     run("journey_wan_100k",
         lambda: H.journey_check(str(FLIGHTS / "wan_100k.jsonl"), final["writes"]))
+    live = {}
+
+    def cluster():
+        out, live["trace"], live["versions"] = H.agent_cluster_live("cuda")
+        live["converge_s"] = out["converge_s"]
+        return out
+
+    run("agent_cluster_live", cluster)
+
+    def replay():
+        out = H.agent_trace_replay(live["trace"], live["versions"], H.REPLAY_NODES, "cuda")
+        live.update(out)
+        return out
+
+    run("agent_trace_replay", replay)
+    log(f"phase {phase}: the live cluster converged in {live['converge_s']} s of wall; "
+        f"its traffic at {live['nodes']} nodes: visibility p50 {live['vis_p50_rounds']} "
+        f"and p99 {live['vis_p99_rounds']} rounds")
     log(f"phase {phase}: seconds by path {json.dumps(secs)}; "
         f"{time.perf_counter() - t_phase:.1f} s")
     return by_path

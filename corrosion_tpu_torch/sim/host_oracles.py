@@ -28,20 +28,27 @@ tests/test_mixed_engine.py); here they run on the card as well.
   (``membership_rings``), write journeys over a flight
   (``journey_check``) and the transport's frames and a loopback exchange
   (``transport_frames``, ``transport_loopback``). The stores' databases
-  go under ``DEFAULT_STORE_ROOT`` (``build/host_oracles``) or ``root``.
+  go under ``DEFAULT_STORE_ROOT`` (``build/host_oracles``) or ``root``;
+- the agent runtime: a live cluster of the port's agents on 127.0.0.1,
+  every agent's rows against the card's merge of every change log, the
+  subscription and a restored backup against the table
+  (``agent_cluster_live``), and its recorded traffic replayed in the
+  simulator at 10,000 nodes (``agent_trace_replay``).
 """
 
 from __future__ import annotations
 
 import asyncio
 import math
+import os
+import time
 from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from corrosion_tpu_torch import rng
+from corrosion_tpu_torch import resolve_device, rng
 from corrosion_tpu_torch.core.bookkeeping import BookedVersions, Current, Partial
 from corrosion_tpu_torch.core.intervals import RangeSet
 from corrosion_tpu_torch.ops import crdt, gossip, intervals
@@ -149,6 +156,7 @@ def window_trace(order, batch_cap: int, versions: int, legacy: bool = False, dev
     lockstep, comparing node 1's possession of versions 1..``versions``
     and its need set after every delivered round. Returns (data, book,
     stats)."""
+    device = resolve_device(device)
     cfg, topo, data = _window_harness(device)
     dev = data.contig.device
     order = np.asarray(order)
@@ -180,6 +188,7 @@ def window_trace(order, batch_cap: int, versions: int, legacy: bool = False, dev
 def window_bookie(device=None, legacy: bool = False) -> dict:
     """The reference's two differential traces on the fast delivery path
     (or the legacy one), each compared after every delivered round."""
+    device = resolve_device(device)
     out = {}
     for name, seed, h, disp, prefix, cap in WINDOW_TRACES:
         order = local_shuffle(h, disp, np.random.default_rng(seed))[:prefix]
@@ -236,6 +245,7 @@ def rotation_trace(device=None) -> dict:
     through the real broadcast round. Every possession event goes into the
     bookies, and the claims are compared after every step. Returns the
     claims of writers 1-3 after each step."""
+    device = resolve_device(device)
     n, w_hot = 4, 2
     g = gossip.GossipConfig(
         n_nodes=n, n_writers=w_hot, track_writer_ids=True, n_cells=0,
@@ -333,6 +343,7 @@ def coverage_trials(device=None) -> dict:
     0-63 seqs past its end) with a third of them again as duplicates, into
     one 16-slot interval set on ``device`` and one ``Partial``; the gap
     sets and completeness compared after every arrival."""
+    device = resolve_device(device)
     gen = np.random.default_rng(COVERAGE_SEED)
     last_seq = COVERAGE_LAST_SEQ
     arrivals = 0
@@ -370,7 +381,7 @@ def coverage_full_width(device, rows: int, cap: int = 16, last_seq: int = 8191,
     ``RangeSet``: the gap sets over [0, last_seq] and the contiguous
     watermark must be equal. Consecutive chunks touch, so a row holds at
     most ceil(chunks / 2) disjoint runs, within ``cap``."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     n_chunks = -(-(last_seq + 1) // chunk_len)
     assert -(-n_chunks // 2) <= cap, "the arrivals could overflow the interval sets"
     arrivals = FULL_WIDTH_ARRIVALS
@@ -619,6 +630,7 @@ def store_crdt_trials(device=None, root=DEFAULT_STORE_ROOT) -> dict:
     sites over 8 keys, through two ``Store``s in two orders and through
     ``crdt.apply_changes`` on ``device`` in one batch; the stores must be
     equal and the cells equal to them."""
+    device = resolve_device(device)
     gen = np.random.default_rng(TRIAL_SEED)
     merges = "native" if store_merge(root) else "python"
     for trial in range(TRIALS):
@@ -656,6 +668,7 @@ def plane_batches(device=None) -> tuple:
     node 64 entries (writer, a version at or below its head) and a mask
     that keeps a node-specific share of them. Returns (head, [(writer,
     version, mask) on ``device``, ...])."""
+    device = resolve_device(device)
     g = torch.Generator().manual_seed(PLANE_SEED)
     head = torch.randint(1, PLANE_MAX_VERSION + 1, (PLANE_WRITERS,), generator=g)
     keep = torch.rand(PLANE_NODES, 1, generator=g)
@@ -674,6 +687,7 @@ def store_crdt_plane(device=None, root=DEFAULT_STORE_ROOT) -> dict:
     (``gossip._merge_versions_dense``, every row) on ``device``, each node's
     row held to a ``Store`` fed that node's derived changes in a shuffled
     order."""
+    device = resolve_device(device)
     cfg = gossip.GossipConfig(n_nodes=PLANE_NODES, n_writers=PLANE_WRITERS,
                               n_cells=PLANE_CELLS, cells_per_write=PLANE_CELLS_PER_WRITE)
     _, batches = plane_batches(device)
@@ -794,6 +808,7 @@ def kernel_gc_states(device=None) -> dict:
     every node believes node 3 down at incarnation 2, then one SWIM round
     at ``down_gc_rounds`` 1 (dense view; sparse exception tables) and 0
     (sparse, GC off). Returns the three states after the round."""
+    device = resolve_device(device)
     from corrosion_tpu_torch.ops import swim, swim_sparse
 
     key = rng.PRNGKey(0, device)
@@ -868,6 +883,7 @@ def membership_gc(device=None) -> dict:
     ``down_gc_s``, an alive one kept) and its cluster-size-adaptive
     transmissions (3 -> 32 members), the two host checks side by side,
     each under ``HOST_LIMIT_S`` seconds."""
+    device = resolve_device(device)
     from corrosion_tpu_torch.agent import membership
     from corrosion_tpu_torch.ops import swim
 
@@ -912,6 +928,7 @@ def ring_sync(device=None) -> list:
     ring-0 holders in its own region or writer 1 from six ring-5 holders;
     one ``gossip.sync_round`` a seed over ``RING_SEEDS`` seeds on
     ``device``. Returns node 0's (contig, cells) after each."""
+    device = resolve_device(device)
     rtt = np.array([[0, 5, 5], [5, 0, 5], [5, 5, 0]], np.int32)
     cfg = ring_config()
     topo = gossip.make_topology([3, 3, 3], [1, 3], region_rtt=rtt, device=device)
@@ -938,6 +955,7 @@ def membership_rings(device=None, root=DEFAULT_STORE_ROOT) -> dict:
     cells after each sync equal to a ``Store`` of the versions its contig
     holds, and the host ``rtt_ring``'s exact edges (an RTT at an edge opens
     the next ring)."""
+    device = resolve_device(device)
     from corrosion_tpu_torch.agent.membership import RING_BUCKETS_MS, rtt_ring
 
     rows = ring_sync(device)
@@ -1068,3 +1086,242 @@ def transport_loopback(server_mod=None, client_mod=None) -> dict:
 
     return asyncio.run(asyncio.wait_for(
         _loopback(server_mod or T, client_mod or T), HOST_LIMIT_S))
+
+
+# -- the agent runtime live on 127.0.0.1, merged and replayed on the card -----
+
+# tests/test_agent_cluster.py's randomized stress test on 16 agents:
+# agents bootstrapped at random from LIVE_SEED, writes fired at random
+# agents over HTTP LIVE_CONCURRENCY at a time, each upserting a row drawn
+# from the same generator among LIVE_ROWS, so writers of one batch and of
+# successive batches conflict. At 16 agents one write costs the event loop
+# ~140 ms on an H100 machine's host (chip_smoke.py phase 15): every peer on
+# 127.0.0.1 is in ring 0, so each frame goes eagerly to all of them. That
+# sizes LIVE_WRITES.
+LIVE_AGENTS = 16
+LIVE_WRITES = 48
+LIVE_ROWS = 32
+LIVE_CONCURRENCY = 16
+LIVE_SEED = 11
+LIVE_SYNC_INTERVAL = 0.4
+LIVE_CONVERGE_S = 60.0
+LIVE_WRITE_SQL = "INSERT OR REPLACE INTO tests (id, text) VALUES (?, ?)"
+LIVE_SUB_SQL = "SELECT id, text FROM tests"
+LIVE_DIGEST_SQL = ("SELECT group_concat(id || '=' || text, ',') FROM"
+                   " (SELECT id, text FROM tests ORDER BY id)")
+# The replay's cluster: the recorded writers plus silent observers, the
+# reference's 10,000-node scale (merge_10k, geo_10k).
+REPLAY_NODES = 10_000
+
+
+def agent_digest(ta) -> str | None:
+    """The ``tests`` table of a launched agent as one string (the
+    reference stress test's convergence digest)."""
+    from corrosion_tpu_torch.core.values import Statement
+
+    _, rows = ta.agent.store.query(Statement(LIVE_DIGEST_SQL))
+    return rows[0][0]
+
+
+def text_ranks(stores) -> dict:
+    """Rank (from 1) of every text the stores' change logs hold, in
+    SQLite's BINARY order (Python's order for these ASCII strings). A
+    table's text missing from every log is a lost winner: ``agent_cells``
+    then raises ``KeyError``."""
+    texts = set()
+    for s in stores:
+        texts.update(v for (v,) in s.conn.execute(
+            "SELECT val FROM __crdt_changes WHERE tbl = 'tests' AND val IS NOT NULL"))
+    return {t: i + 1 for i, t in enumerate(sorted(texts))}
+
+
+def agent_change_batch(stores, ranks: dict, device=None):
+    """Every store's logged changes to ``tests``, shuffled from
+    ``LIVE_SEED`` into one ``crdt.ChangeBatch``: the key is the row id,
+    the value rank the text's (a delete writes no cell: col_version and
+    value 0, as ``store_crdt_trials`` gives them)."""
+    from corrosion_tpu_torch.core.values import unpack_columns
+
+    rows = []
+    for s in stores:
+        for pk, cl, cv, val in s.conn.execute(
+            "SELECT pk, cl, col_version, val FROM __crdt_changes WHERE tbl = 'tests'"
+        ):
+            live = cl % 2 == 1
+            rows.append((unpack_columns(pk)[0], cl, cv if live else 0,
+                         ranks[val] if live else 0))
+    order = np.random.default_rng(LIVE_SEED).permutation(len(rows))
+    key, cl, cv, vr = torch.as_tensor(np.asarray(rows, np.int64)[order],
+                                      device=device).T.contiguous()
+    return crdt.ChangeBatch(key=key, cl=cl, col_version=cv, value_rank=vr,
+                            mask=torch.ones_like(key, dtype=torch.bool))
+
+
+def agent_cells(store, ranks: dict, n_rows: int) -> tuple:
+    """A store's ``tests`` rows as cells (``store_cells``' form): the
+    causal length, the col_version of column ``text``, the text's rank."""
+    from corrosion_tpu_torch.core.values import unpack_columns
+
+    cl, cv, val = (np.zeros(n_rows, np.int64) for _ in range(3))
+    for pk, c in store.conn.execute("SELECT pk, cl FROM tests__crdt_rows"):
+        cl[unpack_columns(pk)[0]] = c
+    for pk, c in store.conn.execute(
+            "SELECT pk, col_version FROM tests__crdt_clock WHERE cid = 'text'"):
+        cv[unpack_columns(pk)[0]] = c
+    for k, t in store.conn.execute("SELECT id, text FROM tests"):
+        val[k] = ranks[t]
+    return cl, cv, val
+
+
+async def _subscription_view(sub, view: dict, events: list) -> None:
+    async for ev in sub:
+        events.append(ev)
+        if "row" in ev:
+            view[ev["row"][1][0]] = ev["row"][1][1]
+        elif "change" in ev:
+            kind, _rowid, cells, _cid = ev["change"]
+            if kind in ("insert", "update"):
+                view[cells[0]] = cells[1]
+            else:
+                view.pop(cells[0], None)
+
+
+async def _live_cluster(root: Path, agents: int, writes: int, device) -> tuple:
+    import random
+
+    from corrosion_tpu_torch.agent.admin import AdminClient
+    from corrosion_tpu_torch.agent.backup import backup
+    from corrosion_tpu_torch.agent.testing import launch_test_agent, poll_until
+    from corrosion_tpu_torch.core.values import Statement
+    from corrosion_tpu_torch.sim.trace import Trace
+
+    rng = random.Random(LIVE_SEED)
+    trace = Trace()
+    cluster, fresh, sub, reader = [], None, None, None
+    try:
+        cluster.append(await launch_test_agent(str(root / "a0")))
+        for i in range(1, agents):
+            cluster.append(await launch_test_agent(
+                str(root / f"a{i}"), bootstrap=[rng.choice(cluster).gossip_addr],
+                sync_interval=LIVE_SYNC_INTERVAL))
+        for ta in cluster:
+            trace.record(ta.agent)
+        sub = await cluster[0].client.subscribe(LIVE_SUB_SQL)
+        view, events = {}, []
+        reader = asyncio.ensure_future(_subscription_view(sub, view, events))
+
+        t0 = time.perf_counter()
+        ids, conflicts = [], 0
+        for base in range(0, writes, LIVE_CONCURRENCY):
+            batch = [(rng.randrange(LIVE_ROWS), rng.choice(cluster))
+                     for _ in range(base, min(base + LIVE_CONCURRENCY, writes))]
+            ids += [k for k, _ in batch]
+            conflicts += len(batch) - len({k for k, _ in batch})
+            await asyncio.gather(*[
+                ta.client.execute([[LIVE_WRITE_SQL, [k, f"v{base + j}"]]])
+                for j, (k, ta) in enumerate(batch)])
+        write_s = time.perf_counter() - t0
+
+        async def converged():
+            digests = {agent_digest(ta) for ta in cluster}
+            return len(digests) == 1 and None not in digests
+
+        await poll_until(converged, timeout=LIVE_CONVERGE_S, interval=0.1)
+        converge_s = time.perf_counter() - t0
+        table = dict(cluster[0].agent.store.query(Statement(LIVE_SUB_SQL))[1])
+        assert sorted(table) == sorted(set(ids)), (len(table), len(set(ids)))
+
+        async def sub_caught_up():
+            return view == table
+
+        await poll_until(sub_caught_up, timeout=LIVE_CONVERGE_S)
+
+        stores = [ta.agent.store for ta in cluster]
+        ranks = text_ranks(stores)
+        batch = agent_change_batch(stores, ranks, device)
+        cells = crdt.apply_changes(crdt.make_cells(LIVE_ROWS, device), batch)
+        for i, s in enumerate(stores):
+            assert not bool(cells_mismatch(*cells, agent_cells(s, ranks, LIVE_ROWS))), (
+                f"agent {i}: its rows differ from the card's merge of every change log")
+
+        bk = root / "a0.backup.db"
+        backup(cluster[0].agent.store.path, str(bk))
+        # An abstract socket: a path under a deep checkout could pass
+        # AF_UNIX's 107-byte limit.
+        uds = f"\0corro-host-oracles-{os.getpid()}"
+        fresh = await launch_test_agent(str(root / "restored"), admin_uds=uds)
+        (frame,) = await AdminClient(uds).call({"c": "restore", "path": str(bk)})
+        assert frame["restored"], frame
+        assert agent_digest(fresh) == agent_digest(cluster[0]), "the restored backup differs"
+
+        versions = {ta.agent.actor_id: ta.agent.bookie.for_actor(ta.agent.actor_id).last() or 0
+                    for ta in cluster}
+        out = {
+            "agents": agents, "writes": writes, "rows": len(table),
+            "same_batch_conflicts": conflicts,
+            "write_s": round(write_s, 2), "converge_s": round(converge_s, 2),
+            "sub_events": len(events), "changes_merged": int(batch.key.numel()),
+            "store_merge": "native" if stores[0].native_crdt else "python",
+        }
+        return out, trace, versions
+    finally:
+        if reader is not None:
+            reader.cancel()
+        if sub is not None:
+            sub.close()
+        for ta in cluster + ([fresh] if fresh is not None else []):
+            await ta.stop()
+
+
+def agent_cluster_live(device=None, root=DEFAULT_STORE_ROOT, agents: int = LIVE_AGENTS,
+                       writes: int = LIVE_WRITES) -> tuple:
+    """A live cluster of the port's agents on 127.0.0.1 against the card's
+    CRDT merge (tests/test_agent_cluster.py's randomized stress test):
+    ``agents`` agents bootstrapped at random, each recorded by one
+    ``sim.trace.Trace``; a subscription on agent 0 through the client;
+    ``writes`` upserts over HTTP; then, once every agent's table digest
+    agrees (within ``LIVE_CONVERGE_S``): the table holds exactly the rows
+    written, the subscription's view equals it, every agent's change log
+    merged on ``device`` in one shuffled batch through
+    ``crdt.apply_changes`` equals every agent's rows (causal length,
+    col_version, winning text), and an online backup of agent 0 restored
+    into a fresh agent through ``AdminClient`` has its digest.
+    Returns (summary, trace, versions committed by actor id from each
+    agent's own bookkeeping). Data directories go under
+    ``root/agent_cluster``, emptied first."""
+    device = resolve_device(device)
+    import shutil
+
+    base = Path(root) / "agent_cluster"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    return asyncio.run(_live_cluster(base, agents, writes, device))
+
+
+def agent_trace_replay(trace, versions: dict, nodes: int, device=None) -> dict:
+    """The live cluster's recorded traffic re-run in the simulator
+    (``sim.trace.replay`` with its defaults) on ``nodes`` nodes, the
+    recorded writers and silent observers: each writer's head equals the
+    versions its agent committed (an agent that committed none is not a
+    writer), and at the end every alive node holds every version
+    (``contig == head``) with ``need`` 0. Returns the sizes and the
+    visibility percentiles in rounds."""
+    from corrosion_tpu_torch.sim.trace import replay
+
+    actors, final, curves, lat = replay(trace, observers=nodes - len(trace.actors),
+                                        device=device)
+    head = final.data.head.cpu().numpy()
+    assert [versions[a] for a in actors] == head.tolist(), (head, versions)
+    assert all(v == 0 for a, v in versions.items() if a not in actors), versions
+    alive = final.swim.alive.cpu().numpy()
+    contig = final.data.contig.cpu().numpy()
+    assert (contig[alive] == head[None, :]).all(), "a node did not converge in the replay"
+    need = np.asarray(curves["need"])
+    assert need[-1] == 0, need[-5:]
+    round_s = ROUND_MS / 1000.0
+    return {
+        "nodes": int(contig.shape[0]), "writers": len(actors), "versions": int(head.sum()),
+        "rounds": int(len(need)), "alive": int(alive.sum()),
+        "vis_p50_rounds": lat["p50_s"] / round_s, "vis_p99_rounds": lat["p99_s"] / round_s,
+        "unseen": lat["unseen"],
+    }

@@ -72,16 +72,22 @@ def run_against(module, case: str, swaps: dict, monkeypatch, **fixtures) -> None
     """Run one reference test against the port: every global of ``module``
     that comes from a swapped reference module is replaced by the port's
     object of the same name, and ``sys.modules`` maps the reference module
-    names to the port's for imports inside the test."""
+    names to the port's for imports inside the test. The parent package's
+    attribute is swapped too: ``from package import module`` reads it
+    before ``sys.modules``."""
     for name, obj in list(vars(module).items()):
         port = _port_value(obj, name, swaps)
         if port is not None:
             monkeypatch.setattr(module, name, port)
     for ref_name, port_mod in swaps.items():
         monkeypatch.setitem(sys.modules, ref_name, port_mod)
+        parent, _, leaf = ref_name.rpartition(".")
+        if parent in sys.modules:
+            monkeypatch.setattr(sys.modules[parent], leaf, port_mod, raising=False)
     cls_name, _, meth = case.rpartition(".")
     fn = getattr(getattr(module, cls_name)(), meth) if cls_name else getattr(module, case)
     params = inspect.signature(fn).parameters
+    fixtures = dict(fixtures, monkeypatch=monkeypatch)
     fn(**{k: fixtures[k] for k in params})
 
 
@@ -117,10 +123,14 @@ def test_the_swap_reaches_the_port():
         run_against(ref_core_tests, "TestRangeSet.test_total", CORE_SWAPS, mp)
         assert ref_core_tests.RangeSet is tiv.RangeSet
         assert sys.modules["corrosion_tpu.core.values"] is tvalues
+        import corrosion_tpu.core as jcore
+
+        assert jcore.values is tvalues  # `from corrosion_tpu.core import values`
     finally:
         mp.undo()
     assert ref_core_tests.RangeSet is jiv.RangeSet
     assert sys.modules["corrosion_tpu.core.values"] is jvalues
+    assert jcore.values is jvalues
 
 
 # -- the copy against the live reference on seeded operation sequences -------

@@ -31,7 +31,7 @@ def test_port_imports_no_jax_and_no_reference():
         "import corrosion_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 30, names\n"
+        "assert len(names) >= 79, len(names)\n"
         "assert {'corrosion_tpu_torch.obs.epidemic', 'corrosion_tpu_torch.sim.invariants',\n"
         "        'corrosion_tpu_torch.sim.checkpoint', 'corrosion_tpu_torch.sim.trace',\n"
         "        'corrosion_tpu_torch.parallel', 'corrosion_tpu_torch.parallel.mesh',\n"
@@ -68,7 +68,11 @@ HOST_PLANES = (
     "corrosion_tpu_torch.obs.journey", "corrosion_tpu_torch.agent",
     "corrosion_tpu_torch.agent.membership", "corrosion_tpu_torch.agent.config",
     "corrosion_tpu_torch.agent.pgsql", "corrosion_tpu_torch.agent.store",
-    "corrosion_tpu_torch.agent.transport",
+    "corrosion_tpu_torch.agent.transport", "corrosion_tpu_torch.client",
+    "corrosion_tpu_torch.agent.pool", "corrosion_tpu_torch.agent.subs",
+    "corrosion_tpu_torch.agent.backup", "corrosion_tpu_torch.agent.netem",
+    "corrosion_tpu_torch.agent.agent", "corrosion_tpu_torch.agent.api",
+    "corrosion_tpu_torch.agent.admin", "corrosion_tpu_torch.agent.testing",
 )
 
 
@@ -147,6 +151,7 @@ def test_entry_points_raise_without_cuda():
         "from corrosion_tpu_torch.sim import faults\n"
         "from corrosion_tpu_torch import parallel\n"
         "from corrosion_tpu_torch.elastic import scenarios\n"
+        "from corrosion_tpu_torch.sim import host_oracles\n"
         "plan = faults.named_scenarios(24, 4, 48)['loss-burst']\n"
         "kw = dict(n=40, n_regions=2, n_writers=4, rounds=4, samples=4)\n"
         "cfg, topo, sched = baselines.wan_100k(device='cpu', **kw)\n"
@@ -164,7 +169,11 @@ def test_entry_points_raise_without_cuda():
         "             lambda: invariants.run_dense(plan),\n"
         "             lambda: parallel.make_mesh(2),\n"
         "             lambda: parallel.make_wan_mesh(2, 2),\n"
-        "             lambda: scenarios.run_scenario('reshard_dense_4to8')):\n"
+        "             lambda: scenarios.run_scenario('reshard_dense_4to8'),\n"
+        "             lambda: host_oracles.window_bookie(),\n"
+        "             lambda: host_oracles.store_crdt_trials(),\n"
+        "             lambda: host_oracles.membership_rings(),\n"
+        "             lambda: host_oracles.agent_cluster_live()):\n"
         "    try:\n"
         "        call()\n"
         "    except RuntimeError as e:\n"
@@ -205,6 +214,34 @@ def test_bench_and_cost_modules_need_no_cuda_and_no_triton():
         "        assert 'CUDA' in str(e), e\n"
         "    else:\n"
         "        raise SystemExit('ran without CUDA and without a device')\n"
+        "print('ok')\n"
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_the_agent_refuses_tls_without_the_reference():
+    """``AgentConfig.tls`` set: the port's ``Agent`` raises before it
+    opens anything (no plaintext fallback, no data directory), naming the
+    unported ``agent/tls.py``; nothing of JAX or the reference is loaded,
+    and the port has no ``tls`` or ``pg`` module yet."""
+    res = _run(
+        "import importlib.util, os, sys, tempfile\n"
+        "from corrosion_tpu_torch.agent.agent import Agent, AgentConfig, AgentTls\n"
+
+        "d = os.path.join(tempfile.mkdtemp(), 'agent')\n"
+        "cfg = AgentConfig(data_dir=d, tls=AgentTls(cert='c.pem', key='k.pem'))\n"
+        "try:\n"
+        "    Agent(cfg)\n"
+        "except NotImplementedError as e:\n"
+        "    assert 'corrosion_tpu_torch.agent.tls' in str(e), e\n"
+        "else:\n"
+        "    raise SystemExit('an agent with tls set was built')\n"
+        "assert not os.path.exists(d)\n"
+        "for m in ('tls', 'pg'):\n"
+        "    assert importlib.util.find_spec('corrosion_tpu_torch.agent.' + m) is None, m\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'corrosion_tpu'))\n"
+        "assert not bad, bad\n"
         "print('ok')\n"
     )
     assert res.returncode == 0, res.stderr

@@ -17,9 +17,10 @@ reference's:
   a flight by each package, equal to the reference's (each package's
   reader on each package's flight).
 
-The live-agent cases of ``tests/test_obs_timeline.py`` (:545, :609, :642)
-and ``tests/test_sub_costs.py``'s endpoint cases wait for the port's
-``agent/`` runtime and ``loadgen/``.
+The live-agent case of ``tests/test_obs_timeline.py`` at :545 and the
+rest of ``tests/test_sub_costs.py`` run against the port's agent runtime
+in ``test_torch_agent_runtime.py``; :609 waits for ``loadgen/``, :642 for
+``loadgen/`` and ``cli``.
 """
 
 import json

@@ -6,8 +6,9 @@
   ``tokenize``/``render``, the placeholder and catalog passes), recorded
   while they run on the reference, answered equally by the port.
 
-``test_normalize_sql_idempotent`` calls ``agent/subs.normalize_sql``,
-which the port does not have yet: it waits for the ``agent/subs`` slice.
+``test_normalize_sql_idempotent`` calls ``agent/subs.normalize_sql``: it
+runs with the port's ``subs`` swapped in as well, and the recorder does
+not see its calls (``subs`` imports ``pgsql`` itself).
 """
 
 import types
@@ -17,17 +18,19 @@ import pytest
 import test_pgsql_lexer as ref_pgsql_tests
 from corrosion_tpu.agent import pgsql as jpgsql
 from corrosion_tpu_torch.agent import pgsql as tpgsql
+from corrosion_tpu_torch.agent import subs as tsubs
 from test_torch_core import reference_cases, run_against
 
-WAITS_FOR_SUBS = {"test_normalize_sql_idempotent"}
-CASES = [c for c in reference_cases(ref_pgsql_tests) if c not in WAITS_FOR_SUBS]
+SUBS_CASE = "test_normalize_sql_idempotent"
+CASES = reference_cases(ref_pgsql_tests)
+SWAPS = {"corrosion_tpu.agent.pgsql": tpgsql, "corrosion_tpu.agent.subs": tsubs}
 FUNCTIONS = ("translate", "split_statements", "tokenize", "render",
              "translate_placeholders", "strip_catalog_prefix", "mentions_catalog")
 
 
 @pytest.mark.parametrize("case", CASES)
 def test_reference_lexer_cases_hold_on_the_port(case, monkeypatch):
-    run_against(ref_pgsql_tests, case, {"corrosion_tpu.agent.pgsql": tpgsql}, monkeypatch)
+    run_against(ref_pgsql_tests, case, SWAPS, monkeypatch)
 
 
 def _recording(calls: list):
@@ -43,7 +46,7 @@ def _recording(calls: list):
     return spy
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", [c for c in CASES if c != SUBS_CASE])
 def test_every_call_of_the_case_answers_as_the_reference(case, monkeypatch):
     calls = []
     monkeypatch.setattr(ref_pgsql_tests, "pgsql", _recording(calls))
@@ -59,4 +62,4 @@ def test_every_call_of_the_case_answers_as_the_reference(case, monkeypatch):
 
 
 def test_the_lexer_cases_are_all_here():
-    assert len(CASES) == len(reference_cases(ref_pgsql_tests)) - 1 == 13
+    assert len(CASES) == 14 and SUBS_CASE in CASES
