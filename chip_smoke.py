@@ -53,10 +53,12 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    writers, 512 cells) for the fast path's kernels, the sync sessions'
    CRDT merge ([125, 512]) and the big versions' admission merge, one
    column a stream ([1000, 1] -> [1000, 512]), and the adaptive mixed
-   run's ``table_gather`` at n = 64;
+   run's ``table_gather`` at n = 64; phase 15's ``loadgen soak`` at 96
+   nodes (the fast path's gathers, reductions and window) and at 10,000
+   (the legacy gather, ``rowsum``, the reductions and ``visibility``);
 4. small runs on the card (kernels) and on the CPU (plain versions), with
    identical curves and final state: ``wan_100k(n=2000, ...)``,
-   ``three_node()``, ``churn_32()`` and its wipe variant,
+   ``three_node()``, ``churn_32(rounds=200)`` and its wipe variant,
    ``anti_entropy_1k()``, a merge_10k burst variant at n=2560 (wider than
    2048 writers, so it takes the legacy delivery and launches
    ``rowgather_wide`` and ``rowsum``), and ``anywrite_sparse(n=2000, ...)``
@@ -71,8 +73,9 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    n=48, streams=4)`` plain and under a fault plan (loss, churn, a wipe
    that spares the origins), and ``mixed_storm(n=64, streams=2, rounds=24)``
    without cells, with cells, under kill/revive/wipe and adaptive with
-   ``prop_observe`` (conservation). The CPU side of every small run goes
-   in one worker process, started with the card's side and checked after
+   ``prop_observe`` (conservation). The CPU side of every small run (and
+   of phase 12's invariant suite and phase 15's ``loadgen soak``) goes in
+   one worker process, started with the card's side and checked after
    phase 11: it runs at the lowest priority with a core left to this
    process, beside phases 4-11;
 5. full-size ``wan_100k()`` (100,000 nodes, 20 regions, 512 writers), all
@@ -118,8 +121,9 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    ``EPIDEMIC_BASELINE.json`` and ``EPIDEMIC_BASELINE_ADAPTIVE.json`` at
    the reference CI's tolerance 0.35; the invariant suite on the
    ``kitchen-sink`` fault plan on all four engines, every report ok and
-   the card's facts, violations and recovery equal to the CPU's; and a
-   ``save_state``/``load_state`` round trip of the churn_32 run on the card;
+   the card's facts, violations and recovery equal to the CPU's (run in
+   phase 4's worker); and a ``save_state``/``load_state`` round trip of a
+   100-round churn_32 run on the card;
 13. the shard driver and the elastic plane: full-width ``wan_100k()`` on
    a (2, 2) mesh of card positions (all on one card when there is one),
    48 rounds in calls of 12: curves equal to phase 5's first 48 rounds but
@@ -184,8 +188,21 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    traffic replayed (``sim.trace.replay``) in a 10,000-node cluster on the
    card (``rowmax``, ``rowgather``, ``delivery_reduce``,
    ``window_delivery``): each writer's head equal to its agent's committed
-   versions and every alive node converged. The stores' files and the
-   agents' data directories go under ``build/host_oracles``.
+   versions and every alive node converged. Then the serving plane:
+   ``loadgen soak`` (``loadgen.scenarios.intake_policy``) at its defaults
+   (96 nodes, the fast delivery path) equal to phase 4's CPU run with its
+   collapse rule holding, and at 10,000 nodes, every node a writer (the
+   legacy delivery: W = 10,000), each run held to the watermark
+   invariants, its seconds, the peak memory and the backlog's slopes
+   logged; the 2,000-subscription fan-out storm (``loadgen run``, 60
+   writes at 10/s, reads over HTTP and the PG wire) with no oracle
+   violation, its table equal to the card's merge of its change log and
+   to a read through a fresh ``agent.pg.serve_pg``; the saturation sweep
+   (``loadgen sweep``) with its three flags true; and three agents
+   gossiping over mutual TLS with certificates from ``agent.tls``, or a
+   ``{"tls": "cryptography absent"}`` line where that package is missing.
+   The stores' files and the agents' data directories go under
+   ``build/host_oracles``.
 
 Phases 5 (wan_100k), 10 (anti_entropy_chunks at 1,000 nodes) and 11 pass
 ``telemetry=KernelTelemetry(recorder=FlightRecorder(...), progress=
@@ -198,7 +215,7 @@ and 11, the pairs of runs of phases 9 and 10, phase 12, each of phase
 13's four paths, each of phase 14's paths: the merge_10k run, its plane
 attribution, the multi-device lane's sharded runs, read at the lane's note
 that its attribution begins, that attribution, and the cost model, and
-each of phase 15's thirteen paths) and read just after it. Each phase logs its wall time. The last lines are a ``kernels`` JSON line,
+each of phase 15's eighteen paths) and read just after it. Each phase logs its wall time. The last lines are a ``kernels`` JSON line,
 the nvidia-smi line, and the result line ``{"ok": true, "device": {...}}``.
 Each kernel's entry carries its launches summed over the paths and,
 under ``by_path``, each path's launches and the times and bound of every
@@ -297,6 +314,15 @@ PATH_KERNELS = {
     # replayed at 10,000 nodes on the fast delivery path (W = 16).
     "agent_cluster_live": (),
     "agent_trace_replay": ("rowmax", "rowgather", "delivery_reduce", "window_delivery"),
+    # The serving plane: loadgen soak on the fast delivery path (96
+    # nodes, no cells: no rowmax) and on the legacy one (10,000 writers,
+    # no window_delivery; visibility's rowgather); the storm, the sweep
+    # and gossip TLS are host code (the storm's merge launches nothing).
+    "loadgen_soak": ("rowgather", "delivery_reduce", "window_delivery"),
+    "loadgen_soak_10k": ("rowgather_wide", "rowsum", "rowgather", "delivery_reduce"),
+    "loadgen_storm": (),
+    "loadgen_sweep": (),
+    "agent_tls": (),
 }
 # Phase 13 runs wan_100k's first rounds sharded; phase 5 keeps its state
 # and curves there to hold them to.
@@ -304,6 +330,7 @@ SHARDED_ROUNDS = 48
 ELASTIC_DRILLS = ("reshard_dense_4to8", "reshard_sparse_4to8", "reshard_chunk_4to8",
                   "reshard_mixed_4to8", "preempt_dense_churn", "soak_preempt")
 CHUNK_100K_ROUNDS = 48  # phase 10's 100,000-node run (the 1,000-node run takes all 240)
+CHECKPOINT_ROUNDS = 100  # phase 12's churn_32 run for the checkpoint round trip
 REPO = Path(__file__).resolve().parent
 FLIGHTS = REPO / "build" / "flights"  # flight records of the telemetry-carrying phases
 
@@ -892,6 +919,25 @@ def check_kernels(onehot, device) -> list:
     gather_case("merge_10k_sharded", "legacy base gather", u24(n, w), widx, wide=True)
     rowsum_case("merge_10k_sharded", widx, w)
     del idx, widx
+
+    # Phase 15's loadgen soak: every node a writer, kk = 144 messages
+    # (fanouts 3 + 3 x queue 24), S = 32 samples, no cells and no sync (no
+    # rowmax, no grant gathers). 96 nodes take the fast path; 10,000 the
+    # legacy one, whose window words are read at the base gather's shape.
+    n, kk, w = 96, 144, 96
+    gather_case("loadgen_soak", "base gather", u24(n, w),
+                torch.randint(0, w, (n, kk), generator=g).to(device))
+    gather_case("loadgen_soak", "visibility", u24(n, w),
+                torch.randint(0, w, (32,), generator=g).to(device))
+    window_case("loadgen_soak", n, kk, w)
+    n, kk, w = 10_000, 144, 10_000
+    reduce_case("loadgen_soak_10k", n, kk, w, 1 << 20, 1 << 20)
+    widx = torch.randint(0, w, (n, kk), generator=g).to(device)
+    gather_case("loadgen_soak_10k", "legacy base gather, window words", u24(n, w), widx, wide=True)
+    rowsum_case("loadgen_soak_10k", widx, w)
+    gather_case("loadgen_soak_10k", "visibility", u24(n, w),
+                torch.randint(0, w, (32,), generator=g).to(device))
+    del widx
     for row in out:
         times = ", ".join(
             f"{k} {v:.4f}" for k, v in row.items() if k.endswith("ms") and v is not None
@@ -967,6 +1013,10 @@ SPARSE_SMALL = dict(n=2000, w_hot=56, rounds=64, n_regions=4, epoch_rounds=8,
                     cohort=32, k_dev=96, partition=True, samples=64)
 CHUNK_SMALL = dict(n=48, streams=4, last_seq=2047, rounds=120)
 MIXED_SMALL = dict(n=64, streams=2, last_seq=255, rounds=24, samples=16)
+# churn_32's depth in phase 4 (the builder's 400 cut to make room for phase
+# 15's serving plane): seven of the ten flappers go down and four come
+# back up before the 40-round drain.
+CHURN_SMALL_ROUNDS = 200
 SMALL_RUNS = (
     # (label, builder, builder kwargs, schedule transform, chunk, gossip
     # fields set with health.with_adaptive (None: the builder's config),
@@ -974,8 +1024,8 @@ SMALL_RUNS = (
     ("wan_100k n=2000", "wan_100k", dict(n=2000, n_regions=4, n_writers=64, rounds=72), None, 24,
      None, {}),
     ("three_node", "three_node", {}, None, None, None, {}),
-    ("churn_32", "churn_32", {}, None, 100, None, {}),
-    ("churn_32 wipe", "churn_32", {}, _wiped, 100, None, {}),
+    ("churn_32", "churn_32", dict(rounds=CHURN_SMALL_ROUNDS), None, 100, None, {}),
+    ("churn_32 wipe", "churn_32", dict(rounds=CHURN_SMALL_ROUNDS), _wiped, 100, None, {}),
     ("anti_entropy_1k", "anti_entropy_1k", {}, None, 50, None, {}),
     ("merge_10k burst n=2560", "merge_10k", dict(n=2560, rounds=48), _burst, 24, None, {}),
     ("anywrite_sparse n=2000", "anywrite_sparse", SPARSE_SMALL, None, None, None, {}),
@@ -1070,10 +1120,14 @@ def cpu_small_runs(out: str) -> int:
     """``python3 chip_smoke.py --cpu-small-runs OUT``: every run of
     ``SMALL_RUNS`` on the CPU (the plain versions), in order, each one's
     ``_small_run`` result and its seconds, then the cost model of the four
-    engines on the CPU (phase 14 holds the card's to it), pickled into
+    engines on the CPU (phase 14 holds the card's to it), the invariant
+    suite on ``kitchen-sink`` (phase 12) and ``loadgen soak`` at its
+    defaults (phase 15) on the CPU, with their seconds, pickled into
     ``OUT``. Phase 4 starts it as a worker process."""
+    from corrosion_tpu_torch.loadgen import scenarios
     from corrosion_tpu_torch.obs import costs
     from corrosion_tpu_torch.ops import gossip
+    from corrosion_tpu_torch.sim import invariants
 
     t_all = time.perf_counter()
     runs = []
@@ -1084,8 +1138,15 @@ def cpu_small_runs(out: str) -> int:
         runs.append((*run, time.perf_counter() - t0))
     t0 = time.perf_counter()
     model = costs.build_cost_model(device_counts=costs.DEVICE_COUNTS, device="cpu")
+    t_model = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    suite = invariants.run_suite(kitchen_sink(), seed=0, device="cpu")
+    t_suite = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    soak = scenarios.intake_policy(device="cpu")
     Path(out).write_bytes(pickle.dumps(
-        {"runs": runs, "cost_model": model, "cost_model_s": time.perf_counter() - t0,
+        {"runs": runs, "cost_model": model, "cost_model_s": t_model, "suite": suite,
+         "suite_s": t_suite, "soak": soak, "soak_s": time.perf_counter() - t0,
          "s": time.perf_counter() - t_all}
     ))
     return 0
@@ -1172,7 +1233,8 @@ def check_small_runs(worker, out_path: Path, card: list) -> dict:
     versions); the merge_10k runs launch the two wide-path kernels, the
     anywrite runs demote, heal and launch ``table_gather``, the adaptive
     runs launch ``table_gather`` and kill rumors. Joins phase 4's worker
-    first. Returns the worker's CPU cost model (phase 14)."""
+    first. Returns what the worker pickled: its CPU cost model (phase 14),
+    invariant suite (phase 12) and ``loadgen soak`` report (phase 15)."""
     t0 = time.perf_counter()
     try:
         worker_out = join_worker(worker, out_path, "phase 4: the CPU side of the small runs")
@@ -1216,8 +1278,10 @@ def check_small_runs(worker, out_path: Path, card: list) -> dict:
         log(f"phase 4: {label} ({rounds} rounds): card {ta:.1f} s == CPU (worker) "
             f"{tb:.1f} s ({len(ca)} curves, {len(fa)} state leaves); "
             f"need[-1]={int(ca['need'][-1])}{extra}; launches {json.dumps(launches)}")
-    log(f"phase 4: the worker built the CPU cost model in {worker_out['cost_model_s']:.1f} s")
-    return worker_out["cost_model"]
+    log(f"phase 4: the worker built the CPU cost model in {worker_out['cost_model_s']:.1f} s, "
+        f"ran the invariant suite in {worker_out['suite_s']:.1f} s and loadgen soak in "
+        f"{worker_out['soak_s']:.1f} s")
+    return worker_out
 
 
 def check_tie_rules() -> None:
@@ -1745,15 +1809,25 @@ def _unequal(a: dict, b: dict) -> dict:
     }
 
 
-def consumers(onehot, phase: int = 12) -> dict:
+def kitchen_sink():
+    """The invariant suite's ``kitchen-sink`` fault plan at its standard
+    size (48 rounds)."""
+    from corrosion_tpu_torch.sim import faults, invariants
+
+    return faults.named_scenarios(48, invariants.STD_REGIONS, invariants.STD_NODES,
+                                  protect=invariants.PROTECTED)["kitchen-sink"]
+
+
+def consumers(onehot, cpu: dict, phase: int = 12) -> dict:
     """The curve consumers on the card: the three committed demo flights
     held to their baselines at the reference CI's tolerance, the invariant
-    suite on ``kitchen-sink`` on all four engines (card == CPU), and a
-    checkpoint round trip. The launch counts are reset before the phase
-    and read after it. Returns them."""
+    suite on ``kitchen-sink`` on all four engines (card == CPU, the CPU's
+    from phase 4's worker, ``cpu``), and a checkpoint round trip. The
+    launch counts are reset before the phase and read after it. Returns
+    them."""
     from corrosion_tpu_torch.models import baselines
     from corrosion_tpu_torch.obs import epidemic
-    from corrosion_tpu_torch.sim import checkpoint, engine, faults, health, invariants, telemetry
+    from corrosion_tpu_torch.sim import checkpoint, engine, health, invariants, telemetry
 
     FLIGHTS.mkdir(parents=True, exist_ok=True)
     onehot.reset_launches()
@@ -1787,22 +1861,19 @@ def consumers(onehot, phase: int = 12) -> dict:
             f"s, {step_ms:.1f} ms/round (device_step_ms); converged round "
             f"{facts['converged_round']}; diff against the baseline at 0.35 clean; fields not "
             f"exactly equal: {json.dumps(unequal, default=str)}")
-    plan = faults.named_scenarios(48, invariants.STD_REGIONS, invariants.STD_NODES,
-                                  protect=invariants.PROTECTED)["kitchen-sink"]
-    reports, walls = {}, {}
-    for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        reports[dev] = invariants.run_suite(plan, seed=0, device=dev)
-        walls[dev] = time.perf_counter() - t0
+    plan = kitchen_sink()
+    t0 = time.perf_counter()
+    reports = {"cuda": invariants.run_suite(plan, seed=0, device="cuda"), "cpu": cpu["suite"]}
+    walls = {"cuda": time.perf_counter() - t0, "cpu": cpu["suite_s"]}
     for card, cpu in zip(reports["cuda"], reports["cpu"]):
         assert card.ok, f"{card.engine}: {card.violations}"
         for k in ("facts", "violations", "recovery"):
             assert getattr(card, k) == getattr(cpu, k), f"{card.engine}: card {k} != CPU {k}"
     log(f"phase {phase}: invariant suite on kitchen-sink ({plan.describe()}): all four engines "
         f"ok, card == CPU in facts, violations and recovery (card {walls['cuda']:.1f} s, CPU "
-        f"{walls['cpu']:.1f} s); recovery rounds "
+        f"{walls['cpu']:.1f} s in phase 4's worker); recovery rounds "
         + ", ".join(f"{r.engine} {r.recovery['recovery_rounds']}" for r in reports["cuda"]))
-    cfg, topo, sched = baselines.churn_32(device="cuda")
+    cfg, topo, sched = baselines.churn_32(rounds=CHECKPOINT_ROUNDS, device="cuda")
     final, _ = engine.simulate(cfg, topo, sched, seed=0, max_chunk=100, device="cuda")
     path = str(FLIGHTS / "churn_32.npz")
     checkpoint.save_state(path, final, fingerprint="churn_32")
@@ -2289,7 +2360,8 @@ def host_oracles(onehot, kept: dict, phase: int = 15) -> dict:
     - ``agent_trace_replay``: that trace replayed at 10,000 nodes, heads
       equal to the agents' committed versions, every alive node
       converged; the visibility percentiles logged beside the live
-      cluster's seconds to convergence.
+      cluster's seconds to convergence;
+    - the serving plane's five paths (``serving_plane``).
 
     Returns the launch counts by path."""
     from corrosion_tpu_torch.models import baselines
@@ -2298,19 +2370,7 @@ def host_oracles(onehot, kept: dict, phase: int = 15) -> dict:
 
     t_phase = time.perf_counter()
     by_path, secs = {}, {}
-
-    def run(path: str, fn):
-        onehot.reset_launches()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        secs[path] = round(time.perf_counter() - t0, 2)
-        by_path[path] = launches = dict(onehot.LAUNCHES)
-        missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
-        assert not missing, f"{path}: kernels never launched on its path: {missing}"
-        log(f"phase {phase}: {path} equal to its host oracle in {secs[path]:.2f} s: "
-            f"{json.dumps(out)}; launches {json.dumps(launches)}")
-
+    run = path_runner(onehot, phase, by_path, secs)
     run("window_bookie_fast", lambda: H.window_bookie("cuda"))
     run("window_bookie_legacy", lambda: H.window_bookie("cuda", legacy=True))
     run("rotation_bookie", lambda: H.rotation_trace("cuda"))
@@ -2376,9 +2436,85 @@ def host_oracles(onehot, kept: dict, phase: int = 15) -> dict:
     log(f"phase {phase}: the live cluster converged in {live['converge_s']} s of wall; "
         f"its traffic at {live['nodes']} nodes: visibility p50 {live['vis_p50_rounds']} "
         f"and p99 {live['vis_p99_rounds']} rounds")
+    serving_plane(run, kept.pop("soak_cpu"), phase)
     log(f"phase {phase}: seconds by path {json.dumps(secs)}; "
         f"{time.perf_counter() - t_phase:.1f} s")
     return by_path
+
+
+def path_runner(onehot, phase: int, by_path: dict, secs: dict):
+    """``run(path, fn)``: ``fn()`` with the launch counts reset just before
+    it and read just after into ``by_path[path]``, its seconds into
+    ``secs[path]``; every kernel ``PATH_KERNELS[path]`` names must have
+    launched."""
+
+    def run(path: str, fn):
+        onehot.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[path] = round(time.perf_counter() - t0, 2)
+        by_path[path] = launches = dict(onehot.LAUNCHES)
+        missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
+        assert not missing, f"{path}: kernels never launched on its path: {missing}"
+        log(f"phase {phase}: {path} equal to its host oracle in {secs[path]:.2f} s: "
+            f"{json.dumps(out)}; launches {json.dumps(launches)}")
+        return out
+
+    return run
+
+
+def serving_plane(run, soak_cpu: dict, phase: int = 15) -> None:
+    """Phase 15's serving plane (``sim/host_oracles.py``), each through
+    ``run`` (``path_runner``):
+
+    - ``loadgen_soak``: ``loadgen soak`` at its defaults (96 nodes, 96
+      rounds, the fast delivery path) on the card, equal key for key to
+      phase 4's CPU run but ``process``, its collapse rule holding;
+    - ``loadgen_soak_10k``: the same at 10,000 nodes, every node a writer,
+      so W = 10,000 takes the legacy delivery; each run's watermark
+      invariants, its seconds and the phase's peak memory; the backlog's
+      slopes, peaks and the collapse rule logged (a finding, not a gate);
+    - ``loadgen_storm``: the 2,000-subscription fan-out storm, reads over
+      HTTP and the PG wire: no oracle violation, nothing missing; its table
+      equal to the card's merge of its change log and to a read through a
+      fresh ``serve_pg``; the host's ``RLIMIT_NOFILE`` logged;
+    - ``loadgen_sweep``: the saturation sweep at its defaults: shed
+      engaged, client and server shed counts equal, admitted p99 bounded;
+    - ``agent_tls``: three agents gossiping over mutual TLS, or a line
+      saying ``cryptography`` is absent from this host."""
+    from corrosion_tpu_torch.sim import host_oracles as H
+
+    def soak():
+        rep, runs = H.loadgen_soak("cuda", cpu_report=soak_cpu)
+        assert rep["collapse_rule_holds"], rep
+        return {**{k: rep[k] for k in ("kernel_nodes", "rounds", "write_rate_per_round",
+                                       "divergence_ratio", "collapse_rule_holds")},
+                "runs": runs}
+
+    run("loadgen_soak", soak)
+
+    def soak_10k():
+        torch.cuda.reset_peak_memory_stats()
+        rep, runs = H.loadgen_soak("cuda", nodes=H.SOAK_10K_NODES)
+        assert rep["kernel_nodes"] == H.SOAK_10K_NODES and len(runs) == 2, runs
+        ms = [round(1000 * r["s"] / r["rounds"], 1) for r in runs]
+        return {
+            **{k: rep[k] for k in ("kernel_nodes", "rounds", "write_rate_per_round",
+                                   "bounded_ceiling", "divergence_ratio",
+                                   "collapse_rule_holds")},
+            **{side: {k: rep[side][k] for k in ("intake", "staleness_last", "staleness_peak",
+                                                "tail_slope_per_round")}
+               for side in ("sized", "starved")},
+            "runs": runs, "ms_per_round": ms,
+            "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2),
+        }
+
+    run("loadgen_soak_10k", soak_10k)
+    run("loadgen_storm", lambda: H.loadgen_storm("cuda"))
+    run("loadgen_sweep", H.loadgen_sweep)
+    tls = run("agent_tls", H.agent_tls)
+    log(json.dumps({"tls": tls["tls"]}))
 
 
 def kernel_rows(measured: list, by_path: dict) -> list:
@@ -2469,16 +2605,17 @@ def main() -> int:
     except BaseException:
         stop_worker(small[0])
         raise
-    cpu_costs = check_small_runs(*small)
+    cpu = check_small_runs(*small)
+    kept["soak_cpu"] = cpu["soak"]
     lap("phase 4's checks")
-    by_path["consumers"] = consumers(onehot)
+    by_path["consumers"] = consumers(onehot, cpu)
     lap("phase 12")
     by_path.update(sharded_runs(onehot, gossip, kept))
     lap("phase 13")
     # The first run of merge_10k in this process: phase 2's build and load,
     # then phase 6's run.
     by_path.update(bench_harness(onehot, led, built.wall_ms / 1e3 + walls["merge_10k"],
-                                 built.compile_ms, cpu_costs))
+                                 built.compile_ms, cpu["cost_model"]))
     lap("phase 14")
     by_path.update(host_oracles(onehot, kept))
     lap("phase 15")

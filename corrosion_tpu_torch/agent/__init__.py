@@ -7,10 +7,11 @@ streaming subscriptions, and the background loops that tie them together.
 
 The port's copy of corrosion_tpu/agent/ holds the first layer (``store``,
 ``membership``, ``config``, ``pgsql``, ``transport``: the host oracles of
-the simulator's CRDT merge, SWIM and sync planes) and the runtime
+the simulator's CRDT merge, SWIM and sync planes), the runtime
 (``pool``, ``subs``, ``backup``, ``netem``, ``agent``, ``api``, ``admin``,
-``testing``). ``pg`` (the Postgres wire server) and ``tls`` are not ported
-yet.
+``testing``) and the serving plane (``pg``, the Postgres wire server;
+``tls``, imported only where a config asks for gossip TLS, since it needs
+the ``cryptography`` package).
 """
 
 from corrosion_tpu_torch.agent.store import Store, StoreError, SchemaError  # noqa: F401

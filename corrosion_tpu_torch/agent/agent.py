@@ -9,9 +9,7 @@ api/public/mod.rs:33-191) and the ingest path for remote changesets
 buffering (process_incomplete_version :2063-2151,
 process_fully_buffered_changes :1667-1806).
 
-Counterpart of corrosion_tpu/agent/agent.py. Gossip-plane TLS
-(``AgentConfig.tls``) needs ``agent/tls.py``, which is not ported yet:
-such a config raises ``NotImplementedError``.
+Counterpart of corrosion_tpu/agent/agent.py.
 """
 
 from __future__ import annotations
@@ -221,13 +219,6 @@ class PendingBroadcast:
 
 class Agent:
     def __init__(self, cfg: AgentConfig) -> None:
-        if cfg.tls is not None:
-            # Refused before anything is opened: never a plaintext
-            # fallback for a config that asks for TLS.
-            raise NotImplementedError(
-                "gossip-plane TLS needs corrosion_tpu_torch.agent.tls, "
-                "which is not ported yet (AgentConfig.tls must be None)"
-            )
         self.cfg = cfg
         os.makedirs(cfg.data_dir, exist_ok=True)
         site_id = os.urandom(16)
@@ -254,7 +245,22 @@ class Agent:
             breaker_max_s=cfg.breaker_max_s,
             netem=self.netem,
         )
-        self.transport = Transport(**transport_kw)
+        if cfg.tls is not None:
+            from corrosion_tpu_torch.agent import tls as tls_mod
+
+            self.transport = Transport(
+                ssl_server=tls_mod.server_ssl_context(
+                    cfg.tls.cert, cfg.tls.key, cfg.tls.ca,
+                    require_client_cert=cfg.tls.mtls,
+                ),
+                ssl_client=tls_mod.client_ssl_context(
+                    cfg.tls.ca, cfg.tls.client_cert, cfg.tls.client_key,
+                    insecure=cfg.tls.insecure,
+                ),
+                **transport_kw,
+            )
+        else:
+            self.transport = Transport(**transport_kw)
         self.members = Members(self.actor_id)
         self.tasks = TaskRegistry()
         self.tripwire = Tripwire()

@@ -33,7 +33,13 @@ tests/test_mixed_engine.py); here they run on the card as well.
   every agent's rows against the card's merge of every change log, the
   subscription and a restored backup against the table
   (``agent_cluster_live``), and its recorded traffic replayed in the
-  simulator at 10,000 nodes (``agent_trace_replay``).
+  simulator at 10,000 nodes (``agent_trace_replay``);
+- the serving plane: ``loadgen soak`` on ``device`` against its CPU run
+  and at 10,000 nodes, each run held to the watermark invariants
+  (``loadgen_soak``); the 2,000-subscription fan-out storm, its table
+  against the card's merge of its change log and a read through the PG
+  wire (``loadgen_storm``); the saturation sweep (``loadgen_sweep``); and
+  gossip over mutual TLS (``agent_tls``).
 """
 
 from __future__ import annotations
@@ -1325,3 +1331,263 @@ def agent_trace_replay(trace, versions: dict, nodes: int, device=None) -> dict:
         "vis_p50_rounds": lat["p50_s"] / round_s, "vis_p99_rounds": lat["p99_s"] / round_s,
         "unseen": lat["unseen"],
     }
+
+
+# -- the serving plane: loadgen's scenarios, the PG wire, gossip TLS -----------
+
+# tests/test_loadgen.py's acceptance bar (test_fanout_storm_2k_subscriptions):
+# 2,000 subscriptions in four groups, 60 writes at 10/s, reads over HTTP
+# and the PG wire at the scenario's rates.
+STORM = dict(subs=2000, writes=60, write_rate=10.0, drain_timeout_s=60.0)
+STORM_SELECT = "SELECT id, text FROM tests ORDER BY id"
+# ``loadgen soak`` at the scale of the reference's merge_10k and geo_10k.
+SOAK_10K_NODES = 10_000
+TLS_AGENTS = 3
+
+
+@contextmanager
+def watched_simulate(runs: list):
+    """``sim.engine.simulate`` wrapped while the block runs (the scenarios
+    import it when called): each run's final state is held to the
+    watermark invariants (``contig <= head``, ``seen >= contig``) and
+    only a summary is kept in ``runs`` (intake, rounds, versions, wall
+    seconds), so the [N, W] planes are freed with the run."""
+    from corrosion_tpu_torch.sim import engine
+
+    real = engine.simulate
+
+    def simulate(cfg, topo, sched, *a, **kw):
+        t0 = time.perf_counter()
+        final, curves = real(cfg, topo, sched, *a, **kw)
+        d = final.data
+        assert bool((d.contig <= d.head[None, :]).all()), "contig > head"
+        assert bool((d.seen >= d.contig).all()), "seen < contig"
+        if d.head.is_cuda:
+            torch.cuda.synchronize()
+        runs.append({
+            "intake": cfg.gossip.rebroadcast_intake, "rounds": int(sched.rounds),
+            "nodes": cfg.n_nodes, "writers": int(d.head.numel()),
+            "versions": int(d.head.sum()), "s": round(time.perf_counter() - t0, 2),
+        })
+        return final, curves
+
+    engine.simulate = simulate
+    try:
+        yield runs
+    finally:
+        engine.simulate = real
+
+
+def loadgen_soak(device=None, cpu_report: dict | None = None, **kw) -> tuple:
+    """``loadgen soak`` (``scenarios.intake_policy``, its defaults unless
+    ``kw`` names them) on ``device``, each of its two runs held to the
+    watermark invariants; with ``cpu_report`` (the same call on the
+    CPU), the dicts are equal key for key but ``process`` (it reads
+    ``/proc`` and the wall clock). Returns (the report without
+    ``process``, the runs' summaries)."""
+    from corrosion_tpu_torch.loadgen import scenarios
+
+    device = resolve_device(device)
+    runs = []
+    with watched_simulate(runs):
+        rep = scenarios.intake_policy(device=device, **kw)
+    rep.pop("process")
+    if cpu_report is not None:
+        want = {k: v for k, v in cpu_report.items() if k != "process"}
+        bad = sorted(k for k in set(rep) | set(want) if rep.get(k) != want.get(k))
+        assert not bad, f"intake_policy on {device} differs from the CPU's in {bad}"
+    assert [r["intake"] for r in runs] == [rep["sized"]["intake"], rep["starved"]["intake"]]
+    return rep, runs
+
+
+def storm_cells(db_path: Path, device) -> dict:
+    """The storm's ``tests`` table in its agent's database, held to the
+    change log merged on ``device`` (``crdt.apply_changes`` in one
+    shuffled batch: causal length, col_version and winning text).
+    Returns the table."""
+    import sqlite3
+    from types import SimpleNamespace
+
+    db = SimpleNamespace(conn=sqlite3.connect(str(db_path)))
+    try:
+        table = dict(db.conn.execute(STORM_SELECT).fetchall())
+        ranks = text_ranks([db])
+        n_rows = max(table) + 1
+        batch = agent_change_batch([db], ranks, device)
+        cells = crdt.apply_changes(crdt.make_cells(n_rows, device), batch)
+        assert not bool(cells_mismatch(*cells, agent_cells(db, ranks, n_rows))), (
+            "the storm's rows differ from the card's merge of its change log")
+        return table
+    finally:
+        db.conn.close()
+
+
+async def _pg_select(data_dir: Path, sql: str) -> list:
+    """``sql`` through a fresh agent on ``data_dir``, its ``serve_pg`` and
+    the connection of a ``PgReadClient`` (whose ``query`` counts rows):
+    the DataRows as text."""
+    import struct
+
+    from corrosion_tpu_torch.agent.pg import serve_pg
+    from corrosion_tpu_torch.agent.testing import launch_test_agent
+    from corrosion_tpu_torch.loadgen.pgread import PgReadClient
+
+    ta = await launch_test_agent(str(data_dir))
+    server, (host, port) = await serve_pg(ta.agent)
+    try:
+        client = await PgReadClient.connect(host, port)
+        try:
+            body = sql.encode() + b"\x00"
+            client.writer.write(b"Q" + struct.pack(">I", len(body) + 4) + body)
+            await client.writer.drain()
+            rows = []
+            for tag, p in await client._read_until(b"Z"):
+                assert tag != b"E", p
+                if tag != b"D":
+                    continue
+                off, row = 2, []
+                for _ in range(struct.unpack_from(">H", p)[0]):
+                    (ln,) = struct.unpack_from(">i", p, off)
+                    row.append(None if ln < 0 else p[off + 4:off + 4 + ln].decode())
+                    off += 4 + max(ln, 0)
+                rows.append(tuple(row))
+            return rows
+        finally:
+            client.close()
+    finally:
+        server.close()
+        await server.wait_closed()
+        await ta.stop()
+
+
+def loadgen_storm(device=None, root=DEFAULT_STORE_ROOT) -> dict:
+    """``loadgen run`` (``scenarios.fanout_storm``) at ``STORM``, the
+    reference's acceptance bar: the oracle sees every stream and commit,
+    no violation and nothing missing, at least a quarter of the streams'
+    worth of changes a write, and reads through the PG wire; then the
+    storm's table, read from its agent's database, equals the change log
+    merged on ``device`` and one ``SELECT`` through a fresh agent's
+    ``serve_pg`` and ``PgReadClient`` on that directory. The scenario
+    lifts the soft ``RLIMIT_NOFILE`` to the hard one (two descriptors a
+    stream); both are in the summary. The cluster's directory is
+    ``root/loadgen_storm``, emptied first."""
+    import resource
+    import shutil
+
+    from corrosion_tpu_torch.loadgen import scenarios
+
+    device = resolve_device(device)
+    base = Path(root) / "loadgen_storm"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    soft0, _ = resource.getrlimit(resource.RLIMIT_NOFILE)
+    t0 = time.perf_counter()
+    rep = asyncio.run(scenarios.fanout_storm(str(base), **STORM))
+    wall = time.perf_counter() - t0
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    o, subs, writes = rep["oracle"], STORM["subs"], STORM["writes"]
+    assert (o["streams"], o["commits"]) == (subs, writes), o
+    assert o["violations"] == 0, o["violation_examples"]
+    assert o["missing"] == 0, o
+    assert o["delivered_changes"] >= writes * (subs // 4), o
+    assert rep["routes"]["pg"]["ok"] > 0, rep["routes"]
+    table = storm_cells(base / "agent0" / "state.db", device)
+    assert sorted(table) == list(range(writes)), sorted(table)
+    pg_rows = asyncio.run(_pg_select(base / "agent0", STORM_SELECT))
+    assert pg_rows == [(str(k), v) for k, v in sorted(table.items())], "the PG read differs"
+    return {
+        "streams": o["streams"], "commits": o["commits"], "violations": o["violations"],
+        "missing": o["missing"], "delivered_changes": o["delivered_changes"],
+        "fanout_lag_ms": o["fanout_lag_ms"], "routes": {
+            k: {"ok": v["ok"], "p50_ms": v["latency_ms"]["p50"], "p99_ms": v["latency_ms"]["p99"]}
+            for k, v in rep["routes"].items()},
+        "rows": len(table), "pg_rows": len(pg_rows), "wall_s": round(wall, 2),
+        "nofile": {"soft_before": soft0, "soft": soft, "hard": hard},
+    }
+
+
+def loadgen_sweep(root=DEFAULT_STORE_ROOT) -> dict:
+    """``loadgen sweep`` (``scenarios.saturation_sweep``) at its defaults:
+    shed engaged, the client's shed count equal to the server's, the
+    admitted p99 under its bound. Returns the stages' offered rates, shed
+    and admitted p99, and those flags. The agent's directory is
+    ``root/loadgen_sweep``, emptied first."""
+    import shutil
+
+    from corrosion_tpu_torch.loadgen import scenarios
+
+    base = Path(root) / "loadgen_sweep"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    rep = asyncio.run(scenarios.saturation_sweep(str(base)))
+    for flag in ("shed_engaged", "shed_accounting_consistent", "admitted_p99_bounded"):
+        assert rep[flag], (flag, rep)
+    return {
+        "stages": [{"rate_hz": s["offered_rate_hz"], "shed": s["shed"],
+                    "p99_ms": s.get("latency_ms", {}).get("p99")} for s in rep["stages"]],
+        **{k: rep[k] for k in ("api_concurrency", "burst", "shed_total", "server_shed_total",
+                               "shed_engaged", "shed_accounting_consistent",
+                               "admitted_p99_bounded", "admitted_p99_ms_max")},
+    }
+
+
+async def _tls_cluster(base: Path, tls) -> dict:
+    from corrosion_tpu_torch.agent.agent import AgentTls
+    from corrosion_tpu_torch.agent.testing import launch_test_agent, poll_until
+    from corrosion_tpu_torch.agent.transport import Transport
+
+    ca_dir = str(base / "ca")
+    tls.generate_ca(ca_dir)
+    ca = str(base / "ca" / tls.CA_CERT)
+    server = tls.generate_server_cert(str(base / "server"), ca_dir, "127.0.0.1")
+    client = tls.generate_client_cert(str(base / "client"), ca_dir)
+    cfg = AgentTls(cert=server.cert, key=server.key, ca=ca, client_cert=client.cert,
+                   client_key=client.key, mtls=True)
+    cluster = []
+    t0 = time.perf_counter()
+    try:
+        for i in range(TLS_AGENTS):
+            boot = [cluster[0].gossip_addr] if cluster else None
+            cluster.append(await launch_test_agent(str(base / f"a{i}"), bootstrap=boot, tls=cfg))
+        await cluster[0].client.execute([[LIVE_WRITE_SQL, [1, "over-mtls"]]])
+
+        async def converged():
+            return {agent_digest(ta) for ta in cluster} == {"1=over-mtls"}
+
+        await poll_until(converged, timeout=LIVE_CONVERGE_S)
+        converge_s = time.perf_counter() - t0
+        # A peer whose certificate another CA signed gets no session.
+        other = str(base / "other_ca")
+        tls.generate_ca(other)
+        rogue = tls.generate_client_cert(str(base / "rogue"), other)
+        t = Transport(ssl_client=tls.client_ssl_context(ca, rogue.cert, rogue.key))
+        try:
+            session = await t.open_session(cluster[1].gossip_addr, {"n": 1}, timeout=5)
+            refused = session is None or await session.recv(timeout=5) is None
+        finally:
+            t.close()
+        assert refused, "a peer with an untrusted certificate got a session"
+        return {"agents": TLS_AGENTS, "converge_s": round(converge_s, 2), "untrusted_refused": True}
+    finally:
+        for ta in cluster:
+            await ta.stop()
+
+
+def agent_tls(root=DEFAULT_STORE_ROOT) -> dict:
+    """Gossip over mutual TLS with certificates from the port's ``tls``:
+    ``TLS_AGENTS`` agents, a write on one reaches every one, and a peer
+    holding a certificate of another CA is refused. Where the
+    ``cryptography`` package is absent (the reference's own tests skip
+    then), nothing runs and the summary says so. Directories go under
+    ``root/agent_tls``, emptied first."""
+    import importlib.util
+    import shutil
+
+    if importlib.util.find_spec("cryptography") is None:
+        return {"tls": "cryptography absent"}
+    from corrosion_tpu_torch.agent import tls
+
+    base = Path(root) / "agent_tls"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    return {"tls": "ran", **asyncio.run(_tls_cluster(base, tls))}

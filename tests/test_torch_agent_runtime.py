@@ -10,11 +10,12 @@ Covered: every case of ``test_agent_cluster``, ``test_agent_hardening``,
 ``test_torch_obs_rest.py``), ``test_pool_restore``, ``test_sync_serve``,
 ``test_sync_parallel``, ``test_transport_resilience`` and
 ``test_compaction``; ``test_trace_replay``'s end-to-end case with the
-replay on the CPU; ``test_obs_timeline``'s live-agent case at :545; and
-the cases of
+replay on the CPU; ``test_obs_timeline``'s two live-agent cases (the
+second drives ``loadgen``'s fan-out storm); and the cases of
 ``test_ops_surface`` and ``test_observability`` that need no unported
-module. The cases that do are named in ``WAITING``, with the module each
-waits for; they are not collected.
+module (``tpl`` and ``integrations.consul`` are ported). The cases that
+do are named in ``WAITING``, with the module each waits for; they are
+not collected.
 ``test_pgsql_lexer::test_normalize_sql_idempotent`` runs against the
 port's ``subs`` in ``test_torch_pgsql.py``.
 """
@@ -39,6 +40,7 @@ import test_trace_replay as ref_trace_replay
 import test_transport_resilience as ref_transport
 from corrosion_tpu_torch import client as tclient
 from corrosion_tpu_torch import native as tnative
+from corrosion_tpu_torch import tpl as ttpl
 from corrosion_tpu_torch.agent import admin as tadmin
 from corrosion_tpu_torch.agent import agent as tagent
 from corrosion_tpu_torch.agent import api as tapi
@@ -46,6 +48,7 @@ from corrosion_tpu_torch.agent import backup as tbackup
 from corrosion_tpu_torch.agent import config as tconfig
 from corrosion_tpu_torch.agent import membership as tmembership
 from corrosion_tpu_torch.agent import netem as tnetem
+from corrosion_tpu_torch.agent import pg as tpg
 from corrosion_tpu_torch.agent import pgsql as tpgsql
 from corrosion_tpu_torch.agent import pool as tpool
 from corrosion_tpu_torch.agent import store as tstore
@@ -57,7 +60,15 @@ from corrosion_tpu_torch.core import changes as tchanges
 from corrosion_tpu_torch.core import hlc as thlc
 from corrosion_tpu_torch.core import intervals as tiv
 from corrosion_tpu_torch.core import values as tvalues
+from corrosion_tpu_torch.integrations import consul as tconsul
+from corrosion_tpu_torch.loadgen import harness as tharness
+from corrosion_tpu_torch.loadgen import oracle as toracle
+from corrosion_tpu_torch.loadgen import pgread as tpgread
+from corrosion_tpu_torch.loadgen import report as treport
+from corrosion_tpu_torch.loadgen import scenarios as tscenarios
+from corrosion_tpu_torch.loadgen import schedule as tschedule
 from corrosion_tpu_torch.obs import serving as tserving
+from corrosion_tpu_torch.obs import timeline as ttimeline
 from corrosion_tpu_torch.sim import health as thealth
 from corrosion_tpu_torch.sim import telemetry as ttelemetry
 from corrosion_tpu_torch.sim import trace as ttrace
@@ -73,6 +84,7 @@ from test_torch_core import reference_cases, run_against
 RUNTIME_SWAPS = {
     "corrosion_tpu.client": tclient,
     "corrosion_tpu.native": tnative,
+    "corrosion_tpu.tpl": ttpl,
     "corrosion_tpu.agent.admin": tadmin,
     "corrosion_tpu.agent.agent": tagent,
     "corrosion_tpu.agent.api": tapi,
@@ -80,6 +92,7 @@ RUNTIME_SWAPS = {
     "corrosion_tpu.agent.config": tconfig,
     "corrosion_tpu.agent.membership": tmembership,
     "corrosion_tpu.agent.netem": tnetem,
+    "corrosion_tpu.agent.pg": tpg,
     "corrosion_tpu.agent.pgsql": tpgsql,
     "corrosion_tpu.agent.pool": tpool,
     "corrosion_tpu.agent.store": tstore,
@@ -91,7 +104,15 @@ RUNTIME_SWAPS = {
     "corrosion_tpu.core.hlc": thlc,
     "corrosion_tpu.core.intervals": tiv,
     "corrosion_tpu.core.values": tvalues,
+    "corrosion_tpu.integrations.consul": tconsul,
+    "corrosion_tpu.loadgen.harness": tharness,
+    "corrosion_tpu.loadgen.oracle": toracle,
+    "corrosion_tpu.loadgen.pgread": tpgread,
+    "corrosion_tpu.loadgen.report": treport,
+    "corrosion_tpu.loadgen.scenarios": tscenarios,
+    "corrosion_tpu.loadgen.schedule": tschedule,
     "corrosion_tpu.obs.serving": tserving,
+    "corrosion_tpu.obs.timeline": ttimeline,
     "corrosion_tpu.sim.health": thealth,
     "corrosion_tpu.sim.telemetry": ttelemetry,
     "corrosion_tpu.sim.trace": ttrace,
@@ -107,21 +128,9 @@ RUNTIME_SWAPS = {
 # Reference cases that need a module the port does not have yet, by the
 # module each waits for. They are left out of the parametrisation.
 WAITING = {
-    ref_cluster: {
-        "test_subscription_reconnect_resumes_across_agent_restart": "loadgen",
-    },
-    ref_ops: {
-        "test_cli_help_and_query_exec": "cli",
-        "test_template_render_and_watch": "tpl",
-        "test_template_watch_resubscribes_late_queries": "tpl",
-        "test_consul_diffing_basic_operations": "integrations.consul",
-        "test_consul_bridge_hashes_persist_across_restart": "integrations.consul",
-    },
+    ref_ops: {"test_cli_help_and_query_exec": "cli"},
     ref_observability: {"test_metric_names_match_docs": "obs.metrics_ref"},
-    ref_timeline: {
-        "test_traced_cluster_end_to_end_timeline": "loadgen",
-        "test_obs_timeline_cli_from_run": "loadgen, cli",
-    },
+    ref_timeline: {"test_obs_timeline_cli_from_run": "cli"},
 }
 # test_sub_costs' pure-dict cases, run against the port in
 # test_torch_obs_rest.py.
@@ -135,9 +144,10 @@ SERVING_ELSEWHERE = (
     "test_budget_gate_absolute_rules",
     "test_baseline_diff_regression",
 )
-# The live-agent case of test_obs_timeline; its synthetic cases run in
+# The live-agent cases of test_obs_timeline; its synthetic cases run in
 # test_torch_obs_rest.py.
-TIMELINE_LIVE = ("test_default_agent_write_path_allocates_no_spans",)
+TIMELINE_LIVE = ("test_default_agent_write_path_allocates_no_spans",
+                 "test_traced_cluster_end_to_end_timeline")
 
 
 def _cases(module, skip=()) -> list:
@@ -208,7 +218,7 @@ def test_every_reference_case_is_run_or_waits():
         ran = {c for mm, c in CASES if mm is m}
         rest = set(SERVING_ELSEWHERE) if m is ref_sub_costs else set()
         assert ran | set(WAITING.get(m, {})) | rest == set(reference_cases(m)), m.__name__
-    assert len([c for m, c in CASES if m is ref_cluster]) == 17
+    assert len([c for m, c in CASES if m is ref_cluster]) == 18
     assert set(ref_timeline.__dict__) >= set(TIMELINE_LIVE) | set(WAITING[ref_timeline])
 
 

@@ -40,12 +40,12 @@ def test_port_imports_no_jax_and_no_reference():
         "        'corrosion_tpu_torch.elastic.preempt',\n"
         "        'corrosion_tpu_torch.elastic.scenarios', 'corrosion_tpu_torch.sim.benchlib',\n"
         "        'corrosion_tpu_torch.obs.ledger', 'corrosion_tpu_torch.obs.costs'} <= set(names)\n"
-        "assert set(HOST_PLANES) <= set(names), set(HOST_PLANES) - set(names)\n"
+        "assert set(HOST_PLANES) | set(SERVING) <= set(names), set(HOST_PLANES) - set(names)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'corrosion_tpu' or m.startswith('corrosion_tpu.'))\n"
         "assert not bad, bad\n"
         "print('clean', len(names))\n",
-        HOST_PLANES=HOST_PLANES,
+        HOST_PLANES=HOST_PLANES, SERVING=SERVING,
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("clean")
@@ -74,6 +74,17 @@ HOST_PLANES = (
     "corrosion_tpu_torch.agent.agent", "corrosion_tpu_torch.agent.api",
     "corrosion_tpu_torch.agent.admin", "corrosion_tpu_torch.agent.testing",
 )
+# The serving plane: the PG wire server, gossip TLS (it needs the
+# ``cryptography`` package, so the agent imports it only where a config
+# asks for TLS), the Consul bridge, templates and the load generator.
+SERVING = (
+    "corrosion_tpu_torch.agent.pg", "corrosion_tpu_torch.agent.tls",
+    "corrosion_tpu_torch.integrations", "corrosion_tpu_torch.integrations.consul",
+    "corrosion_tpu_torch.tpl", "corrosion_tpu_torch.loadgen",
+    "corrosion_tpu_torch.loadgen.schedule", "corrosion_tpu_torch.loadgen.oracle",
+    "corrosion_tpu_torch.loadgen.pgread", "corrosion_tpu_torch.loadgen.harness",
+    "corrosion_tpu_torch.loadgen.report", "corrosion_tpu_torch.loadgen.scenarios",
+)
 
 
 def test_lazy_imports_of_the_host_planes_stay_in_the_port():
@@ -84,7 +95,7 @@ def test_lazy_imports_of_the_host_planes_stay_in_the_port():
     import ast
     import importlib.util
 
-    for name in HOST_PLANES + ("corrosion_tpu_torch.elastic.scenarios",):
+    for name in HOST_PLANES + SERVING + ("corrosion_tpu_torch.elastic.scenarios",):
         src = Path(importlib.util.find_spec(name).origin).read_text()
         for node in ast.walk(ast.parse(src)):
             if isinstance(node, ast.ImportFrom):
@@ -152,6 +163,7 @@ def test_entry_points_raise_without_cuda():
         "from corrosion_tpu_torch import parallel\n"
         "from corrosion_tpu_torch.elastic import scenarios\n"
         "from corrosion_tpu_torch.sim import host_oracles\n"
+        "from corrosion_tpu_torch.loadgen import report, scenarios as lscenarios\n"
         "plan = faults.named_scenarios(24, 4, 48)['loss-burst']\n"
         "kw = dict(n=40, n_regions=2, n_writers=4, rounds=4, samples=4)\n"
         "cfg, topo, sched = baselines.wan_100k(device='cpu', **kw)\n"
@@ -173,7 +185,9 @@ def test_entry_points_raise_without_cuda():
         "             lambda: host_oracles.window_bookie(),\n"
         "             lambda: host_oracles.store_crdt_trials(),\n"
         "             lambda: host_oracles.membership_rings(),\n"
-        "             lambda: host_oracles.agent_cluster_live()):\n"
+        "             lambda: host_oracles.agent_cluster_live(),\n"
+        "             lambda: lscenarios.intake_policy(nodes=8, rounds=2),\n"
+        "             lambda: report.serving_context('fanout_storm', 1, 32)):\n"
         "    try:\n"
         "        call()\n"
         "    except RuntimeError as e:\n"
@@ -221,25 +235,51 @@ def test_bench_and_cost_modules_need_no_cuda_and_no_triton():
 
 
 def test_the_agent_refuses_tls_without_the_reference():
-    """``AgentConfig.tls`` set: the port's ``Agent`` raises before it
-    opens anything (no plaintext fallback, no data directory), naming the
-    unported ``agent/tls.py``; nothing of JAX or the reference is loaded,
-    and the port has no ``tls`` or ``pg`` module yet."""
+    """The package, ``agent`` and the serving plane import without the
+    ``cryptography`` package (``tls`` is imported only where a config asks
+    for TLS); an ``Agent`` whose config sets ``AgentConfig.tls`` then
+    raises the reference's own ``ModuleNotFoundError``, never a plaintext
+    fallback. With ``cryptography``, the agent's gossip transport wraps
+    the port's ``tls`` contexts, and nothing of JAX or the reference is
+    loaded either way."""
     res = _run(
-        "import importlib.util, os, sys, tempfile\n"
+        "import os, sys, tempfile\n"
+        "sys.modules['cryptography'] = None\n"
+        "import corrosion_tpu_torch, corrosion_tpu_torch.agent\n"
         "from corrosion_tpu_torch.agent.agent import Agent, AgentConfig, AgentTls\n"
-
+        "from corrosion_tpu_torch.agent import pg\n"
+        "from corrosion_tpu_torch.loadgen import scenarios\n"
+        "from corrosion_tpu_torch import tpl\n"
+        "from corrosion_tpu_torch.integrations import consul\n"
+        "assert 'corrosion_tpu_torch.agent.tls' not in sys.modules\n"
         "d = os.path.join(tempfile.mkdtemp(), 'agent')\n"
         "cfg = AgentConfig(data_dir=d, tls=AgentTls(cert='c.pem', key='k.pem'))\n"
         "try:\n"
         "    Agent(cfg)\n"
-        "except NotImplementedError as e:\n"
-        "    assert 'corrosion_tpu_torch.agent.tls' in str(e), e\n"
+        "except ModuleNotFoundError as e:\n"
+        "    assert e.name == 'cryptography', e\n"
         "else:\n"
-        "    raise SystemExit('an agent with tls set was built')\n"
-        "assert not os.path.exists(d)\n"
-        "for m in ('tls', 'pg'):\n"
-        "    assert importlib.util.find_spec('corrosion_tpu_torch.agent.' + m) is None, m\n"
+        "    raise SystemExit('an agent with tls set was built without cryptography')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'corrosion_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+    res = _run(
+        "import asyncio, os, ssl, sys, tempfile\n"
+        "from corrosion_tpu_torch.agent import tls\n"
+        "from corrosion_tpu_torch.agent.agent import Agent, AgentConfig, AgentTls\n"
+        "d = tempfile.mkdtemp()\n"
+        "tls.generate_ca(os.path.join(d, 'ca'))\n"
+        "srv = tls.generate_server_cert(os.path.join(d, 's'), os.path.join(d, 'ca'), '127.0.0.1')\n"
+        "ca = os.path.join(d, 'ca', tls.CA_CERT)\n"
+        "cfg = AgentConfig(data_dir=os.path.join(d, 'a'),\n"
+        "                  tls=AgentTls(cert=srv.cert, key=srv.key, ca=ca, mtls=False))\n"
+        "a = Agent(cfg)\n"
+        "assert isinstance(a.transport._ssl_server, ssl.SSLContext)\n"
+        "assert isinstance(a.transport._ssl_client, ssl.SSLContext)\n"
+        "a.store.close()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'corrosion_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
