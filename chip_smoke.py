@@ -55,14 +55,20 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    column a stream ([1000, 1] -> [1000, 512]), and the adaptive mixed
    run's ``table_gather`` at n = 64; phase 15's ``loadgen soak`` at 96
    nodes (the fast path's gathers, reductions and window) and at 10,000
-   (the legacy gather, ``rowsum``, the reductions and ``visibility``);
+   (the legacy gather, ``rowsum``, the reductions and ``visibility``), and
+   its fidelity replay at 10,000 nodes and 3 writers (the fast path's
+   gathers, reductions and window). The inputs are made on the card from
+   one seeded generator, and every object alive when the phase starts is
+   frozen out of the collector's walks (``gc.freeze``);
 4. small runs on the card (kernels) and on the CPU (plain versions), with
    identical curves and final state: ``wan_100k(n=2000, ...)``,
-   ``three_node()``, ``churn_32(rounds=200)`` and its wipe variant,
+   ``three_node(n_inserts=504)``, ``churn_32(rounds=128)`` and its wipe
+   variant,
    ``anti_entropy_1k()``, a merge_10k burst variant at n=2560 (wider than
    2048 writers, so it takes the legacy delivery and launches
-   ``rowgather_wide`` and ``rowsum``), and ``anywrite_sparse(n=2000, ...)``
-   with fewer hot slots than active writers under a partition (forced
+   ``rowgather_wide`` and ``rowsum``), and ``anywrite_sparse(n=2000,
+   rounds=32, ...)`` with fewer hot slots than active writers under a
+   partition (forced
    demotions, cold healing, ``table_gather``); then the adaptive plane
    (``health.ADAPTIVE_GOSSIP``): ``wan_100k(n=2000, rounds=48)`` with
    8-bucket sketches (sketch scoring forced), the merge_10k burst at
@@ -70,11 +76,12 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    one), ``churned_demo_cluster(96, 48, geo=True,
    adaptive=True)`` and the anywrite run with ``prop_observe``; then the
    chunk plane's tie-sensitive picks at 1.6 M rows, ``anti_entropy_chunks(
-   n=48, streams=4)`` plain and under a fault plan (loss, churn, a wipe
-   that spares the origins), and ``mixed_storm(n=64, streams=2, rounds=24)``
+   n=48, streams=4, rounds=72)`` plain and under a fault plan (loss,
+   churn, a wipe that spares the origins), and ``mixed_storm(n=64, streams=2, rounds=24)``
    without cells, with cells, under kill/revive/wipe and adaptive with
    ``prop_observe`` (conservation). The CPU side of every small run (and
-   of phase 12's invariant suite and phase 15's ``loadgen soak``) goes in
+   of phase 12's invariant suite, phase 15's ``loadgen soak`` and its
+   fidelity plane's ``dcn_partition``) goes in
    one worker process, started with the card's side and checked after
    phase 11: it runs at the lowest priority with a core left to this
    process, beside phases 4-11;
@@ -123,15 +130,16 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    ``kitchen-sink`` fault plan on all four engines, every report ok and
    the card's facts, violations and recovery equal to the CPU's (run in
    phase 4's worker); and a ``save_state``/``load_state`` round trip of a
-   100-round churn_32 run on the card;
+   50-round churn_32 run on the card;
 13. the shard driver and the elastic plane: full-width ``wan_100k()`` on
    a (2, 2) mesh of card positions (all on one card when there is one),
-   48 rounds in calls of 12: curves equal to phase 5's first 48 rounds but
+   24 rounds in calls of 12: curves equal to phase 5's first 24 rounds but
    the exchange's byte keys, the final state equal to phase 5's at round
-   48, the exchange bytes equal to ``traffic_model`` and each position's
-   state bytes equal to the prediction; ``anywrite_sparse(n=2000, ...)``
-   on 4 positions and the merge_10k burst at n=2560 (the legacy delivery)
-   on 2, each equal to its unsharded card run; the elastic drills
+   24, the exchange bytes equal to ``traffic_model`` and each position's
+   state bytes equal to the prediction; phase 4's ``anywrite_sparse(n=2000,
+   rounds=32, ...)`` on 4 positions and the merge_10k burst at n=2560 (the
+   legacy delivery, 24 rounds) on 2, each equal to its unsharded card run;
+   the elastic drills
    (``reshard_{dense,sparse,chunk,mixed}_4to8``, ``preempt_dense_churn``,
    ``soak_preempt``) on the card, each equal to its uninterrupted run, the
    preemption's recovery machinery fired, the soak drill's counter resets
@@ -145,8 +153,9 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    its plane attribution and roofline stage costs, the bench report put
    together as the reference bench does and passed through
    ``check_bench_invariants`` (``steady_compiles`` 0); the multi-device lane
-   (``measure_multichip``) at D = 1, 2, 4, 8 on card positions, equal
-   across D with exchange bytes equal to ``traffic_model``; the cost model
+   (``measure_multichip``) at D = 1, 2, 4, 8 on card positions, 24 rounds
+   (``LANE_ROUNDS``; the reference's 32), equal across D with exchange
+   bytes equal to ``traffic_model``; the cost model
    of the four engines at their tiny configs on the card, equal in flops,
    bytes and kernel calls to the CPU's (built by phase 4's worker); and the
    capacity curve against the card's memory, its 512-node point exact and
@@ -170,7 +179,7 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    ``rowgather``) and against phase 5's final wan_100k cells (every
    committed version in two orders == ``serial_merge_reference``; every
    converged alive row equal to the store in one broadcast compare; at
-   round 48, kept by phase 13 on the host, 16 rows that fall short of
+   round 24, kept by phase 13 on the host, 16 rows that fall short of
    ``head`` each equal to a store of exactly the versions they hold); the
    kernels' down-member GC beside the host ``Swim``'s GC and
    adaptive transmissions; 40 seeds of sync's ring preference (the grants
@@ -201,7 +210,23 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    (``loadgen sweep``) with its three flags true; and three agents
    gossiping over mutual TLS with certificates from ``agent.tls``, or a
    ``{"tls": "cryptography absent"}`` line where that package is missing.
-   The stores' files and the agents' data directories go under
+   Then the chaos and fidelity planes: ``fidelity steady`` and ``burst``
+   (``fidelity.scenarios.steady_load``, ``burst_drain``) at their defaults,
+   three port agents on 127.0.0.1 calibrating their own round model, both
+   replays of each trace on the card (``rowgather``, ``delivery_reduce``)
+   with the calibrated one strictly closer to the live CDF, nothing
+   unseen, each replay equal to the CPU's on the same trace; the steady
+   trace replayed at 10,000 nodes (``fidelity.compare.kernel_replay``)
+   calibrated with ``ROUND_MODEL_WAN.json`` and at 500 ms, nothing unseen
+   (``rowgather``, ``delivery_reduce``, ``window_delivery``);
+   ``dcn_partition`` at its shape (all four fast-path kernels), its
+   invariant cross-check ok, both runs recovered, equal to phase 4's CPU
+   run; ``hostchaos`` ``wan_steady`` and ``kill_restart`` with no oracle
+   violation, converged, their required machinery fired and every agent's
+   table equal to the card's merge of their change logs; and the
+   endurance soak's host lane (``soak_churn`` with the series recorder),
+   no wedge, stall or SLO breach, the killed agent's resets classified
+   restart. The stores' files and the agents' data directories go under
    ``build/host_oracles``.
 
 Phases 5 (wan_100k), 10 (anti_entropy_chunks at 1,000 nodes) and 11 pass
@@ -215,7 +240,7 @@ and 11, the pairs of runs of phases 9 and 10, phase 12, each of phase
 13's four paths, each of phase 14's paths: the merge_10k run, its plane
 attribution, the multi-device lane's sharded runs, read at the lane's note
 that its attribution begins, that attribution, and the cost model, and
-each of phase 15's eighteen paths) and read just after it. Each phase logs its wall time. The last lines are a ``kernels`` JSON line,
+each of phase 15's twenty-four paths) and read just after it. Each phase logs its wall time. The last lines are a ``kernels`` JSON line,
 the nvidia-smi line, and the result line ``{"ok": true, "device": {...}}``.
 Each kernel's entry carries its launches summed over the paths and,
 under ``by_path``, each path's launches and the times and bound of every
@@ -323,14 +348,31 @@ PATH_KERNELS = {
     "loadgen_storm": (),
     "loadgen_sweep": (),
     "agent_tls": (),
+    # The chaos and fidelity planes: the live runs' replays at 3 nodes (no
+    # cells: no rowmax; no window either) and the steady trace's at 10,000
+    # (the fast delivery path), the DCN scenario at 48 nodes (its
+    # invariant cross-check carries cells); host chaos is host code (its
+    # merge launches nothing).
+    "fidelity_steady": ("rowgather", "delivery_reduce"),
+    "fidelity_burst": ("rowgather", "delivery_reduce"),
+    "fidelity_replay_10k": ("rowgather", "delivery_reduce", "window_delivery"),
+    "fidelity_dcn": ("rowmax", "rowgather", "delivery_reduce", "window_delivery"),
+    "hostchaos_smoke": (),
+    "hostchaos_soak": (),
 }
 # Phase 13 runs wan_100k's first rounds sharded; phase 5 keeps its state
 # and curves there to hold them to.
-SHARDED_ROUNDS = 48
+SHARDED_ROUNDS = 24
 ELASTIC_DRILLS = ("reshard_dense_4to8", "reshard_sparse_4to8", "reshard_chunk_4to8",
                   "reshard_mixed_4to8", "preempt_dense_churn", "soak_preempt")
+# Phase 13's merge_10k burst at n=2560 on 2 positions (48 in phase 4).
+MERGE_SHARDED_ROUNDS = 24
 CHUNK_100K_ROUNDS = 48  # phase 10's 100,000-node run (the 1,000-node run takes all 240)
-CHECKPOINT_ROUNDS = 100  # phase 12's churn_32 run for the checkpoint round trip
+CHECKPOINT_ROUNDS = 50  # phase 12's churn_32 run for the checkpoint round trip
+# The multi-device lane's rounds in phase 14 (``benchlib.MULTICHIP_ROUNDS``,
+# 32, cut to make room for phase 15's chaos and fidelity planes): its
+# sharded runs first launch ``window_delivery`` after round 16.
+LANE_ROUNDS = 24
 REPO = Path(__file__).resolve().parent
 FLIGHTS = REPO / "build" / "flights"  # flight records of the telemetry-carrying phases
 
@@ -516,9 +558,9 @@ def max_abs_err(got, want) -> int:
 def _inputs(g, r, m, w, device):
     """Random kernel inputs: indices with negatives and out-of-range
     columns, u32 values with bit 31 set, random masks."""
-    idx = torch.randint(-2, w + 3, (r, m), generator=g).to(device)
-    val = torch.randint(0, 1 << 32, (r, m), generator=g).to(device)
-    mask = (torch.rand((r, m), generator=g) < 0.7).to(device)
+    idx = torch.randint(-2, w + 3, (r, m), generator=g, device=device)
+    val = torch.randint(0, 1 << 32, (r, m), generator=g, device=device)
+    mask = torch.rand((r, m), generator=g, device=device) < 0.7
     return idx, val, mask
 
 
@@ -559,7 +601,7 @@ def check_kernels(onehot, device) -> list:
     shape, in path order."""
     from corrosion_tpu_torch.obs import costs
 
-    g = torch.Generator().manual_seed(0)
+    g = torch.Generator(device=device).manual_seed(0)
     split = Split()
     t_edges = time.perf_counter()
     # Edge cases: 0-width axes, odd small shapes, both window widths, and
@@ -577,18 +619,18 @@ def check_kernels(onehot, device) -> list:
             assert equal(got, want), f"rowmax differs at {(r, m, w)}"
             got, want = onehot.rowsum(idx, val, msk, w), onehot.rowsum_plain(idx, val, msk, w)
             assert equal(got, want), f"rowsum differs at {(r, m, w)}"
-        table = torch.randint(0, 1 << 32, (r, w), generator=g).to(device)
+        table = torch.randint(0, 1 << 32, (r, w), generator=g, device=device)
         check_gathers(onehot, table, idx, f"{(r, m, w)}")
-        seen = torch.randint(0, 1 << 32, (r, w), generator=g).to(device)
-        d = torch.randint(0, 200, (r, m), generator=g).to(device)
+        seen = torch.randint(0, 1 << 32, (r, w), generator=g, device=device)
+        d = torch.randint(0, 200, (r, m), generator=g, device=device)
         applied = mask & (d < 150)
         got = onehot.delivery_reduce(idx, d, val, applied, mask, seen, w)
         want = onehot.delivery_reduce_plain(idx, d, val, applied, mask, seen, w)
         assert all(equal(x, y) for x, y in zip(got, want)), f"delivery_reduce differs at {(r, m, w)}"
         for wk in (32, 64):
-            oo = torch.randint(0, 1 << 32, (wk // 32, r, w), generator=g).to(device)
-            adv_m = torch.randint(0, 70, (r, m), generator=g).to(device)
-            dd = torch.randint(0, 140, (r, m), generator=g).to(device)
+            oo = torch.randint(0, 1 << 32, (wk // 32, r, w), generator=g, device=device)
+            adv_m = torch.randint(0, 70, (r, m), generator=g, device=device)
+            dd = torch.randint(0, 140, (r, m), generator=g, device=device)
             got = onehot.window_delivery(oo, idx, dd, adv_m, mask, wk, w)
             want = onehot.window_delivery_plain(oo, idx, dd, adv_m, mask, wk, w)
             assert all(equal(x, y) for x, y in zip(got, want)), f"window_delivery differs at {(r, m, w, wk)}"
@@ -596,8 +638,8 @@ def check_kernels(onehot, device) -> list:
     # off the tiles, m at the form rule's threshold (W/2) and one either
     # side, W = 10,000 and 16,384.
     for r, m, w in GATHER_EDGES:
-        table = torch.randint(0, 1 << 32, (r, w), generator=g).to(device)
-        flat = torch.randint(-3, w + 3, (r * m + 1,), generator=g).to(device)
+        table = torch.randint(0, 1 << 32, (r, w), generator=g, device=device)
+        flat = torch.randint(-3, w + 3, (r * m + 1,), generator=g, device=device)
         check_gathers(onehot, table, flat[:-1].view(r, m), f"{(r, m, w)}")
         # A view at an odd storage offset: idx not 16-byte aligned.
         check_gathers(onehot, table, flat[1:].view(r, m), f"{(r, m, w)} offset idx")
@@ -610,14 +652,14 @@ def check_kernels(onehot, device) -> list:
         (0, (4, 5)), (9, (0,)), (9, (3, 0)), (1, (7,)), (37, (19, 41)),
         (2049, (64, 300)), (16_384, (24, 144)), (100_000, (3, 50, 200)),
     ):
-        table = torch.randint(0, 1 << 32, (w,), generator=g).to(device)
-        idx = torch.randint(-w - 3, 2 * w + 3, shape, generator=g).to(device)
+        table = torch.randint(0, 1 << 32, (w,), generator=g, device=device)
+        idx = torch.randint(-w - 3, 2 * w + 3, shape, generator=g, device=device)
         assert equal(onehot.table_gather(table, idx), onehot.table_gather_plain(table, idx)), \
             f"table_gather differs at W={w}, idx {shape}"
     for w in (1, 2048, 100_000):
-        table = torch.randint(0, 1 << 32, (w,), generator=g).to(device)
+        table = torch.randint(0, 1 << 32, (w,), generator=g, device=device)
         for n in (0, 1, 2, 3, 1023, 1024, 1025, 5 * 1024 + 1):
-            base = torch.randint(-w - 3, 2 * w + 3, (n + 1,), generator=g).to(device)
+            base = torch.randint(-w - 3, 2 * w + 3, (n + 1,), generator=g, device=device)
             for at, idx in (("aligned", base[:n]), ("odd offset", base[1:])):
                 assert equal(onehot.table_gather(table, idx), onehot.table_gather_plain(table, idx)), \
                     f"table_gather differs at W={w}, n={n}, {at} idx"
@@ -625,8 +667,8 @@ def check_kernels(onehot, device) -> list:
     # (scalar index loads), and a non-contiguous view, which the operator
     # refuses (its contiguous copy gathers).
     for w, r, m in ((512, 1001, 144), (512, 999, 48), (16, 301, 64), (16, 3, 16)):
-        table = torch.randint(0, 1 << 32, (w,), generator=g).to(device)
-        flat = torch.randint(-w - 3, 2 * w + 3, (r * m + 1,), generator=g).to(device)
+        table = torch.randint(0, 1 << 32, (w,), generator=g, device=device)
+        flat = torch.randint(-w - 3, 2 * w + 3, (r * m + 1,), generator=g, device=device)
         for at, idx in (("aligned", flat[:-1].view(r, m)), ("odd offset", flat[1:].view(r, m))):
             assert equal(onehot.table_gather(table, idx), onehot.table_gather_plain(table, idx)), \
                 f"table_gather differs at W={w}, idx [{r},{m}] {at}"
@@ -723,19 +765,19 @@ def check_kernels(onehot, device) -> list:
         )
 
     def u24(*shape):
-        return torch.randint(0, 1 << 24, shape, generator=g).to(device)
+        return torch.randint(0, 1 << 24, shape, generator=g, device=device)
 
     def sorted_idx(r, budget, w):
         # A grant enumeration's columns: ascending along each row.
-        return torch.sort(torch.randint(0, w, (r, budget), generator=g).to(device), dim=1).values
+        return torch.sort(torch.randint(0, w, (r, budget), generator=g, device=device), dim=1).values
 
     def reduce_case(path, n, kk, w, d_hi, v_hi, **extra_fns):
-        widx = torch.randint(0, w, (n, kk), generator=g).to(device)
-        d = torch.randint(0, d_hi, (n, kk), generator=g).to(device)
-        v = torch.randint(0, v_hi, (n, kk), generator=g).to(device)
-        valid = torch.rand((n, kk), generator=g).to(device) < 0.8
+        widx = torch.randint(0, w, (n, kk), generator=g, device=device)
+        d = torch.randint(0, d_hi, (n, kk), generator=g, device=device)
+        v = torch.randint(0, v_hi, (n, kk), generator=g, device=device)
+        valid = torch.rand((n, kk), generator=g, device=device) < 0.8
         applied = valid & (d < d_hi // 10)
-        seen = torch.randint(0, v_hi, (n, w), generator=g).to(device)
+        seen = torch.randint(0, v_hi, (n, w), generator=g, device=device)
         measure(
             "delivery_reduce", path, f"[{n},{kk}]x5,[{n},{w}]->2x[{n},{w}]",
             (widx, d, v, applied, valid, seen),
@@ -752,17 +794,17 @@ def check_kernels(onehot, device) -> list:
         merge's rowmax, every rowgather site, the delivery reductions and
         the window."""
         idx = rowmax_case(path, n, kk, k)
-        gather_case(path, "base gather", u24(n, w), torch.randint(0, w, (n, kk), generator=g).to(device))
+        gather_case(path, "base gather", u24(n, w), torch.randint(0, w, (n, kk), generator=g, device=device))
         gather_case(path, "CRDT winner check", u24(n, k), idx)
         gather_case(path, "sync grants", u24(r_sync, w), sorted_idx(r_sync, budget, w))
-        gather_case(path, "visibility", u24(n, w), torch.randint(0, w, (samples,), generator=g).to(device))
+        gather_case(path, "visibility", u24(n, w), torch.randint(0, w, (samples,), generator=g, device=device))
         window_case(path, n, kk, w)
 
     def window_case(path, n, kk, w):
         """The delivery reductions and the window at one path's shapes."""
         widx, d, valid = reduce_case(path, n, kk, w, 40, 1 << 20)
-        oo = torch.randint(0, 1 << 32, (1, n, w), generator=g).to(device)
-        adv_m = torch.randint(0, 8, (n, kk), generator=g).to(device)
+        oo = torch.randint(0, 1 << 32, (1, n, w), generator=g, device=device)
+        adv_m = torch.randint(0, 8, (n, kk), generator=g, device=device)
         measure(
             "window_delivery", path, f"[1,{n},{w}],[{n},{kk}]x4->[{n},{kk}],[1,{n},{w}]",
             (oo, widx, d, adv_m, valid),
@@ -792,9 +834,9 @@ def check_kernels(onehot, device) -> list:
     # budget 512.
     n, kk, w, k, r_sync, budget = 10_000, 144, 10_000, 1024, 2_000, 512
     idx = rowmax_case("merge_10k", n, kk, k)
-    gather_case("merge_10k", "CRDT winner check", torch.randint(0, 1 << 26, (n, k), generator=g).to(device), idx)
+    gather_case("merge_10k", "CRDT winner check", torch.randint(0, 1 << 26, (n, k), generator=g, device=device), idx)
     gather_case("merge_10k", "sync grants", u24(r_sync, w), sorted_idx(r_sync, budget, w))
-    gather_case("merge_10k", "visibility", u24(n, w), torch.randint(0, w, (256,), generator=g).to(device))
+    gather_case("merge_10k", "visibility", u24(n, w), torch.randint(0, w, (256,), generator=g, device=device))
 
     # The legacy contig_run/seen reductions, and the two-rowmax form of the
     # same function (two launches and a max pass) timed beside them.
@@ -805,15 +847,15 @@ def check_kernels(onehot, device) -> list:
     reduce_case("merge_10k", n, kk, w, 1 << 20, 1 << 20, two_rowmax_ms=two_rowmax)
 
     # The legacy base gather (and the window's word reads, same shape).
-    widx = torch.randint(0, w, (n, kk), generator=g).to(device)
+    widx = torch.randint(0, w, (n, kk), generator=g, device=device)
     gather_case("merge_10k", "legacy base gather", u24(n, w), widx, wide=True)
 
     # The legacy window assembly: one power of two per admitted message.
     def rowsum_case(path, widx, w):
         n, kk = widx.shape
         bits = torch.where(
-            torch.rand((n, kk), generator=g).to(device) < 0.5,
-            1 << torch.randint(0, 32, (n, kk), generator=g).to(device), 0,
+            torch.rand((n, kk), generator=g, device=device) < 0.5,
+            1 << torch.randint(0, 32, (n, kk), generator=g, device=device), 0,
         )
         measure(
             "rowsum", path, f"[{n},{kk}]->[{n},{w}]", (widx, bits),
@@ -840,11 +882,11 @@ def check_kernels(onehot, device) -> list:
     w_hot, r_sync, n, q = 2048, 16_667, 100_000, 64
     fast_path("anywrite_sparse", n, 5 * q, w_hot, 256, 256, r_sync, budget)
     gather_case("anywrite_sparse", "cold_sync grants", u24(n, 256), sorted_idx(n, 64, 256))
-    table_case("anywrite_sparse", "sync grants", torch.randint(0, n, (w_hot,), generator=g).to(device),
+    table_case("anywrite_sparse", "sync grants", torch.randint(0, n, (w_hot,), generator=g, device=device),
                sorted_idx(r_sync, budget, w_hot))
     table_case("anywrite_sparse", "rotate",
-               (torch.rand((w_hot,), generator=g) < 0.4).to(torch.int64).to(device),
-               torch.randint(0, w_hot, (n, q), generator=g).to(device))
+               (torch.rand((w_hot,), generator=g, device=device) < 0.4).to(torch.int64),
+               torch.randint(0, w_hot, (n, q), generator=g, device=device))
 
     # wan_100k_adaptive (its other sites are wan_100k's): the intake
     # priority reads the head of each delivered copy's writer (the sorted
@@ -852,12 +894,12 @@ def check_kernels(onehot, device) -> list:
     # entry's ([N, Q = 48], twice a round), the rumor kill each copy's
     # receiver watermark.
     n, w, kk, q = 100_000, 512, 144, 48
-    heads = torch.randint(0, 1 << 20, (w,), generator=g).to(device)
+    heads = torch.randint(0, 1 << 20, (w,), generator=g, device=device)
     table_case("wan_100k_adaptive", "intake priority", heads, sorted_idx(n, kk, w))
     table_case("wan_100k_adaptive", "queue saturation", heads,
-               torch.randint(0, w, (n, q), generator=g).to(device))
+               torch.randint(0, w, (n, q), generator=g, device=device))
     gather_case("wan_100k_adaptive", "rumor-kill watermarks", u24(n, w),
-                torch.randint(0, w, (n, kk), generator=g).to(device))
+                torch.randint(0, w, (n, kk), generator=g, device=device))
 
     # geo_10k: N = 10,000 rows, W = 16 writers, kk = 64 messages (fanout
     # 2+2 x queue 16), S = 64 samples, no cells (no rowmax, no grant
@@ -865,12 +907,12 @@ def check_kernels(onehot, device) -> list:
     # shape.
     n, w, kk, q = 10_000, 16, 64, 16
     gather_case("geo_10k", "base gather, rumor-kill watermarks", u24(n, w),
-                torch.randint(0, w, (n, kk), generator=g).to(device))
-    gather_case("geo_10k", "visibility", u24(n, w), torch.randint(0, w, (64,), generator=g).to(device))
+                torch.randint(0, w, (n, kk), generator=g, device=device))
+    gather_case("geo_10k", "visibility", u24(n, w), torch.randint(0, w, (64,), generator=g, device=device))
     window_case("geo_10k", n, kk, w)
-    heads = torch.randint(0, 1 << 10, (w,), generator=g).to(device)
+    heads = torch.randint(0, 1 << 10, (w,), generator=g, device=device)
     table_case("geo_10k", "intake priority", heads, sorted_idx(n, kk, w))
-    table_case("geo_10k", "queue saturation", heads, torch.randint(0, w, (n, q), generator=g).to(device))
+    table_case("geo_10k", "queue saturation", heads, torch.randint(0, w, (n, q), generator=g, device=device))
     # mixed_storm: N = 1,000 rows, W = 64 writers, kk = 64 messages (fanout
     # 2+2 x queue 16), K = 512 cells, S = 256 samples, sync cohort 125 rows
     # (interval 8) with budget 512: the fast path's kernels; then the CRDT
@@ -884,10 +926,10 @@ def check_kernels(onehot, device) -> list:
     gather_case("mixed_storm", "sync CRDT winner check", u24(125, k), idx)
     idx = rowmax_case("mixed_storm", n, 1, k)
     gather_case("mixed_storm", "admission CRDT winner check", u24(n, k), idx)
-    heads = torch.randint(0, 1 << 10, (w,), generator=g).to(device)
+    heads = torch.randint(0, 1 << 10, (w,), generator=g, device=device)
     table_case("mixed_storm", "adaptive n=64 intake priority", heads, sorted_idx(64, kk, w))
     table_case("mixed_storm", "adaptive n=64 queue saturation", heads,
-               torch.randint(0, w, (64, 16), generator=g).to(device))
+               torch.randint(0, w, (64, 16), generator=g, device=device))
     del idx, heads
 
     # The shard bodies of phase 13, one row block a position (the sync
@@ -902,20 +944,20 @@ def check_kernels(onehot, device) -> list:
                               ("anywrite_sparse_sharded", 500, 320, 56, 256),
                               ("elastic", 8, 144, 16, 256)):
         idx = rowmax_case(path, n, kk, k)
-        gather_case(path, "base gather", u24(n, w), torch.randint(0, w, (n, kk), generator=g).to(device))
+        gather_case(path, "base gather", u24(n, w), torch.randint(0, w, (n, kk), generator=g, device=device))
         gather_case(path, "CRDT winner check", u24(n, k), idx)
         window_case(path, n, kk, w)
     table_case("anywrite_sparse_sharded", "rotate",
-               (torch.rand((56,), generator=g) < 0.4).to(torch.int64).to(device),
-               torch.randint(0, 56, (2000, 64), generator=g).to(device))
+               (torch.rand((56,), generator=g, device=device) < 0.4).to(torch.int64),
+               torch.randint(0, 56, (2000, 64), generator=g, device=device))
     # The sparse drill's rotate: 8 hot slots, n=64, queue 64.
-    table_case("elastic", "rotate", (torch.rand((8,), generator=g) < 0.4).to(torch.int64).to(device),
-               torch.randint(0, 8, (64, 64), generator=g).to(device))
+    table_case("elastic", "rotate", (torch.rand((8,), generator=g, device=device) < 0.4).to(torch.int64),
+               torch.randint(0, 8, (64, 64), generator=g, device=device))
     n, kk, w, k = 1280, 144, 2560, 1024
     idx = rowmax_case("merge_10k_sharded", n, kk, k)
     gather_case("merge_10k_sharded", "CRDT winner check", u24(n, k), idx)
     reduce_case("merge_10k_sharded", n, kk, w, 1 << 20, 1 << 20)
-    widx = torch.randint(0, w, (n, kk), generator=g).to(device)
+    widx = torch.randint(0, w, (n, kk), generator=g, device=device)
     gather_case("merge_10k_sharded", "legacy base gather", u24(n, w), widx, wide=True)
     rowsum_case("merge_10k_sharded", widx, w)
     del idx, widx
@@ -926,18 +968,29 @@ def check_kernels(onehot, device) -> list:
     # legacy one, whose window words are read at the base gather's shape.
     n, kk, w = 96, 144, 96
     gather_case("loadgen_soak", "base gather", u24(n, w),
-                torch.randint(0, w, (n, kk), generator=g).to(device))
+                torch.randint(0, w, (n, kk), generator=g, device=device))
     gather_case("loadgen_soak", "visibility", u24(n, w),
-                torch.randint(0, w, (32,), generator=g).to(device))
+                torch.randint(0, w, (32,), generator=g, device=device))
     window_case("loadgen_soak", n, kk, w)
     n, kk, w = 10_000, 144, 10_000
     reduce_case("loadgen_soak_10k", n, kk, w, 1 << 20, 1 << 20)
-    widx = torch.randint(0, w, (n, kk), generator=g).to(device)
+    widx = torch.randint(0, w, (n, kk), generator=g, device=device)
     gather_case("loadgen_soak_10k", "legacy base gather, window words", u24(n, w), widx, wide=True)
     rowsum_case("loadgen_soak_10k", widx, w)
     gather_case("loadgen_soak_10k", "visibility", u24(n, w),
-                torch.randint(0, w, (32,), generator=g).to(device))
+                torch.randint(0, w, (32,), generator=g, device=device))
     del widx
+
+    # Phase 15's fidelity replay at 10,000 nodes: the steady run's 3
+    # recorded writers and silent observers, kk = 64 messages (fanouts 2 +
+    # 2 x queue 16), S = 24 samples (one a write), no cells (no rowmax, no
+    # grant gathers): the fast path's gathers, reductions and window.
+    n, kk, w = 10_000, 64, 3
+    gather_case("fidelity_replay_10k", "base gather", u24(n, w),
+                torch.randint(0, w, (n, kk), generator=g, device=device))
+    gather_case("fidelity_replay_10k", "visibility", u24(n, w),
+                torch.randint(0, w, (24,), generator=g, device=device))
+    window_case("fidelity_replay_10k", n, kk, w)
     for row in out:
         times = ", ".join(
             f"{k} {v:.4f}" for k, v in row.items() if k.endswith("ms") and v is not None
@@ -1008,22 +1061,29 @@ def _mixed_churn(sched, n_nodes):
 
 
 # Fewer hot slots (56) than an epoch's writers need under a partition:
-# forced demotions, deviation entries and cold healing.
-SPARSE_SMALL = dict(n=2000, w_hot=56, rounds=64, n_regions=4, epoch_rounds=8,
+# forced demotions, deviation entries and cold healing, all within four
+# epochs (64 rounds cut to 32 to make room for phase 15's chaos and
+# fidelity planes).
+SPARSE_SMALL = dict(n=2000, w_hot=56, rounds=32, n_regions=4, epoch_rounds=8,
                     cohort=32, k_dev=96, partition=True, samples=64)
-CHUNK_SMALL = dict(n=48, streams=4, last_seq=2047, rounds=120)
+# 72 rounds (120 before phase 15's chaos and fidelity planes): the fault
+# plan's loss, churn and wipe all fall in its first 40.
+CHUNK_SMALL = dict(n=48, streams=4, last_seq=2047, rounds=72)
 MIXED_SMALL = dict(n=64, streams=2, last_seq=255, rounds=24, samples=16)
 # churn_32's depth in phase 4 (the builder's 400 cut to make room for phase
-# 15's serving plane): seven of the ten flappers go down and four come
-# back up before the 40-round drain.
-CHURN_SMALL_ROUNDS = 200
+# 15's serving plane, then its chaos and fidelity planes): four of the ten
+# flappers go down and two come back up; the last 32 rounds drain.
+CHURN_SMALL_ROUNDS = 128
+# three_node's inserts in phase 4 (the builder's 1,000, cut likewise): 42
+# rounds of writes, then its 30-round drain.
+THREE_NODE_INSERTS = 504
 SMALL_RUNS = (
     # (label, builder, builder kwargs, schedule transform, chunk, gossip
     # fields set with health.with_adaptive (None: the builder's config),
     # ops.gossip module settings for the run)
     ("wan_100k n=2000", "wan_100k", dict(n=2000, n_regions=4, n_writers=64, rounds=72), None, 24,
      None, {}),
-    ("three_node", "three_node", {}, None, None, None, {}),
+    ("three_node", "three_node", dict(n_inserts=THREE_NODE_INSERTS), None, None, None, {}),
     ("churn_32", "churn_32", dict(rounds=CHURN_SMALL_ROUNDS), None, 100, None, {}),
     ("churn_32 wipe", "churn_32", dict(rounds=CHURN_SMALL_ROUNDS), _wiped, 100, None, {}),
     ("anti_entropy_1k", "anti_entropy_1k", {}, None, 50, None, {}),
@@ -1104,16 +1164,17 @@ def _small_run(builder, kw, transform, chunk, adapt, dev):
     return flat, curves, info, sched.rounds
 
 
-def _with_knobs(gossip, knobs: dict, fn):
-    """``fn()`` with the ``ops.gossip`` module settings ``knobs`` in force."""
-    saved = {k: getattr(gossip, k) for k in knobs}
+def _with_knobs(module, knobs: dict, fn):
+    """``fn()`` with the module settings ``knobs`` (``ops.gossip``'s, or
+    ``sim.benchlib``'s) in force."""
+    saved = {k: getattr(module, k) for k in knobs}
     try:
         for k, v in knobs.items():
-            setattr(gossip, k, v)
+            setattr(module, k, v)
         return fn()
     finally:
         for k, v in saved.items():
-            setattr(gossip, k, v)
+            setattr(module, k, v)
 
 
 def cpu_small_runs(out: str) -> int:
@@ -1121,9 +1182,11 @@ def cpu_small_runs(out: str) -> int:
     ``SMALL_RUNS`` on the CPU (the plain versions), in order, each one's
     ``_small_run`` result and its seconds, then the cost model of the four
     engines on the CPU (phase 14 holds the card's to it), the invariant
-    suite on ``kitchen-sink`` (phase 12) and ``loadgen soak`` at its
-    defaults (phase 15) on the CPU, with their seconds, pickled into
-    ``OUT``. Phase 4 starts it as a worker process."""
+    suite on ``kitchen-sink`` (phase 12), ``loadgen soak`` and the fidelity
+    plane's ``dcn_partition`` at their defaults (phase 15) on the CPU, with
+    their seconds, pickled into ``OUT``. Phase 4 starts it as a worker
+    process."""
+    from corrosion_tpu_torch.fidelity import scenarios as fidelity
     from corrosion_tpu_torch.loadgen import scenarios
     from corrosion_tpu_torch.obs import costs
     from corrosion_tpu_torch.ops import gossip
@@ -1144,10 +1207,13 @@ def cpu_small_runs(out: str) -> int:
     t_suite = time.perf_counter() - t0
     t0 = time.perf_counter()
     soak = scenarios.intake_policy(device="cpu")
+    t_soak = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dcn = fidelity.dcn_partition(device="cpu")
     Path(out).write_bytes(pickle.dumps(
         {"runs": runs, "cost_model": model, "cost_model_s": t_model, "suite": suite,
-         "suite_s": t_suite, "soak": soak, "soak_s": time.perf_counter() - t0,
-         "s": time.perf_counter() - t_all}
+         "suite_s": t_suite, "soak": soak, "soak_s": t_soak, "dcn": dcn,
+         "dcn_s": time.perf_counter() - t0, "s": time.perf_counter() - t_all}
     ))
     return 0
 
@@ -1234,7 +1300,8 @@ def check_small_runs(worker, out_path: Path, card: list) -> dict:
     anywrite runs demote, heal and launch ``table_gather``, the adaptive
     runs launch ``table_gather`` and kill rumors. Joins phase 4's worker
     first. Returns what the worker pickled: its CPU cost model (phase 14),
-    invariant suite (phase 12) and ``loadgen soak`` report (phase 15)."""
+    invariant suite (phase 12), ``loadgen soak`` and ``dcn_partition``
+    reports (phase 15)."""
     t0 = time.perf_counter()
     try:
         worker_out = join_worker(worker, out_path, "phase 4: the CPU side of the small runs")
@@ -1279,8 +1346,8 @@ def check_small_runs(worker, out_path: Path, card: list) -> dict:
             f"{tb:.1f} s ({len(ca)} curves, {len(fa)} state leaves); "
             f"need[-1]={int(ca['need'][-1])}{extra}; launches {json.dumps(launches)}")
     log(f"phase 4: the worker built the CPU cost model in {worker_out['cost_model_s']:.1f} s, "
-        f"ran the invariant suite in {worker_out['suite_s']:.1f} s and loadgen soak in "
-        f"{worker_out['soak_s']:.1f} s")
+        f"ran the invariant suite in {worker_out['suite_s']:.1f} s, loadgen soak in "
+        f"{worker_out['soak_s']:.1f} s and dcn_partition in {worker_out['dcn_s']:.1f} s")
     return worker_out
 
 
@@ -1553,7 +1620,7 @@ def full_run(onehot, gossip, phase: int, builder: str, keep: dict | None = None,
     if keep is not None:
         # Phase 15 holds the final cells to the SQLite store and reads the
         # flight's write journeys. The cell planes, the watermarks and the
-        # window words are held on the host, as round 48's are.
+        # window words are held on the host, as phase 13's round's are.
         d = state.data
         keep["final"] = dict(mesh_mod.to_host(dict(
             cells=d.cells, head=d.head, contig=d.contig, oo=d.oo, alive=state.swim.alive)),
@@ -1993,8 +2060,8 @@ def sharded_runs(onehot, gossip, kept: dict, phase: int = 13) -> dict:
         f"bytes a position {predicted} == predicted ({predicted / whole:.4f} of the whole "
         f"{whole}); launches {json.dumps(launches)}; host syncs {json.dumps(syncs)}")
     mid = kept.pop("state")
-    # Phase 15 holds round 48's rows that fall short of head to the SQLite
-    # store: the cells, watermarks and window words stay on the host.
+    # Phase 15 holds this round's rows that fall short of head to the
+    # SQLite store: the cells, watermarks and window words stay on the host.
     kept["mid"] = dict(cells=mid.data.cells, head=mid.data.head, contig=mid.data.contig,
                        oo=mid.data.oo, alive=mid.swim.alive)
     del state, parts, mid
@@ -2023,7 +2090,7 @@ def sharded_runs(onehot, gossip, kept: dict, phase: int = 13) -> dict:
     del got, want
 
     # (c) the merge_10k burst at n=2560 (legacy delivery) on 2 positions.
-    cfg, topo, sched = baselines.merge_10k(device="cuda", n=2560, rounds=48)
+    cfg, topo, sched = baselines.merge_10k(device="cuda", n=2560, rounds=MERGE_SHARDED_ROUNDS)
     sched = _burst(sched, engine.Schedule)
     mesh2 = parallel.make_mesh(2)
     onehot.reset_launches()
@@ -2242,8 +2309,10 @@ def bench_harness(onehot, led, first_run_s: float, compile_ms: float, cpu_costs:
     marks = Marks()
     onehot.reset_launches()
     t0 = time.perf_counter()
-    lane = telemetry.check_bench_invariants(benchlib.measure_multichip(device="cuda",
-                                                                       progress=marks))
+    lane = telemetry.check_bench_invariants(_with_knobs(
+        benchlib, {"MULTICHIP_ROUNDS": LANE_ROUNDS},
+        lambda: benchlib.measure_multichip(device="cuda", progress=marks)))
+    assert lane["rounds"] == LANE_ROUNDS, lane["rounds"]
     torch.cuda.synchronize()
     total = dict(onehot.LAUNCHES)
     runs = marks.at[f"[multichip] D={max(benchlib.MULTICHIP_DEVICE_COUNTS)}: plane attribution"]
@@ -2339,7 +2408,7 @@ def host_oracles(onehot, kept: dict, phase: int = 15) -> dict:
     - ``store_crdt_full``: phase 5's final wan_100k state (``kept["final"]``,
       the host copy moved to the card and freed here): the store of every committed version in two orders ==
       ``serial_merge_reference``, every converged alive row equal to it in
-      one broadcast compare (at least one); then the same at round 48
+      one broadcast compare (at least one); then the same at round 24
       (``kept["mid"]``, phase 13's host copy, moved to the card), where 16
       rows that fall short of ``head`` are each held to a store of exactly
       the versions they hold (at least one);
@@ -2361,7 +2430,8 @@ def host_oracles(onehot, kept: dict, phase: int = 15) -> dict:
       equal to the agents' committed versions, every alive node
       converged; the visibility percentiles logged beside the live
       cluster's seconds to convergence;
-    - the serving plane's five paths (``serving_plane``).
+    - the serving plane's five paths (``serving_plane``);
+    - the chaos and fidelity planes' six paths (``chaos_fidelity``).
 
     Returns the launch counts by path."""
     from corrosion_tpu_torch.models import baselines
@@ -2400,17 +2470,18 @@ def host_oracles(onehot, kept: dict, phase: int = 15) -> dict:
     final, mid = kept.pop("final"), kept.pop("mid")
 
     def full():
-        # Both host copies (phase 5's last round, phase 13's round 48) go
-        # back to the card one at a time.
+        # Both host copies (phase 5's last round, phase 13's last) go back
+        # to the card one at a time.
         keys = ("cells", "head", "contig", "oo", "alive")
         last = mesh_mod.assemble({k: final[k] for k in keys}, "cuda")
         out = H.store_crdt_full(*(last[k] for k in keys), final["cfg"])
         assert out["converged_rows"] >= 1, "wan_100k: no converged row to hold to the store"
         del last
-        # Round 48, where rows fall short of head.
-        at_48 = mesh_mod.assemble(mid, "cuda")
-        out["round_48"] = H.store_crdt_full(*(at_48[k] for k in keys), final["cfg"])
-        assert out["round_48"]["short_rows_checked"] >= 1, "wan_100k: no short row at round 48"
+        # Phase 13's round, where rows fall short of head.
+        at_mid = mesh_mod.assemble(mid, "cuda")
+        key = f"round_{SHARDED_ROUNDS}"
+        out[key] = H.store_crdt_full(*(at_mid[k] for k in keys), final["cfg"])
+        assert out[key]["short_rows_checked"] >= 1, f"wan_100k: no short row at {key}"
         return out
 
     run("store_crdt_full", full)
@@ -2437,6 +2508,7 @@ def host_oracles(onehot, kept: dict, phase: int = 15) -> dict:
         f"its traffic at {live['nodes']} nodes: visibility p50 {live['vis_p50_rounds']} "
         f"and p99 {live['vis_p99_rounds']} rounds")
     serving_plane(run, kept.pop("soak_cpu"), phase)
+    chaos_fidelity(run, kept.pop("dcn_cpu"), phase)
     log(f"phase {phase}: seconds by path {json.dumps(secs)}; "
         f"{time.perf_counter() - t_phase:.1f} s")
     return by_path
@@ -2517,6 +2589,63 @@ def serving_plane(run, soak_cpu: dict, phase: int = 15) -> None:
     log(json.dumps({"tls": tls["tls"]}))
 
 
+def chaos_fidelity(run, dcn_cpu: dict, phase: int = 15) -> None:
+    """Phase 15's chaos and fidelity planes (``sim/host_oracles.py``), each
+    through ``run`` (``path_runner``):
+
+    - ``fidelity_steady`` and ``fidelity_burst``: ``steady_load`` and
+      ``burst_drain`` at their defaults (three of the port's agents on
+      127.0.0.1, 24 writes; 12 Hz round-robin, and all at once on one
+      writer): the live cluster calibrates its own round model and both
+      replays of its trace run on the card; the calibrated one strictly
+      closer to the live CDF, nothing unseen on either side, each replay
+      equal to the port's plain path on the CPU on the same trace;
+    - ``fidelity_replay_10k``: the steady run's trace at 10,000 nodes (its
+      3 writers and silent observers), calibrated with
+      ``ROUND_MODEL_WAN.json`` and uncalibrated at 500 ms: nothing unseen,
+      the loss and probe-loss axes present in the first and absent in the
+      second, the watermark invariants; latencies, time to convergence, ms
+      a round and the peak memory logged;
+    - ``fidelity_dcn``: ``dcn_partition`` at its shape (48 nodes, 4 geo
+      regions, 64 rounds): the chaos invariant cross-check ok, both runs
+      recovered, the recovery delta within bench_budget.json's
+      ``fidelity`` ceiling, the dict equal to phase 4's CPU run;
+    - ``hostchaos_smoke``: ``wan_steady`` and ``kill_restart``: no oracle
+      violation, converged, bookkeeping contiguous, the required machinery
+      fired (a breaker trip), every agent's table equal to the card's merge
+      of their change logs; bench_budget.json's ``hostchaos`` breaches
+      logged, not gated (its entry was recorded on the CPU);
+    - ``hostchaos_soak``: ``soak_churn`` with the metric-series recorder:
+      an endurance block per agent with no wedge, stall or SLO breach, the
+      killed agent's counter drops classified restart; the leak slopes
+      logged beside bench_budget.json's ``soak`` ceilings.
+
+    The agents' directories go under ``build/host_oracles``."""
+    from corrosion_tpu_torch.sim import host_oracles as H
+
+    traces = {}
+
+    def fidelity(kind):
+        out, traces[kind] = H.fidelity_live(kind, "cuda")
+        return out
+
+    run("fidelity_steady", lambda: fidelity("steady"))
+    run("fidelity_burst", lambda: fidelity("burst"))
+
+    def replay_10k():
+        torch.cuda.reset_peak_memory_stats()
+        out = H.fidelity_replay_10k(traces["steady"], "cuda")
+        out["peak_gib"] = round(torch.cuda.max_memory_allocated() / 2**30, 2)
+        return out
+
+    run("fidelity_replay_10k", replay_10k)
+    run("fidelity_dcn", lambda: H.fidelity_dcn("cuda", cpu_report=dcn_cpu)[0])
+    pair = run("hostchaos_smoke", lambda: H.hostchaos_pair("cuda"))
+    soak = run("hostchaos_soak", H.hostchaos_soak)
+    log(json.dumps({"hostchaos_budget_breaches": pair["budget_breaches"],
+                    "soak_over_budget": {k: v["over_budget"] for k, v in soak["agents"].items()}}))
+
+
 def kernel_rows(measured: list, by_path: dict) -> list:
     """The ``kernels`` line: one entry per kernel from phase 3's
     measurements and the main paths' launch counts."""
@@ -2583,7 +2712,15 @@ def main() -> int:
         f"loaded in {time.perf_counter() - t_load:.2f} s: {lib.name}; ledger window "
         f"{json.dumps(built.to_record())}")
     lap("phase 2")
-    measured = check_kernels(onehot, "cuda")
+    # One collection, then every object alive now frozen out of the
+    # collector's walks: each site's collection before its timed runs
+    # (``run_ms``) then scans only what phase 3 made since.
+    gc.collect()
+    gc.freeze()
+    try:
+        measured = check_kernels(onehot, "cuda")
+    finally:
+        gc.unfreeze()
     lap("phase 3")
     check_tie_rules()
     small = start_small_runs(onehot, gossip)
@@ -2606,7 +2743,7 @@ def main() -> int:
         stop_worker(small[0])
         raise
     cpu = check_small_runs(*small)
-    kept["soak_cpu"] = cpu["soak"]
+    kept["soak_cpu"], kept["dcn_cpu"] = cpu["soak"], cpu["dcn"]
     lap("phase 4's checks")
     by_path["consumers"] = consumers(onehot, cpu)
     lap("phase 12")

@@ -5,7 +5,10 @@ agent on ephemeral localhost ports with a tempdir and the canonical test
 schema, hand back agent + client. All multi-node tests run real TCP over
 loopback, like the reference's integration tests (SURVEY.md §4).
 
-Counterpart of corrosion_tpu/agent/testing.py.
+Counterpart of corrosion_tpu/agent/testing.py. Where it differs: an agent on
+an ephemeral gossip port is served again on a fresh one while that port's
+UDP number is held by another socket (``_serve_with_datagrams``), where the
+reference keeps an agent without its datagram plane.
 """
 
 from __future__ import annotations
@@ -45,8 +48,34 @@ class TestAgent:
         await self.agent.abort()
 
 
+# Gossip ports a launch tries before it keeps one without a datagram plane.
+GOSSIP_BIND_TRIES = 8
+
+
+def _serve_with_datagrams(transport):
+    """``transport.serve`` that, for an ephemeral gossip port, serves again
+    on a fresh port while the datagram bind of the listener's port fails.
+    The stream listener takes a port that is free for TCP only, so a UDP
+    socket of another process (any agent holds nine) can already own that
+    number; the agent then has no datagram plane, the SWIM probes its
+    peers send it are lost, and they take it for dead."""
+    serve = transport.serve
+
+    async def retry(host, port, handler):
+        for _ in range(GOSSIP_BIND_TRIES - 1):
+            addr = await serve(host, port, handler)
+            if port != 0 or transport._ssl_server is not None or transport._udp is not None:
+                return addr
+            transport._server.close()
+            await transport._server.wait_closed()
+        return await serve(host, port, handler)
+
+    return retry
+
+
 async def _launch_from_cfg(cfg: AgentConfig, subs: bool = True) -> TestAgent:
     agent = Agent(cfg)
+    agent.transport.serve = _serve_with_datagrams(agent.transport)
     if subs:
         from corrosion_tpu_torch.agent.subs import SubsManager
 

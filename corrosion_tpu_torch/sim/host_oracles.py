@@ -1351,7 +1351,8 @@ def watched_simulate(runs: list):
     import it when called): each run's final state is held to the
     watermark invariants (``contig <= head``, ``seen >= contig``) and
     only a summary is kept in ``runs`` (intake, rounds, versions, wall
-    seconds), so the [N, W] planes are freed with the run."""
+    seconds, the chaos axes the schedule carries), so the [N, W] planes
+    are freed with the run."""
     from corrosion_tpu_torch.sim import engine
 
     real = engine.simulate
@@ -1368,6 +1369,7 @@ def watched_simulate(runs: list):
             "intake": cfg.gossip.rebroadcast_intake, "rounds": int(sched.rounds),
             "nodes": cfg.n_nodes, "writers": int(d.head.numel()),
             "versions": int(d.head.sum()), "s": round(time.perf_counter() - t0, 2),
+            "axes": [k for k in ("loss", "probe_loss") if getattr(sched, k) is not None],
         })
         return final, curves
 
@@ -1400,26 +1402,37 @@ def loadgen_soak(device=None, cpu_report: dict | None = None, **kw) -> tuple:
     return rep, runs
 
 
-def storm_cells(db_path: Path, device) -> dict:
-    """The storm's ``tests`` table in its agent's database, held to the
-    change log merged on ``device`` (``crdt.apply_changes`` in one
-    shuffled batch: causal length, col_version and winning text).
-    Returns the table."""
+def held_to_merge(db_paths, device) -> tuple:
+    """The ``tests`` table of each agent database in ``db_paths``, each
+    held to all their change logs merged on ``device``
+    (``crdt.apply_changes`` in one shuffled batch: causal length,
+    col_version and winning text). Returns (the tables, the changes
+    merged)."""
     import sqlite3
     from types import SimpleNamespace
 
-    db = SimpleNamespace(conn=sqlite3.connect(str(db_path)))
+    dbs = [SimpleNamespace(conn=sqlite3.connect(str(p))) for p in db_paths]
     try:
-        table = dict(db.conn.execute(STORM_SELECT).fetchall())
-        ranks = text_ranks([db])
-        n_rows = max(table) + 1
-        batch = agent_change_batch([db], ranks, device)
+        tables = [dict(db.conn.execute(STORM_SELECT).fetchall()) for db in dbs]
+        ranks = text_ranks(dbs)
+        n_rows = max(max(t, default=0) for t in tables) + 1
+        batch = agent_change_batch(dbs, ranks, device)
         cells = crdt.apply_changes(crdt.make_cells(n_rows, device), batch)
-        assert not bool(cells_mismatch(*cells, agent_cells(db, ranks, n_rows))), (
-            "the storm's rows differ from the card's merge of its change log")
-        return table
+        for path, db in zip(db_paths, dbs):
+            assert not bool(cells_mismatch(*cells, agent_cells(db, ranks, n_rows))), (
+                f"{path}: its rows differ from the card's merge of the change logs")
+        return tables, int(batch.key.numel())
     finally:
-        db.conn.close()
+        for db in dbs:
+            db.conn.close()
+
+
+def storm_cells(db_path: Path, device) -> dict:
+    """The storm's ``tests`` table in its agent's database, held to the
+    change log merged on ``device`` (``held_to_merge``). Returns the
+    table."""
+    (table,), _ = held_to_merge([db_path], device)
+    return table
 
 
 async def _pg_select(data_dir: Path, sql: str) -> list:
@@ -1591,3 +1604,290 @@ def agent_tls(root=DEFAULT_STORE_ROOT) -> dict:
     shutil.rmtree(base, ignore_errors=True)
     base.mkdir(parents=True)
     return {"tls": "ran", **asyncio.run(_tls_cluster(base, tls))}
+
+
+# -- the chaos and fidelity planes: live agents against the card's replays -----
+
+# The committed WAN round model (one region, round 541.17 ms) that the
+# fidelity replay at 10,000 nodes is calibrated with, and the reference's
+# budgets the chaos and fidelity checks read their ceilings from.
+ROUND_MODEL_WAN = Path(__file__).resolve().parents[2] / "ROUND_MODEL_WAN.json"
+BENCH_BUDGET = Path(__file__).resolve().parents[2] / "bench_budget.json"
+# The reference's per-PR host-chaos pair (scripts/hostchaos_smoke.py).
+HOSTCHAOS_PAIR = ("wan_steady", "kill_restart")
+HOSTCHAOS_SEED = 0
+# The endurance soak's host lane (scripts/soak_smoke.py: its series
+# interval and detector settings, HOST_ENDURANCE_KW).
+SOAK_SERIES_INTERVAL = 0.2
+SOAK_ENDURANCE_KW = dict(
+    wedge_min_span_s=6.0,
+    stall_threshold_s=0.75,
+    leak_ceilings={"corro_runtime_rss_bytes": 4 * 2 ** 30, "corro_runtime_open_fds": 20000.0},
+    slos=(
+        {"name": "fanout_lag_p99", "kind": "histogram",
+         "series": "corro_broadcast_recv_lag_seconds", "threshold_s": 10.0, "objective": 0.90},
+        {"name": "convergence_staleness", "kind": "gauge", "series": "corro_sync_needs",
+         "ceiling": 500.0, "objective": 0.90},
+        {"name": "probe_false_alarm_budget", "kind": "counter_budget",
+         "series": "corro_gossip_member_removed", "allowed_per_hour": 3600.0},
+    ),
+)
+REPLAY_KEYS = ("round_ms", "rounds", "vis_offset_rounds", "unseen", "pairs", "ttc_ms",
+               "need_last")
+
+
+@contextmanager
+def recorded_replays(calls: list):
+    """``fidelity.compare.kernel_replay`` wrapped while the block runs:
+    each call's trace, arguments and result go into ``calls``."""
+    from corrosion_tpu_torch.fidelity import compare
+
+    real = compare.kernel_replay
+
+    def kernel_replay(trace, *a, **kw):
+        out = real(trace, *a, **kw)
+        calls.append((trace, a, kw, out))
+        return out
+
+    compare.kernel_replay = kernel_replay
+    try:
+        yield calls
+    finally:
+        compare.kernel_replay = real
+
+
+def replays_equal(a: dict, b: dict) -> bool:
+    """Two ``kernel_replay`` dicts are equal: the latencies bit for bit,
+    every other key exactly."""
+    return (np.array_equal(a["lat_rounds"], b["lat_rounds"])
+            and all(a[k] == b[k] for k in REPLAY_KEYS))
+
+
+def budget(entry: str) -> dict:
+    """One entry of the reference's ``bench_budget.json``."""
+    import json
+
+    return json.loads(BENCH_BUDGET.read_text())[entry]
+
+
+def _fresh_dir(root, name: str) -> Path:
+    import shutil
+
+    base = Path(root) / name
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    return base
+
+
+def fidelity_live(kind: str, device=None, root=DEFAULT_STORE_ROOT) -> tuple:
+    """``fidelity.scenarios.steady_load`` (``kind`` "steady") or
+    ``burst_drain`` ("burst") at its defaults: three of the port's agents
+    on 127.0.0.1 calibrate their own ``RoundModel`` and take the workload,
+    whose recorded trace is replayed on ``device`` calibrated and
+    uncalibrated. The calibrated replay's CDF is strictly closer to the
+    live one (the reference's own assertion), the model was measured live,
+    nothing is unseen live or in either replay, and each replay's dict
+    equals the port's plain path on the CPU on the same trace. Returns
+    (the summary, the recorded trace). The agents' directories go under
+    ``root/fidelity_<kind>``, emptied first."""
+    from corrosion_tpu_torch.fidelity import compare, scenarios
+
+    device = resolve_device(device)
+    run = {"steady": scenarios.steady_load, "burst": scenarios.burst_drain}[kind]
+    base = _fresh_dir(root, f"fidelity_{kind}")
+    calls = []
+    with recorded_replays(calls):
+        rep = asyncio.run(run(str(base), device=device))
+    assert len(calls) == 2, len(calls)
+    for trace, a, kw, got in calls:
+        want = compare.kernel_replay(trace, *a, **dict(kw, device="cpu"))
+        assert replays_equal(got, want), f"{kind}: a replay on {device} differs from the CPU's"
+    cal, unc = rep["calibrated"], rep["uncalibrated"]
+    assert rep["calibrated_closer"], (cal.get("cdf_distance"), unc.get("cdf_distance"))
+    unseen = {side: rep[side]["unseen"] for side in ("live", "calibrated", "uncalibrated")}
+    assert not any(unseen.values()), unseen
+    model = rep["model"]
+    assert model["provenance"]["source"] == "live", model["provenance"]
+    live = rep["live"]
+    sides = ("rounds", "cdf_distance", "kolmogorov", "p50_bucket_delta", "p99_bucket_delta",
+             "p50_ratio", "p99_ratio", "ttc_ms", "ttc_delta_ms")
+    return {
+        "trace_fingerprint": rep["trace_fingerprint"], "writes": live["writes"],
+        "pairs": live["pairs"],
+        "model": {k: model[k] for k in ("round_ms", "pair_miss", "probe_loss",
+                                        "apply_rate_per_s")},
+        "live": {k: live[k] for k in ("lat_p50_ms", "lat_p99_ms", "ttc_ms")},
+        "calibrated": {k: cal.get(k) for k in sides},
+        "uncalibrated": {k: unc.get(k) for k in sides},
+        "calibrated_closer": True, "replays_equal_cpu": len(calls),
+    }, calls[0][0]
+
+
+def fidelity_replay_10k(trace, device=None, nodes: int = REPLAY_NODES) -> dict:
+    """``fidelity.compare.kernel_replay`` of a recorded trace at ``nodes``
+    nodes on ``device`` (the recorded writers and silent observers, the
+    reference CLI's ``fidelity replay --observers``), twice: calibrated
+    with the committed ``ROUND_MODEL_WAN``, and uncalibrated at
+    ``REFERENCE_ROUND_MS``. Nothing is unseen in either; the calibrated
+    run's schedule carries the loss and probe-loss axes and the
+    uncalibrated one's none; each run holds the watermark invariants.
+    Returns each run's rounds, latencies in rounds and ms (the wall
+    projection ``(rounds + vis_offset) * round_ms``), time to convergence
+    and ms a round."""
+    from corrosion_tpu_torch.fidelity.calibrate import REFERENCE_ROUND_MS, RoundModel
+    from corrosion_tpu_torch.fidelity.compare import kernel_replay
+
+    device = resolve_device(device)
+    model = RoundModel.load(str(ROUND_MODEL_WAN))
+    offset = model.vis_offset_rounds
+    out = {"nodes": nodes, "writers": len(trace.actors), "writes": len(trace.events)}
+    for side, mdl, round_ms in (("calibrated", model, model.round_ms),
+                                ("uncalibrated", None, REFERENCE_ROUND_MS)):
+        runs = []
+        with watched_simulate(runs):
+            rep = kernel_replay(trace, round_ms, n_nodes=nodes, model=mdl,
+                                vis_offset_rounds=offset, device=device)
+        (run,) = runs
+        want = ["loss", "probe_loss"] if mdl is not None else []
+        assert run["axes"] == want, (side, run["axes"])
+        assert run["nodes"] == nodes and rep["unseen"] == 0 and rep["ttc_ms"] is not None, rep
+        p50, p99 = (float(np.percentile(rep["lat_rounds"], q)) for q in (50, 99))
+        out[side] = {
+            "round_ms": round_ms, "rounds": rep["rounds"], "pairs": rep["pairs"],
+            "unseen": rep["unseen"], "axes": run["axes"],
+            "p50_rounds": p50, "p99_rounds": p99,
+            "p50_ms": round((p50 + offset) * round_ms, 2),
+            "p99_ms": round((p99 + offset) * round_ms, 2),
+            "ttc_ms": round(rep["ttc_ms"], 2), "s": run["s"],
+            "ms_per_round": round(1000.0 * run["s"] / rep["rounds"], 1),
+        }
+    return out
+
+
+def fidelity_dcn(device=None, cpu_report: dict | None = None) -> tuple:
+    """``fidelity.scenarios.dcn_partition`` at its shape (48 nodes, 4 geo
+    regions, 4 writers, 64 rounds) on ``device``: the chaos invariant
+    cross-check holds, both runs recover, the calibrated run leaves
+    nothing unseen and recovers at most the ``fidelity`` budget's ceiling
+    of rounds (unscaled) after the uncalibrated one; with ``cpu_report``
+    (the same call on the CPU) the dicts are equal. Returns (the summary,
+    the report)."""
+    from corrosion_tpu_torch.fidelity import scenarios
+
+    device = resolve_device(device)
+    rep = scenarios.dcn_partition(device=device)
+    assert rep["invariants_ok"], rep["invariant_violations"]
+    assert rep["both_recovered"], (rep["calibrated"], rep["uncalibrated"])
+    assert rep["calibrated"]["unseen"] == 0, rep["calibrated"]
+    delta = rep["recovery_delta_rounds"]
+    ceiling = budget("fidelity")["ceilings"]["scenarios.dcn.recovery_delta_rounds"]
+    assert delta is not None and delta <= ceiling, (delta, ceiling)
+    if cpu_report is not None:
+        bad = sorted(k for k in set(rep) | set(cpu_report) if rep.get(k) != cpu_report.get(k))
+        assert not bad, f"dcn_partition on {device} differs from the CPU's in {bad}"
+    return {
+        "invariants_ok": True, "both_recovered": True, "recovery_delta_rounds": delta,
+        "model_round_ms": rep["model"]["round_ms"],
+        "calibrated": rep["calibrated"], "uncalibrated": rep["uncalibrated"],
+        "equal_to_cpu": cpu_report is not None,
+    }, rep
+
+
+def hostchaos_pair(device=None, root=DEFAULT_STORE_ROOT) -> dict:
+    """The reference's per-PR host-chaos pair (``HOSTCHAOS_PAIR``:
+    ``wan_steady``, ``kill_restart``) through ``hostchaos.run_scenario``
+    on the port's agents, gated on the rules the reference never scales:
+    no oracle violation; converged, bookkeeping contiguous and ``ok``; the
+    machinery each scenario requires fired (``kill_restart``: a breaker
+    trip). Then every agent's ``tests`` table, read from its database,
+    equals all the agents' change logs merged on ``device``. The report
+    goes through the emit path with ``hostchaos_context`` on ``device``,
+    and its breaches of the ``hostchaos`` budget are returned, not raised
+    (that entry was recorded on the CPU). Directories go under
+    ``root/hostchaos``, emptied first."""
+    from corrosion_tpu_torch.hostchaos import get_scenario, run_scenario
+    from corrosion_tpu_torch.hostchaos.report import (
+        check_hostchaos_budget, emit_hostchaos_report, hostchaos_context,
+    )
+
+    device = resolve_device(device)
+    base = _fresh_dir(root, "hostchaos")
+    blocks, out = {}, {}
+    for name in HOSTCHAOS_PAIR:
+        t0 = time.perf_counter()
+        rep = asyncio.run(run_scenario(get_scenario(name), str(base / name),
+                                       seed=HOSTCHAOS_SEED))
+        wall = time.perf_counter() - t0
+        assert rep["oracle"]["violations"] == 0, rep["oracle"]["violation_examples"]
+        assert rep["converged"] and rep["bookkeeping_contiguous"] and rep["ok"], rep["failures"]
+        assert rep["machinery_ok"], (rep["machinery_required"], rep["machinery"])
+        if name == "kill_restart":
+            assert rep["machinery"]["breaker_trips"] >= 1, rep["machinery"]
+            assert rep["kill"] and rep["kill"]["agent"] == 0, rep["kill"]
+        paths = [base / name / f"agent{i}" / "state.db" for i in range(rep["agents"])]
+        tables, merged = held_to_merge(paths, device)
+        assert all(t == tables[0] for t in tables), f"{name}: the agents' tables differ"
+        blocks[name] = rep
+        out[name] = {
+            "agents": rep["agents"], "writes": rep["writes_requested"],
+            "commits": rep["oracle"]["commits"], "violations": rep["oracle"]["violations"],
+            "delivered_changes": rep["oracle"]["delivered_changes"],
+            "reconnects": rep["oracle"].get("reconnects"),
+            "drain_s": rep["drain_s"], "convergence_s": rep["convergence_s"],
+            "machinery": rep["machinery"], "rows": len(tables[0]), "changes_merged": merged,
+            "wall_s": round(wall, 2),
+        }
+    report = emit_hostchaos_report({
+        **hostchaos_context(max(b["agents"] for b in blocks.values()), *HOSTCHAOS_PAIR,
+                            HOSTCHAOS_SEED, device=device),
+        "seed": HOSTCHAOS_SEED, "scenarios": blocks,
+    })
+    out["budget_breaches"] = check_hostchaos_budget(report, budget("hostchaos"))[1]
+    return out
+
+
+def hostchaos_soak(root=DEFAULT_STORE_ROOT) -> dict:
+    """The endurance soak's host lane (``hostchaos.scenarios.soak_churn``
+    with the metric-series recorder armed, as scripts/soak_smoke.py runs
+    it): three agents under WAN netem, a flap and a SIGKILL-restart of
+    n0. Each agent has an endurance block with no wedge, stall or SLO
+    breach, and n0's counter drops are classified as ``restart`` resets.
+    Returns each agent's verdicts and leak slopes (per hour), and the
+    slopes over the ``host:`` ceilings of the ``soak`` budget (logged, not
+    gated). Directories go under ``root/hostchaos_soak``, emptied first."""
+    from corrosion_tpu_torch.hostchaos import run_scenario
+    from corrosion_tpu_torch.hostchaos.scenarios import soak_churn
+
+    base = _fresh_dir(root, "hostchaos_soak")
+    series_dir = base / "series"
+    series_dir.mkdir()
+    spec = soak_churn()
+    rep = asyncio.run(run_scenario(
+        spec, str(base / "cluster"), seed=HOSTCHAOS_SEED, series_dir=str(series_dir),
+        series_interval=SOAK_SERIES_INTERVAL, endurance_kw=SOAK_ENDURANCE_KW, sub_costs=True,
+    ))
+    assert rep["ok"], rep["failures"]
+    agents = rep["endurance"]["agents"]
+    assert sorted(agents) == [f"n{i}" for i in range(spec.n_agents)], sorted(agents)
+    out = {"drain_s": rep["drain_s"], "convergence_s": rep["convergence_s"],
+           "machinery": rep["machinery"], "agents": {}}
+    ceilings = budget("soak")["leak_ceilings_per_hour"]
+    for name, end in agents.items():
+        assert end["samples"] > 0, name
+        wedged = [p for p, w in end["wedges"].items() if w.get("wedged")]
+        assert not wedged, (name, wedged)
+        assert not end["stalls"].get("runs"), (name, end["stalls"])
+        breached = [k for k, v in end["slo"].items() if v.get("breached")]
+        assert not breached, (name, breached)
+        leaks = {k: v["slope_per_hour"] for k, v in end["leaks"].items()
+                 if v.get("slope_per_hour") is not None}
+        out["agents"][name] = {
+            "samples": end["samples"], "ok": end["ok"], "breaches": end["breaches"],
+            "resets": end["resets"], "leak_slopes_per_hour": leaks,
+            "over_budget": sorted(k for k, v in leaks.items()
+                                  if f"host:{k}" in ceilings and v > ceilings[f"host:{k}"]),
+        }
+    killed = f"n{spec.kill.agent}"
+    resets = agents[killed]["resets"]
+    assert resets and all(r["kinds"] == ["restart"] for r in resets.values()), (killed, resets)
+    return out

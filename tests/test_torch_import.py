@@ -31,7 +31,7 @@ def test_port_imports_no_jax_and_no_reference():
         "import corrosion_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 79, len(names)\n"
+        "assert len(names) >= 100, len(names)\n"
         "assert {'corrosion_tpu_torch.obs.epidemic', 'corrosion_tpu_torch.sim.invariants',\n"
         "        'corrosion_tpu_torch.sim.checkpoint', 'corrosion_tpu_torch.sim.trace',\n"
         "        'corrosion_tpu_torch.parallel', 'corrosion_tpu_torch.parallel.mesh',\n"
@@ -40,12 +40,13 @@ def test_port_imports_no_jax_and_no_reference():
         "        'corrosion_tpu_torch.elastic.preempt',\n"
         "        'corrosion_tpu_torch.elastic.scenarios', 'corrosion_tpu_torch.sim.benchlib',\n"
         "        'corrosion_tpu_torch.obs.ledger', 'corrosion_tpu_torch.obs.costs'} <= set(names)\n"
-        "assert set(HOST_PLANES) | set(SERVING) <= set(names), set(HOST_PLANES) - set(names)\n"
+        "want = set(HOST_PLANES) | set(SERVING) | set(CHAOS_FIDELITY)\n"
+        "assert want <= set(names), want - set(names)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'corrosion_tpu' or m.startswith('corrosion_tpu.'))\n"
         "assert not bad, bad\n"
         "print('clean', len(names))\n",
-        HOST_PLANES=HOST_PLANES, SERVING=SERVING,
+        HOST_PLANES=HOST_PLANES, SERVING=SERVING, CHAOS_FIDELITY=CHAOS_FIDELITY,
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("clean")
@@ -85,6 +86,15 @@ SERVING = (
     "corrosion_tpu_torch.loadgen.pgread", "corrosion_tpu_torch.loadgen.harness",
     "corrosion_tpu_torch.loadgen.report", "corrosion_tpu_torch.loadgen.scenarios",
 )
+# The chaos and fidelity planes: host chaos against live agents, the
+# calibrated round model and the live-versus-kernel comparison.
+CHAOS_FIDELITY = (
+    "corrosion_tpu_torch.hostchaos", "corrosion_tpu_torch.hostchaos.harness",
+    "corrosion_tpu_torch.hostchaos.report", "corrosion_tpu_torch.hostchaos.scenarios",
+    "corrosion_tpu_torch.fidelity", "corrosion_tpu_torch.fidelity.calibrate",
+    "corrosion_tpu_torch.fidelity.compare", "corrosion_tpu_torch.fidelity.report",
+    "corrosion_tpu_torch.fidelity.scenarios",
+)
 
 
 def test_lazy_imports_of_the_host_planes_stay_in_the_port():
@@ -95,7 +105,7 @@ def test_lazy_imports_of_the_host_planes_stay_in_the_port():
     import ast
     import importlib.util
 
-    for name in HOST_PLANES + SERVING + ("corrosion_tpu_torch.elastic.scenarios",):
+    for name in HOST_PLANES + SERVING + CHAOS_FIDELITY + ("corrosion_tpu_torch.elastic.scenarios",):
         src = Path(importlib.util.find_spec(name).origin).read_text()
         for node in ast.walk(ast.parse(src)):
             if isinstance(node, ast.ImportFrom):
@@ -164,6 +174,11 @@ def test_entry_points_raise_without_cuda():
         "from corrosion_tpu_torch.elastic import scenarios\n"
         "from corrosion_tpu_torch.sim import host_oracles\n"
         "from corrosion_tpu_torch.loadgen import report, scenarios as lscenarios\n"
+        "import asyncio\n"
+        "from corrosion_tpu_torch.fidelity import compare, report as freport, scenarios as fscen\n"
+        "from corrosion_tpu_torch.hostchaos import report as hreport\n"
+        "from corrosion_tpu_torch.sim.trace import Trace\n"
+        "trace = Trace(events=[(0, 'aa', 1), (40, 'bb', 1)])\n"
         "plan = faults.named_scenarios(24, 4, 48)['loss-burst']\n"
         "kw = dict(n=40, n_regions=2, n_writers=4, rounds=4, samples=4)\n"
         "cfg, topo, sched = baselines.wan_100k(device='cpu', **kw)\n"
@@ -187,7 +202,19 @@ def test_entry_points_raise_without_cuda():
         "             lambda: host_oracles.membership_rings(),\n"
         "             lambda: host_oracles.agent_cluster_live(),\n"
         "             lambda: lscenarios.intake_policy(nodes=8, rounds=2),\n"
-        "             lambda: report.serving_context('fanout_storm', 1, 32)):\n"
+        "             lambda: report.serving_context('fanout_storm', 1, 32),\n"
+        "             lambda: compare.kernel_replay(trace, 500.0, n_nodes=4),\n"
+        "             lambda: asyncio.run(compare.compare_live_kernel(os.devnull, [(0.0, 0)])),\n"
+        "             lambda: asyncio.run(fscen.steady_load(os.devnull)),\n"
+        "             lambda: asyncio.run(fscen.burst_drain(os.devnull)),\n"
+        "             lambda: asyncio.run(fscen.full_report(os.devnull)),\n"
+        "             lambda: fscen.dcn_partition(rounds=8),\n"
+        "             lambda: freport.fidelity_context('steady', 3, 'ab12'),\n"
+        "             lambda: hreport.hostchaos_context(3, 'wan_steady'),\n"
+        "             lambda: host_oracles.fidelity_live('steady'),\n"
+        "             lambda: host_oracles.fidelity_replay_10k(trace, nodes=4),\n"
+        "             lambda: host_oracles.fidelity_dcn(),\n"
+        "             lambda: host_oracles.hostchaos_pair()):\n"
         "    try:\n"
         "        call()\n"
         "    except RuntimeError as e:\n"
@@ -203,6 +230,9 @@ def test_entry_points_raise_without_cuda():
         "placed, _ = parallel.simulate_sharded(cfg, topo, sched, mesh)\n"
         "assert all(b.device.type == 'cpu' for b in placed.data.contig.blocks)\n"
         "assert final.chunks.have.starts.device.type == 'cpu'\n"
+        "rep = compare.kernel_replay(trace, 500.0, n_nodes=4, device='cpu')\n"
+        "assert rep['unseen'] == 0 and rep['pairs'] == 6\n"
+        "assert hreport.hostchaos_context(3, device='cpu')['platform'] == 'cpu'\n"
         "print('ok')\n"
     )
     assert res.returncode == 0, res.stderr

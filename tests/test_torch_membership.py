@@ -16,8 +16,7 @@ oracles ``sim/host_oracles.py`` holds the SWIM and sync planes to:
   on literal addresses.
 
 ``tests/test_rtt_rings.py::test_ring_repr_table_matches_ring_edges`` reads
-``RING_REPR_MS`` from the reference's ``fidelity`` package, which the port
-does not have yet: it waits for the ``fidelity/`` slice.
+``RING_REPR_MS`` from the port's ``fidelity.calibrate``.
 """
 
 import dataclasses
@@ -39,13 +38,15 @@ from corrosion_tpu.ops import swim_sparse as jswim_sparse
 from corrosion_tpu_torch import interop
 from corrosion_tpu_torch.agent import config as tconfig
 from corrosion_tpu_torch.agent import membership as tmembership
+from corrosion_tpu_torch.fidelity import calibrate as tcalibrate
 from corrosion_tpu_torch.ops import gossip as tgossip
 from corrosion_tpu_torch.sim import host_oracles as H
 from test_torch_core import run_against
 
 torch.set_num_threads(1)
 
-SWAPS = {"corrosion_tpu.agent.membership": tmembership}
+SWAPS = {"corrosion_tpu.agent.membership": tmembership,
+         "corrosion_tpu.fidelity.calibrate": tcalibrate}
 CASE_TIMEOUT_S = 20.0
 
 
@@ -75,6 +76,7 @@ HOST_CASES = (
     (ref_ring_tests, "test_host_rtt_ring_exact_edges"),
     (ref_ring_tests, "test_member_empty_sample_buffer_and_churn_recalc"),
     (ref_ring_tests, "test_host_rtt_buckets_match_reference_edges"),
+    (ref_ring_tests, "test_ring_repr_table_matches_ring_edges"),
 )
 
 
