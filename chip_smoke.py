@@ -76,7 +76,7 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    one), ``churned_demo_cluster(96, 48, geo=True,
    adaptive=True)`` and the anywrite run with ``prop_observe``; then the
    chunk plane's tie-sensitive picks at 1.6 M rows, ``anti_entropy_chunks(
-   n=48, streams=4, rounds=72)`` plain and under a fault plan (loss,
+   n=48, streams=4, rounds=48)`` plain and under a fault plan (loss,
    churn, a wipe that spares the origins), and ``mixed_storm(n=64, streams=2, rounds=24)``
    without cells, with cells, under kill/revive/wipe and adaptive with
    ``prop_observe`` (conservation). The CPU side of every small run (and
@@ -122,15 +122,18 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    planes with every node's cells equal to the serial-merge ground truth
    of the final heads, ``rowmax``, ``rowgather``, ``delivery_reduce`` and
    ``window_delivery`` launched;
-12. the curve consumers: the committed demo flights (96 nodes, 48 rounds,
-   churn, seed 0; flat, geo, geo adaptive) recorded on the card, their
-   convergence and epidemic reports held to ``CONVERGENCE_BASELINE.json``,
-   ``EPIDEMIC_BASELINE.json`` and ``EPIDEMIC_BASELINE_ADAPTIVE.json`` at
-   the reference CI's tolerance 0.35; the invariant suite on the
-   ``kitchen-sink`` fault plan on all four engines, every report ok and
-   the card's facts, violations and recovery equal to the CPU's (run in
-   phase 4's worker); and a ``save_state``/``load_state`` round trip of a
-   50-round churn_32 run on the card;
+12. the curve consumers, through the command line (``cli.main`` in this
+   process, no ``--device``: the CLI resolves CUDA): the reference CI's
+   flight commands, ``obs record`` of the committed demo flights (96
+   nodes, 48 rounds, churn, seed 0; flat, geo, geo adaptive), ``obs
+   report --json`` and ``obs epidemic report``, then ``obs diff
+   CONVERGENCE_BASELINE.json`` and ``obs epidemic diff
+   EPIDEMIC_BASELINE.json`` (``EPIDEMIC_BASELINE_ADAPTIVE.json``) at the
+   CI's tolerance 0.35, each exiting 0 (``cli_obs_demo``); ``chaos run
+   kitchen-sink --engines dense,sparse,chunk,mixed --json``, every report
+   ok and the card's facts, violations and recovery equal to the CPU's
+   (run in phase 4's worker; ``cli_chaos``); and a ``save_state``/
+   ``load_state`` round trip of a 50-round churn_32 run on the card;
 13. the shard driver and the elastic plane: full-width ``wan_100k()`` on
    a (2, 2) mesh of card positions (all on one card when there is one),
    24 rounds in calls of 12: curves equal to phase 5's first 24 rounds but
@@ -144,10 +147,11 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    ``soak_preempt``) on the card, each equal to its uninterrupted run, the
    preemption's recovery machinery fired, the soak drill's counter resets
    classified as restarts in a series of one header, the budget gate ok on
-   its survival fields, each report equal to the CPU's (run in one worker
-   process, ``python3 chip_smoke.py --cpu-elastic-drills OUT``, while the
-   card runs its side). Phase 3 times the kernels at the shard bodies' row
-   blocks;
+   its survival fields, each report equal to the CPU's; the drills' card
+   side (``python3 chip_smoke.py --card-elastic-drills OUT``) and CPU side
+   (``--cpu-elastic-drills OUT``) run in processes of their own, started
+   with phase 12 and joined here (they are host-paced and claim no time).
+   Phase 3 times the kernels at the shard bodies' row blocks;
 14. the bench harness and the device-cost plane: merge_10k in full (seed
    1) with the ledger armed and ``KernelTelemetry(ledger=, watermarks=)``,
    its plane attribution and roofline stage costs, the bench report put
@@ -155,11 +159,13 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    ``check_bench_invariants`` (``steady_compiles`` 0); the multi-device lane
    (``measure_multichip``) at D = 1, 2, 4, 8 on card positions, 24 rounds
    (``LANE_ROUNDS``; the reference's 32), equal across D with exchange
-   bytes equal to ``traffic_model``; the cost model
-   of the four engines at their tiny configs on the card, equal in flops,
-   bytes and kernel calls to the CPU's (built by phase 4's worker); and the
-   capacity curve against the card's memory, its 512-node point exact and
-   its 100,352-node point a placement measured here;
+   bytes equal to ``traffic_model``; ``obs cost show`` (the cost model
+   of the four engines at their tiny configs, D = 1 and 4) on the card,
+   equal in flops, bytes and kernel calls to the CPU's (built by phase 4's
+   worker), and ``obs cost diff`` of its file against itself exiting 0;
+   and the capacity curve against
+   the card's memory, its 512-node point exact and its 100,352-node point
+   a placement measured here;
 15. the host oracles against the card's planes (``sim/host_oracles.py``):
    the reference's two possession-window traces through
    ``gossip.broadcast_round`` on the card, fast delivery
@@ -227,7 +233,23 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    endurance soak's host lane (``soak_churn`` with the series recorder),
    no wedge, stall or SLO breach, the killed agent's resets classified
    restart. The stores' files and the agents' data directories go under
-   ``build/host_oracles``.
+   ``build/host_oracles``;
+16. the command line (``python -m corrosion_tpu_torch``; phases 12 and 14
+   take its other paths): ``obs record --nodes 10000 --rounds 64 --churn
+   --geo --seed 0`` (phase 9's push-only geo_10k, in chunks of 16), its
+   flight's per-round curves equal to phase 9's push run's and its
+   convergence rounds equal to phase 9's, ``obs report --json`` and ``obs
+   epidemic report --nodes 10000 --geo-regions 4`` on it, its ms a round,
+   peak memory and the membership's mismatched beliefs logged
+   (``cli_geo_10k``); ``lint corrosion_tpu_torch --show-suppressed`` exit 0
+   with each suppression's reason, and ``lint --sanitize --no-static
+   --device cuda`` exit 0 on the four engines, each run twice, the second
+   with 0 builds and 0 loads of the kernel library (``cli_lint``); and
+   ``python -m corrosion_tpu_torch`` as processes of their own: ``lint
+   --list-rules``, and, beside the other two paths, ``obs cost diff
+   COST_BASELINE.json`` (the reference's JAX model) without ``--device``,
+   its model measured on the card and its breaches logged, not gated
+   (``cli_module``).
 
 Phases 5 (wan_100k), 10 (anti_entropy_chunks at 1,000 nodes) and 11 pass
 ``telemetry=KernelTelemetry(recorder=FlightRecorder(...), progress=
@@ -236,11 +258,13 @@ must replay to the run's curves, key for key and round for round, and the
 recorder's ``device_step_ms`` is logged beside the CUDA-event ms/round.
 
 The launch counts are reset just before each main-path run (phases 5-8
-and 11, the pairs of runs of phases 9 and 10, phase 12, each of phase
-13's four paths, each of phase 14's paths: the merge_10k run, its plane
-attribution, the multi-device lane's sharded runs, read at the lane's note
-that its attribution begins, that attribution, and the cost model, and
-each of phase 15's twenty-four paths) and read just after it. Each phase logs its wall time. The last lines are a ``kernels`` JSON line,
+and 11, the pairs of runs of phases 9 and 10, each of phase 12's three
+paths, each of phase 13's four paths, each of phase 14's paths: the
+merge_10k run, its plane attribution, the multi-device lane's sharded
+runs, read at the lane's note that its attribution begins, that
+attribution, and ``obs cost show`` with its self-diff, each of phase
+15's twenty-four paths and each of phase 16's three) and read just after
+it. Each phase logs its wall time. The last lines are a ``kernels`` JSON line,
 the nvidia-smi line, and the result line ``{"ok": true, "device": {...}}``.
 Each kernel's entry carries its launches summed over the paths and,
 under ``by_path``, each path's launches and the times and bound of every
@@ -300,7 +324,12 @@ PATH_KERNELS = {
     "geo_10k": ("rowgather", "delivery_reduce", "window_delivery", "table_gather"),
     "anti_entropy_chunks": (),
     "mixed_storm": ("rowmax", "rowgather", "delivery_reduce", "window_delivery"),
-    "consumers": ("rowmax", "rowgather", "delivery_reduce", "window_delivery", "table_gather"),
+    # Phase 12, through the command line: the three demo flights (the
+    # adaptive one launches table_gather), the invariant suite on four
+    # engines, and the checkpointed churn_32 run.
+    "cli_obs_demo": ("rowgather", "delivery_reduce", "window_delivery", "table_gather"),
+    "cli_chaos": ("rowmax", "rowgather", "delivery_reduce", "window_delivery", "table_gather"),
+    "checkpoint": ("rowmax", "rowgather", "delivery_reduce"),
     # Phase 13: the shard driver's bodies and the elastic drills.
     "wan_100k_sharded": ("rowmax", "rowgather", "delivery_reduce", "window_delivery"),
     "anywrite_sparse_sharded": ("table_gather", "rowmax", "rowgather", "delivery_reduce"),
@@ -315,7 +344,8 @@ PATH_KERNELS = {
     "bench_multichip": ("rowmax", "rowgather", "delivery_reduce", "window_delivery",
                         "table_gather"),
     "bench_multichip_attribution": ("rowmax", "rowgather", "delivery_reduce"),
-    "bench_costs": ("rowmax", "rowgather", "delivery_reduce", "table_gather"),
+    # ``obs cost show`` and its self-diff (D = 1 and 4).
+    "cli_cost": ("rowmax", "rowgather", "delivery_reduce", "table_gather"),
     # Phase 15: the host oracles against the card's planes (the possession
     # window on each delivery path, the writer rotation, the chunk
     # plane's interval sets, which have no kernel, and the native codec).
@@ -359,6 +389,13 @@ PATH_KERNELS = {
     "fidelity_dcn": ("rowmax", "rowgather", "delivery_reduce", "window_delivery"),
     "hostchaos_smoke": (),
     "hostchaos_soak": (),
+    # Phase 16: the command line. Phase 9's push-only geo_10k through
+    # ``obs record``; the sanitizer's tiny engines (the cost model's
+    # configs); ``python -m`` in its own process (its launches are that
+    # process's).
+    "cli_geo_10k": ("rowgather", "delivery_reduce", "window_delivery"),
+    "cli_lint": ("rowmax", "rowgather", "delivery_reduce", "table_gather"),
+    "cli_module": (),
 }
 # Phase 13 runs wan_100k's first rounds sharded; phase 5 keeps its state
 # and curves there to hold them to.
@@ -369,6 +406,7 @@ ELASTIC_DRILLS = ("reshard_dense_4to8", "reshard_sparse_4to8", "reshard_chunk_4t
 MERGE_SHARDED_ROUNDS = 24
 CHUNK_100K_ROUNDS = 48  # phase 10's 100,000-node run (the 1,000-node run takes all 240)
 CHECKPOINT_ROUNDS = 50  # phase 12's churn_32 run for the checkpoint round trip
+COST_DEVICES = (1, 4)  # phase 14's ``obs cost show --devices`` (and its CPU twin's)
 # The multi-device lane's rounds in phase 14 (``benchlib.MULTICHIP_ROUNDS``,
 # 32, cut to make room for phase 15's chaos and fidelity planes): its
 # sharded runs first launch ``window_delivery`` after round 16.
@@ -1066,9 +1104,10 @@ def _mixed_churn(sched, n_nodes):
 # fidelity planes).
 SPARSE_SMALL = dict(n=2000, w_hot=56, rounds=32, n_regions=4, epoch_rounds=8,
                     cohort=32, k_dev=96, partition=True, samples=64)
-# 72 rounds (120 before phase 15's chaos and fidelity planes): the fault
-# plan's loss, churn and wipe all fall in its first 40.
-CHUNK_SMALL = dict(n=48, streams=4, last_seq=2047, rounds=72)
+# 48 rounds (120 before phase 15's chaos and fidelity planes, 72 before
+# phase 16's command line): the fault plan's loss, churn and wipe all fall
+# in its first 40.
+CHUNK_SMALL = dict(n=48, streams=4, last_seq=2047, rounds=48)
 MIXED_SMALL = dict(n=64, streams=2, last_seq=255, rounds=24, samples=16)
 # churn_32's depth in phase 4 (the builder's 400 cut to make room for phase
 # 15's serving plane, then its chaos and fidelity planes): four of the ten
@@ -1200,7 +1239,7 @@ def cpu_small_runs(out: str) -> int:
                           lambda: _small_run(builder, kw, transform, chunk, adapt, "cpu"))
         runs.append((*run, time.perf_counter() - t0))
     t0 = time.perf_counter()
-    model = costs.build_cost_model(device_counts=costs.DEVICE_COUNTS, device="cpu")
+    model = costs.build_cost_model(device_counts=COST_DEVICES, device="cpu")
     t_model = time.perf_counter() - t0
     t0 = time.perf_counter()
     suite = invariants.run_suite(kitchen_sink(), seed=0, device="cpu")
@@ -1236,24 +1275,57 @@ def run_drills(device: str) -> dict:
 
 def cpu_elastic_drills(out: str) -> int:
     """``python3 chip_smoke.py --cpu-elastic-drills OUT``: the elastic
-    drills on the CPU and their seconds, pickled into ``OUT``. Phase 13
-    starts it as a worker process while the card runs its side."""
+    drills on the CPU and their seconds, pickled into ``OUT``. Phase 12
+    starts it as a worker process beside the card's side."""
     t0 = time.perf_counter()
     reports = run_drills("cpu")
     Path(out).write_bytes(pickle.dumps({"reports": reports, "s": time.perf_counter() - t0}))
     return 0
 
 
-def start_worker(flag: str, out_path: Path) -> subprocess.Popen:
-    """This script with ``flag OUT`` in a process that sees no card, at
-    the lowest priority and with one thread fewer than the host's cores,
-    so this process's host thread always finds a core."""
+def card_elastic_drills(out: str) -> int:
+    """``python3 chip_smoke.py --card-elastic-drills OUT``: the elastic
+    drills on the card, in a process of its own (the drills are
+    host-paced), its launch counts reset just before them and read just
+    after, pickled into ``OUT`` with the reports and their seconds. Phase
+    12 starts it beside phases 12 and 13 (the library is built by then)."""
+    from corrosion_tpu_torch import cuda_build
+    from corrosion_tpu_torch.ops import onehot
+
+    cuda_build.load()
+    onehot.reset_launches()
+    t0 = time.perf_counter()
+    reports = run_drills("cuda")
+    torch.cuda.synchronize()
+    Path(out).write_bytes(pickle.dumps({"reports": reports, "launches": dict(onehot.LAUNCHES),
+                                        "s": time.perf_counter() - t0}))
+    return 0
+
+
+def start_drills() -> tuple:
+    """Phase 13's elastic drills, started when phase 12 starts: the card's
+    side (``card_elastic_drills``) and the CPU's (``cpu_elastic_drills``),
+    each in a process of its own beside phases 12 and 13."""
+    card_out = REPO / "build" / "elastic_card.pkl"
+    cpu_out = REPO / "build" / "elastic_cpu.pkl"
+    return (start_worker("--card-elastic-drills", card_out, card=True), card_out,
+            start_worker("--cpu-elastic-drills", cpu_out), cpu_out, time.perf_counter())
+
+
+def start_worker(flag: str, out_path: Path, card: bool = False) -> subprocess.Popen:
+    """This script with ``flag OUT`` in a process of its own. A CPU worker
+    sees no card and runs at the lowest priority with one thread fewer
+    than the host's cores, so this process's host thread always finds a
+    core; a ``card`` worker sees the card (and the kernel library this
+    process built)."""
     out_path.parent.mkdir(parents=True, exist_ok=True)
     out_path.unlink(missing_ok=True)
+    argv = [sys.executable, str(Path(__file__).resolve()), flag, str(out_path)]
+    if card:
+        return subprocess.Popen(argv)
     threads = str(max(1, len(os.sched_getaffinity(0)) - 1))
     return subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), flag, str(out_path)],
-        env=dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS=threads),
+        argv, env=dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS=threads),
         preexec_fn=lambda: os.nice(19),
     )
 
@@ -1660,12 +1732,13 @@ def full_run(onehot, gossip, phase: int, builder: str, keep: dict | None = None,
     return launches
 
 
-def geo_run(onehot, gossip, phase: int = 9) -> dict:
+def geo_run(onehot, gossip, phase: int = 9, keep: dict | None = None) -> dict:
     """The geo epidemic scenario at 10,000 nodes, push-only then adaptive,
     each in one call: every round completes, the watermark invariants and
     the propagation identities hold on the card's curves, the adaptive
     run kills rumors. The launch counts are reset before the pair and read
-    after it. Returns them."""
+    after it. Returns them; the push run's curves (on the host) and
+    convergence round go into ``keep["geo_push"]`` for phase 16."""
     from corrosion_tpu_torch.sim import engine, health
 
     torch.cuda.synchronize()
@@ -1698,6 +1771,8 @@ def geo_run(onehot, gossip, phase: int = 9) -> dict:
         converged = int(lagging[-1]) + 1 if len(lagging) else 0
         msgs = int(curves["msgs"].astype(np.int64).sum())
         copies[label] = msgs
+        if keep is not None and not adaptive:
+            keep["geo_push"] = {"curves": curves, "converged": converged}
         log(f"phase {phase}: geo_10k {label} N={cfg.n_nodes} W={cfg.gossip.n_writers} "
             f"{sched.rounds} rounds (kill/revive of {int(sched.kill.sum())} nodes at round "
             f"{kill_rounds[0]}): {a.elapsed_time(b) / sched.rounds:.1f} ms/round (CUDA events); "
@@ -1885,77 +1960,132 @@ def kitchen_sink():
                                   protect=invariants.PROTECTED)["kitchen-sink"]
 
 
-def consumers(onehot, cpu: dict, phase: int = 12) -> dict:
-    """The curve consumers on the card: the three committed demo flights
-    held to their baselines at the reference CI's tolerance, the invariant
-    suite on ``kitchen-sink`` on all four engines (card == CPU, the CPU's
-    from phase 4's worker, ``cpu``), and a checkpoint round trip. The
-    launch counts are reset before the phase and read after it. Returns
-    them."""
-    from corrosion_tpu_torch.models import baselines
-    from corrosion_tpu_torch.obs import epidemic
-    from corrosion_tpu_torch.sim import checkpoint, engine, health, invariants, telemetry
+def cli_main(argv: list) -> tuple[int, str]:
+    """``python -m corrosion_tpu_torch <argv>`` in this process (the kernel
+    library stays loaded): its exit code and standard output. No
+    ``--device`` unless ``argv`` names one: the CLI resolves CUDA itself."""
+    import io
+
+    from corrosion_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main([str(a) for a in argv])
+    return rc, out.getvalue()
+
+
+def demo_flights(phase: int) -> dict:
+    """The reference CI's flight commands on the card: the three committed
+    demo flights (96 nodes, 48 rounds, churn, seed 0; flat, geo, geo
+    adaptive) recorded through ``obs record``; the flat one's ``obs report
+    --json`` (with the facts' kill rounds) diffed against
+    ``CONVERGENCE_BASELINE.json``, each geo one's ``obs epidemic report``
+    against ``EPIDEMIC_BASELINE.json`` or ``EPIDEMIC_BASELINE_ADAPTIVE.json``
+    by ``obs diff`` and ``obs epidemic diff`` at tolerance 0.35, each
+    exiting 0; the report converged, the epidemic accounting reconciled
+    and its SI fit made."""
+    from corrosion_tpu_torch.sim import health, telemetry
 
     FLIGHTS.mkdir(parents=True, exist_ok=True)
-    onehot.reset_launches()
-    t_phase = time.perf_counter()
+    out = {}
     for geo, adaptive in ((False, False), (True, False), (True, True)):
         label = "adaptive" if adaptive else "geo" if geo else "flat"
-        path = str(FLIGHTS / f"demo_{label}.jsonl")
+        path = FLIGHTS / f"demo_{label}.jsonl"
+        report_path = FLIGHTS / f"demo_{label}_report.json"
         t0 = time.perf_counter()
-        facts = health.record_demo_flight(path, nodes=96, rounds=48, churn=True, seed=0,
-                                          geo=geo, adaptive=adaptive, device="cuda")
+        rc, text = cli_main(["obs", "record", "--out", path, "--nodes", 96, "--rounds", 48,
+                             "--churn", "--seed", 0] + ["--geo"] * geo + ["--adaptive"] * adaptive)
+        assert rc == 0, f"obs record {label}: exit {rc}"
+        facts = json.loads(text.strip().splitlines()[-1])
         wall = time.perf_counter() - t0
-        _, chunks = telemetry.replay_flight(path)
+        _, chunks = telemetry.replay_flight(str(path))
         step_ms = sum(c["wall_s"] for c in chunks) / facts["rounds"] * 1000
         if not geo:
-            rep = health.report_from_flight(path, kill_rounds=facts["kill_rounds"])
-            base = health.load_report(str(REPO / "CONVERGENCE_BASELINE.json"))
-            diff = health.diff_reports(base, rep, tolerance=0.35)
-            unequal = _unequal(base.to_dict(), rep.to_dict())
+            kills = [a for k in facts["kill_rounds"] for a in ("--kill-round", k)]
+            rc, text = cli_main(["obs", "report", path, "--json", *kills])
+            assert rc == 0, f"obs report {label}: exit {rc}"
+            report_path.write_text(text)
+            baseline = REPO / "CONVERGENCE_BASELINE.json"
+            rc, _ = cli_main(["obs", "diff", baseline, report_path, "--tolerance", 0.35])
+            rep = health.load_report(str(report_path))
             assert rep.converged, "the demo flight did not converge"
+            unequal = _unequal(health.load_report(str(baseline)).to_dict(), rep.to_dict())
+            diff_cmd = "obs diff"
         else:
-            rep = epidemic.report_from_flight(path, fanout=facts["fanout"], nodes=facts["nodes"],
-                                              geo_regions=facts["regions"])
-            name = "EPIDEMIC_BASELINE_ADAPTIVE.json" if adaptive else "EPIDEMIC_BASELINE.json"
-            base = epidemic.load_report(str(REPO / name))
-            diff = epidemic.diff_reports(base, rep, tolerance=0.35)
-            unequal = _unequal(base, rep)
-            assert rep["checks_ok"], rep["check_problems"]
+            rc, _ = cli_main(["obs", "epidemic", "report", path, "--fanout", facts["fanout"],
+                              "--nodes", facts["nodes"], "--geo-regions", facts["regions"],
+                              "--out", report_path])
+            rep = json.loads(report_path.read_text())
+            assert rc == 0 and rep["checks_ok"], (label, rc, rep["check_problems"])
             assert rep["fit"]["fitted"], f"{label}: the SI fit abstained"
-        assert not diff["regressions"], f"{label} demo flight: {diff['regressions']}"
-        log(f"phase {phase}: demo flight {label} (96 nodes, 48 rounds, churn, seed 0): {wall:.1f} "
-            f"s, {step_ms:.1f} ms/round (device_step_ms); converged round "
-            f"{facts['converged_round']}; diff against the baseline at 0.35 clean; fields not "
-            f"exactly equal: {json.dumps(unequal, default=str)}")
-    plan = kitchen_sink()
-    t0 = time.perf_counter()
-    reports = {"cuda": invariants.run_suite(plan, seed=0, device="cuda"), "cpu": cpu["suite"]}
-    walls = {"cuda": time.perf_counter() - t0, "cpu": cpu["suite_s"]}
-    for card, cpu in zip(reports["cuda"], reports["cpu"]):
-        assert card.ok, f"{card.engine}: {card.violations}"
+            baseline = REPO / ("EPIDEMIC_BASELINE_ADAPTIVE.json" if adaptive
+                               else "EPIDEMIC_BASELINE.json")
+            rc, _ = cli_main(["obs", "epidemic", "diff", baseline, report_path,
+                              "--tolerance", 0.35])
+            unequal = _unequal(json.loads(baseline.read_text()), rep)
+            diff_cmd = "obs epidemic diff"
+        assert rc == 0, f"{label} demo flight: {diff_cmd} against {baseline.name} exit {rc}"
+        out[label] = {"s": round(wall, 2), "converged_round": facts["converged_round"]}
+        log(f"phase {phase}: demo flight {label} through the CLI (96 nodes, 48 rounds, churn, "
+            f"seed 0): {wall:.1f} s, {step_ms:.1f} ms/round (device_step_ms); converged round "
+            f"{facts['converged_round']}; {diff_cmd} against {baseline.name} at 0.35 exit 0; "
+            f"fields not exactly equal: {json.dumps(unequal, default=str)}")
+    return out
+
+
+def chaos_suite(cpu: dict, phase: int) -> dict:
+    """``chaos run kitchen-sink --engines dense,sparse,chunk,mixed --rounds
+    48 --json`` on the card: every report ok, its facts, violations and
+    recovery equal to the CPU's (``cpu``, phase 4's worker)."""
+    rc, text = cli_main(["chaos", "run", "kitchen-sink", "--engines", "dense,sparse,chunk,mixed",
+                         "--rounds", 48, "--json"])
+    card = json.loads(text.strip().splitlines()[-1])
+    assert rc == 0 and all(r["ok"] for r in card), [r["violations"] for r in card]
+    cpu_reports = json.loads(json.dumps([r.to_dict() for r in cpu["suite"]]))
+    assert [r["engine"] for r in card] == [r["engine"] for r in cpu_reports]
+    for c, p in zip(card, cpu_reports):
         for k in ("facts", "violations", "recovery"):
-            assert getattr(card, k) == getattr(cpu, k), f"{card.engine}: card {k} != CPU {k}"
-    log(f"phase {phase}: invariant suite on kitchen-sink ({plan.describe()}): all four engines "
-        f"ok, card == CPU in facts, violations and recovery (card {walls['cuda']:.1f} s, CPU "
-        f"{walls['cpu']:.1f} s in phase 4's worker); recovery rounds "
-        + ", ".join(f"{r.engine} {r.recovery['recovery_rounds']}" for r in reports["cuda"]))
-    cfg, topo, sched = baselines.churn_32(rounds=CHECKPOINT_ROUNDS, device="cuda")
-    final, _ = engine.simulate(cfg, topo, sched, seed=0, max_chunk=100, device="cuda")
-    path = str(FLIGHTS / "churn_32.npz")
-    checkpoint.save_state(path, final, fingerprint="churn_32")
-    loaded = checkpoint.load_state(path, cfg, len(sched.sample_writer),
-                                   expect_fingerprint="churn_32", device="cuda")
-    flat_a, flat_b = checkpoint._flatten(final), checkpoint._flatten(loaded)
-    assert [p for p, _, _ in flat_a] == [p for p, _, _ in flat_b]
-    assert all(torch.equal(x, y) for (_, x, _), (_, y, _) in zip(flat_a, flat_b)), "leaves differ"
-    launches = dict(onehot.LAUNCHES)
-    missing = [k for k in PATH_KERNELS["consumers"] if launches[k] == 0]
-    assert not missing, f"consumers: kernels never launched: {missing}"
-    log(f"phase {phase}: save_state -> load_state of churn_32 on the card: {len(flat_a)} leaves "
-        f"equal under the same paths; phase {time.perf_counter() - t_phase:.1f} s; launches "
-        f"{json.dumps(launches)}")
-    return launches
+            assert c[k] == p[k], f"{c['engine']}: card {k} != CPU {k}"
+    log(f"phase {phase}: chaos run kitchen-sink ({kitchen_sink().describe()}): all four engines "
+        f"ok, card == CPU in facts, violations and recovery (CPU {cpu['suite_s']:.1f} s in "
+        f"phase 4's worker); recovery rounds "
+        + ", ".join(f"{r['engine']} {r['recovery']['recovery_rounds']}" for r in card))
+    return {r["engine"]: r["recovery"]["recovery_rounds"] for r in card}
+
+
+def consumers(onehot, cpu: dict, phase: int = 12) -> dict:
+    """The curve consumers on the card, through the command line: the
+    reference CI's flight commands (``cli_obs_demo``), the invariant suite
+    on ``kitchen-sink`` on all four engines (``cli_chaos``, card == CPU,
+    the CPU's from phase 4's worker, ``cpu``), and a checkpoint round trip
+    (``checkpoint``), each path's launch counts reset just before it and
+    read just after. Returns them by path."""
+    from corrosion_tpu_torch.models import baselines
+    from corrosion_tpu_torch.sim import checkpoint, engine
+
+    t_phase = time.perf_counter()
+    by_path, secs = {}, {}
+    run = path_runner(onehot, phase, by_path, secs)
+    run("cli_obs_demo", lambda: demo_flights(phase))
+    run("cli_chaos", lambda: chaos_suite(cpu, phase))
+
+    def round_trip():
+        cfg, topo, sched = baselines.churn_32(rounds=CHECKPOINT_ROUNDS, device="cuda")
+        final, _ = engine.simulate(cfg, topo, sched, seed=0, max_chunk=100, device="cuda")
+        path = str(FLIGHTS / "churn_32.npz")
+        checkpoint.save_state(path, final, fingerprint="churn_32")
+        loaded = checkpoint.load_state(path, cfg, len(sched.sample_writer),
+                                       expect_fingerprint="churn_32", device="cuda")
+        flat_a, flat_b = checkpoint._flatten(final), checkpoint._flatten(loaded)
+        assert [p for p, _, _ in flat_a] == [p for p, _, _ in flat_b]
+        assert all(torch.equal(x, y) for (_, x, _), (_, y, _) in zip(flat_a, flat_b)), \
+            "leaves differ"
+        return {"leaves": len(flat_a), "equal": True}
+
+    run("checkpoint", round_trip)
+    log(f"phase {phase}: seconds by path {json.dumps(secs)}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return by_path
 
 
 # ---- phase 13: the shard driver and the elastic plane ------------------------
@@ -1987,7 +2117,7 @@ def _timed(fn):
     return out, a.elapsed_time(b)
 
 
-def sharded_runs(onehot, gossip, kept: dict, phase: int = 13) -> dict:
+def sharded_runs(onehot, gossip, kept: dict, drills: tuple, phase: int = 13) -> dict:
     """The shard driver and the elastic plane on the card, each path's
     launch counts reset just before it and read just after:
 
@@ -2000,10 +2130,11 @@ def sharded_runs(onehot, gossip, kept: dict, phase: int = 13) -> dict:
         unsharded card run;
     (c) the merge_10k burst at n=2560 (legacy delivery) on 2 positions ==
         the unsharded card run;
-    (d) the elastic drills on the card (``ELASTIC_DRILLS``): each equal to
-        its uninterrupted run, the preemption's recovery machinery fired,
-        the budget gate's survival fields ok, each report equal to the
-        CPU's.
+    (d) the elastic drills on the card (``ELASTIC_DRILLS``, ``drills``:
+        the processes ``start_drills`` started with phase 12): each equal
+        to its uninterrupted run, the preemption's recovery machinery
+        fired, the budget gate's survival fields ok, each report equal to
+        the CPU's.
 
     Returns the launch counts by path."""
     from corrosion_tpu_torch import parallel
@@ -2113,34 +2244,32 @@ def sharded_runs(onehot, gossip, kept: dict, phase: int = 13) -> dict:
         f"{curves['xshard_bytes_ici'][0]:.0f}; launches {json.dumps(launches)}")
     del final, whole
 
-    by_path["elastic"] = elastic_drills(onehot, phase)
+    by_path["elastic"] = elastic_drills(drills, phase)
     log(f"phase {phase}: {time.perf_counter() - t_phase:.1f} s")
     return by_path
 
 
-def elastic_drills(onehot, phase: int = 13) -> dict:
+def elastic_drills(drills: tuple, phase: int = 13) -> dict:
     """Phase 13 (d): the elastic drills (``ELASTIC_DRILLS``) on the card
-    and, in a worker process beside it, on the CPU: each equal to its
-    uninterrupted run, the preemption's recovery machinery fired, the soak
-    drill's resets classified as restarts in a series of one header, the
-    budget gate's survival fields ok, each report equal to the CPU's.
-    Returns the drills' launch counts."""
+    and on the CPU, each side in a process of its own started with phase
+    12 (``drills``, from ``start_drills``): each equal to its uninterrupted
+    run, the preemption's recovery machinery fired, the soak drill's
+    resets classified as restarts in a series of one header, the budget
+    gate's survival fields ok, each report equal to the CPU's. Returns the
+    card side's launch counts."""
     from corrosion_tpu_torch.elastic import report, scenarios
     from corrosion_tpu_torch.obs import series
 
-    out_path = REPO / "build" / "elastic_cpu.pkl"
-    worker = start_worker("--cpu-elastic-drills", out_path)
+    card_proc, card_out, cpu_proc, cpu_out, t_start = drills
+    t0 = time.perf_counter()
     try:
-        onehot.reset_launches()
-        t0 = time.perf_counter()
-        card = run_drills("cuda")
-        torch.cuda.synchronize()
-        card_s = time.perf_counter() - t0
-        launches = dict(onehot.LAUNCHES)
-        worker_out = join_worker(worker, out_path, "phase 13: the CPU side of the elastic drills")
+        card_run = join_worker(card_proc, card_out, "phase 13: the card side of the elastic drills")
+        worker_out = join_worker(cpu_proc, cpu_out, "phase 13: the CPU side of the elastic drills")
     finally:
-        stop_worker(worker)
-    wait_s = time.perf_counter() - t0 - card_s
+        stop_worker(card_proc)
+        stop_worker(cpu_proc)
+    wait_s = time.perf_counter() - t0
+    card, card_s, launches = card_run["reports"], card_run["s"], card_run["launches"]
     cpu, cpu_s = worker_out["reports"], worker_out["s"]
     missing = [k for k in PATH_KERNELS["elastic"] if launches[k] == 0]
     assert not missing, f"elastic drills: kernels never launched: {missing}"
@@ -2172,8 +2301,9 @@ def elastic_drills(onehot, phase: int = 13) -> dict:
         f"{json.dumps(mach)}; soak_preempt: one series header, {scenarios.PREEMPT_ROUNDS} "
         f"samples, each counter's {events} resets classified restart, endurance armed "
         f"{json.dumps(soak['endurance']['detectors_armed'])}; budget gate ok on the survival "
-        f"fields; card {card_s:.1f} s, CPU (worker, beside it) {cpu_s:.1f} s, waited for the "
-        f"worker {wait_s:.1f} s; walls on the card "
+        f"fields; card {card_s:.1f} s and CPU {cpu_s:.1f} s, each in a process of its own "
+        f"started {t0 - t_start:.1f} s before phase 13 reached them (beside phases 12 and 13), "
+        f"waited for them {wait_s:.1f} s; walls on the card "
         f"{json.dumps({n: round(report.wall_total(card[n]), 2) for n in ELASTIC_DRILLS})}; "
         f"launches {json.dumps(launches)}")
     return launches
@@ -2201,9 +2331,11 @@ def bench_harness(onehot, led, first_run_s: float, compile_ms: float, cpu_costs:
     (b) ``measure_multichip`` on card positions, D in {1, 2, 4, 8}: curves
         and final states equal across D, exchange bytes equal to
         ``traffic_model`` (the lane raises otherwise);
-    (c) the cost model of the four engines at their tiny configs on the
-        card, its flops and bytes equal to the CPU's (``cpu_costs``, built
-        by phase 4's worker);
+    (c) ``obs cost show`` (the cost model of the four engines at their
+        tiny configs, D in ``COST_DEVICES``) on the card, its flops and
+        bytes equal to the CPU's (``cpu_costs``, built by phase 4's
+        worker), and ``obs cost diff`` of the file against itself exit 0
+        (``cli_cost``);
     (d) ``capacity_model`` against the card's memory: the 512-node point
         exact, the 100,352-node point a placement measured here.
 
@@ -2329,13 +2461,23 @@ def bench_harness(onehot, led, first_run_s: float, compile_ms: float, cpu_costs:
         f"runs {json.dumps(runs)}, of the attribution and roofline steps {json.dumps(lane_attr)}")
     log(f"phase {phase}: multichip report {json.dumps(lane)}")
 
-    # (c) the cost model on the card against the CPU's.
+    # (c) the cost model on the card through the command line, against
+    # the CPU's, and its self-diff.
+    path = REPO / "build" / "cost_model.json"
     onehot.reset_launches()
     t0 = time.perf_counter()
-    card = costs.build_cost_model(device_counts=costs.DEVICE_COUNTS, device="cuda")
+    rc, _ = cli_main(["obs", "cost", "show", "--engines", ",".join(costs.ENGINES), "--devices",
+                      ",".join(map(str, COST_DEVICES)), "--out", path])
+    assert rc == 0, f"obs cost show: exit {rc}"
+    card = costs.load_model(str(path))
     card_s = time.perf_counter() - t0
-    by_path["bench_costs"] = launches = dict(onehot.LAUNCHES)
-    missing = [k for k in PATH_KERNELS["bench_costs"] if launches[k] == 0]
+    rc, text = cli_main(["obs", "cost", "diff", path, "--json"])
+    self_diff = json.loads(text)
+    assert rc == 0 and self_diff["ok"] and not self_diff["notes"], (rc, self_diff["breaches"],
+                                                                    self_diff["notes"])
+    torch.cuda.synchronize()
+    by_path["cli_cost"] = launches = dict(onehot.LAUNCHES)
+    missing = [k for k in PATH_KERNELS["cli_cost"] if launches[k] == 0]
     assert not missing, f"cost model: kernels never launched: {missing}"
     assert sorted(card["entries"]) == sorted(cpu_costs["entries"])
     unequal = {}
@@ -2349,9 +2491,10 @@ def bench_harness(onehot, led, first_run_s: float, compile_ms: float, cpu_costs:
     assert not unequal, f"cost model card != CPU (ops [card, CPU]): {json.dumps(unequal)}"
     same_mem = {k: all(e[m] == cpu_costs["entries"][k][m] for m in ("peak_bytes", "temp_bytes"))
                 for k, e in card["entries"].items()}
-    log(f"phase {phase}: cost model of {len(card['entries'])} entries on the card ({card_s:.1f} s) "
-        f"== the CPU's in flops, bytes, kernel calls and fingerprints; peak and temp bytes "
-        f"equal too: {json.dumps(same_mem)}")
+    log(f"phase {phase}: obs cost show: {len(card['entries'])} entries on the card "
+        f"({card_s:.1f} s) == the CPU's in flops, bytes, kernel calls and fingerprints; peak "
+        f"and temp bytes equal too: {json.dumps(same_mem)}; obs cost diff of the file against "
+        f"itself exit 0, 0 breaches, 0 notes ({time.perf_counter() - t0 - card_s:.1f} s)")
     log(f"phase {phase}: cost model " + json.dumps({
         k: {m: e.get(m) for m in ("flops", "bytes_accessed", "ops", "peak_bytes", "temp_bytes",
                                   "allocator_peak_bytes")}
@@ -2646,6 +2789,143 @@ def chaos_fidelity(run, dcn_cpu: dict, phase: int = 15) -> None:
                     "soak_over_budget": {k: v["over_budget"] for k, v in soak["agents"].items()}}))
 
 
+# ---- phase 16: the command line -----------------------------------------------
+
+
+def cli_geo_10k(geo_push: dict, phase: int) -> dict:
+    """``obs record --nodes 10000 --rounds 64 --churn --geo --seed 0``: phase
+    9's push-only geo_10k through the CLI, recorded in chunks of 16; its
+    flight's per-round curves equal to phase 9's push run's (``geo_push``,
+    on the host), key for key; the facts' convergence round (need 0 from
+    then on) equal to phase 9's, and ``obs report --json``'s equal to the
+    report of phase 9's curves; ``obs epidemic report`` reconciled."""
+    from corrosion_tpu_torch.sim import health, telemetry
+
+    path = FLIGHTS / "cli_geo_10k.jsonl"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc, text = cli_main(["obs", "record", "--out", path, "--nodes", 10_000, "--rounds", 64,
+                         "--churn", "--geo", "--seed", 0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert rc == 0, f"obs record: exit {rc}"
+    facts = json.loads(text.strip().splitlines()[-1])
+    curves, chunks = telemetry.replay_flight(str(path))
+    want = geo_push["curves"]
+    assert set(want) <= set(curves), sorted(set(want) - set(curves))
+    bad = [k for k in want if not np.array_equal(np.asarray(curves[k]), np.asarray(want[k]))]
+    assert not bad, f"cli_geo_10k: the flight's curves differ from phase 9's push run in {bad}"
+    assert [c["rounds"] for c in chunks] == [16] * 4, [c["rounds"] for c in chunks]
+    assert facts["converged_round"] == geo_push["converged"], (facts["converged_round"],
+                                                               geo_push["converged"])
+    rc, text = cli_main(["obs", "report", path, "--json"])
+    rep = json.loads(text)
+    assert rc == 0 and rep["converged_round"] == health.report_from_curves(
+        want, engine="dense").converged_round, rep["converged_round"]
+    rc, text = cli_main(["obs", "epidemic", "report", path, "--nodes", 10_000,
+                         "--geo-regions", 4, "--json"])
+    epi = json.loads(text)
+    assert rc == 0 and epi["checks_ok"], epi["check_problems"]
+    return {
+        "s": round(wall, 2), "ms_per_round": round(wall / 64 * 1000, 1),
+        "device_step_ms": round(sum(c["wall_s"] for c in chunks) / 64 * 1000, 1),
+        "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2),
+        "need_zero_from": facts["converged_round"],
+        "report_converged_round": rep["converged_round"],
+        "mismatched_beliefs_last": facts["mismatches_last"],
+        "spread_exponent": epi["fit"].get("spread_exponent"),
+    }
+
+
+def cli_lint(phase: int) -> dict:
+    """``lint corrosion_tpu_torch --show-suppressed`` exit 0, each
+    suppression listed with its reason; ``lint --sanitize --no-static
+    --device cuda`` exit 0 on the four engines (each run twice: the second
+    with 0 builds and 0 loads of the kernel library)."""
+    from corrosion_tpu_torch.analysis import sanitize
+
+    t0 = time.perf_counter()
+    rc, text = cli_main(["lint", REPO / "corrosion_tpu_torch", "--show-suppressed"])
+    static_s = time.perf_counter() - t0
+    lines = text.strip().splitlines()
+    assert rc == 0 and lines[-1].startswith("0 finding(s),"), lines[-3:]
+    suppressed = [ln for ln in lines[:-1] if "(suppressed: " in ln]
+    assert suppressed and all(ln.split("(suppressed: ", 1)[1].strip(") ") for ln in suppressed)
+    t0 = time.perf_counter()
+    rc, text = cli_main(["lint", "--sanitize", "--no-static", "--device", "cuda"])
+    assert rc == 0, text[-2000:]
+    runs = dict(sanitize.LAST_RUN)
+    assert sorted(runs) == sorted(sanitize.ENGINES)
+    for name, rec in runs.items():
+        assert rec["builds"][1] == rec["loads"][1] == 0, (name, rec)
+    return {"static_s": round(static_s, 2), "summary": lines[-1],
+            "suppressions": len(suppressed), "sanitize_s": round(time.perf_counter() - t0, 2),
+            "engines": {n: {"seconds": [round(x, 2) for x in r["seconds"]],
+                            "second_run_builds": r["builds"][1],
+                            "second_run_loads": r["loads"][1]} for n, r in runs.items()}}
+
+
+def start_module() -> tuple:
+    """``python -m corrosion_tpu_torch obs cost diff COST_BASELINE.json
+    --json`` as a process of its own, no ``--device``: the entry point
+    resolves CUDA and rebuilds the cost model at the baseline's dims (the
+    reference's JAX model: variants plain and donated, D = 1 and 8) on the
+    card. Started with phase 12, it runs beside phases 12 and 13; phase
+    16 joins it. Returns the process and its start."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "corrosion_tpu_torch", "obs", "cost", "diff",
+         str(REPO / "COST_BASELINE.json"), "--json"],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True), time.perf_counter()
+
+
+def cli_module(proc: subprocess.Popen, t_start: float, phase: int) -> dict:
+    """``python -m corrosion_tpu_torch lint --list-rules`` exit 0; then the
+    process ``start_module`` started: its model measured on the card
+    (platform ``gpu``, backend ``cuda``, every entry's kernels launched),
+    its breaches against the reference's baseline logged, not gated."""
+    res = subprocess.run([sys.executable, "-m", "corrosion_tpu_torch", "lint", "--list-rules"],
+                         cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip().splitlines()[-1].startswith("CT062"), \
+        res.stderr[-2000:]
+    t0 = time.perf_counter()
+    out, err = proc.communicate(timeout=900)
+    wall, waited = time.perf_counter() - t_start, time.perf_counter() - t0
+    assert proc.returncode in (0, 1), (proc.returncode, err[-3000:])
+    diff = json.loads(out.strip().splitlines()[-1])
+    measured = diff["measured"]
+    assert measured["platform"] == "gpu" and measured["backend"] == "cuda", measured["platform"]
+    calls = {k: sum(e["kernel_calls"].values()) for k, e in measured["entries"].items()}
+    assert all(n > 0 for k, n in calls.items() if not k.startswith("chunk/")), calls
+    log(f"phase {phase}: python -m corrosion_tpu_torch obs cost diff COST_BASELINE.json (the "
+        f"reference's JAX model; logged, not gated): exit {proc.returncode}, ended within "
+        f"{wall:.1f} s of its start (waited for it {waited:.1f} s), measured on the card (platform gpu, backend cuda, kernel calls an "
+        f"entry {json.dumps(calls)}); {len(diff['breaches'])} breaches, {len(diff['notes'])} "
+        f"notes: {json.dumps({'breaches': diff['breaches'], 'notes': diff['notes']})}")
+    return {"list_rules": "exit 0", "cost_diff_exit": proc.returncode, "cost_diff_s": round(wall, 1),
+            "breaches": len(diff["breaches"]), "notes": len(diff["notes"])}
+
+
+def command_line(onehot, kept: dict, module: tuple, phase: int = 16) -> dict:
+    """Phase 16: the command line on the card, each path through
+    ``path_runner`` (launch counts reset just before it and read just
+    after): ``cli_geo_10k`` (``cli_geo_10k``), ``cli_lint`` (``cli_lint``)
+    and ``cli_module`` (``cli_module``: ``module``, the ``python -m
+    corrosion_tpu_torch`` process ``start_module`` started with phase 12,
+    joined here; its launches are its own). Phases 12 and 14 take the CLI's other paths (``cli_obs_demo``,
+    ``cli_chaos``, ``cli_cost``)."""
+    t_phase = time.perf_counter()
+    by_path, secs = {}, {}
+    run = path_runner(onehot, phase, by_path, secs)
+    run("cli_geo_10k", lambda: cli_geo_10k(kept.pop("geo_push"), phase))
+    run("cli_lint", lambda: cli_lint(phase))
+    run("cli_module", lambda: cli_module(*module, phase))
+    log(f"phase {phase}: seconds by path {json.dumps(secs)}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def kernel_rows(measured: list, by_path: dict) -> list:
     """The ``kernels`` line: one entry per kernel from phase 3's
     measurements and the main paths' launch counts."""
@@ -2733,7 +3013,7 @@ def main() -> int:
             by_path[path] = full_run(onehot, gossip, phase, path,
                                      keep=kept if path == "wan_100k" else None, walls=walls)
             lap(f"phase {phase}")
-        by_path["geo_10k"] = geo_run(onehot, gossip)
+        by_path["geo_10k"] = geo_run(onehot, gossip, keep=kept)
         lap("phase 9")
         by_path["anti_entropy_chunks"] = chunk_runs(onehot, gossip)
         lap("phase 10")
@@ -2745,17 +3025,26 @@ def main() -> int:
     cpu = check_small_runs(*small)
     kept["soak_cpu"], kept["dcn_cpu"] = cpu["soak"], cpu["dcn"]
     lap("phase 4's checks")
-    by_path["consumers"] = consumers(onehot, cpu)
-    lap("phase 12")
-    by_path.update(sharded_runs(onehot, gossip, kept))
-    lap("phase 13")
-    # The first run of merge_10k in this process: phase 2's build and load,
-    # then phase 6's run.
-    by_path.update(bench_harness(onehot, led, built.wall_ms / 1e3 + walls["merge_10k"],
-                                 built.compile_ms, cpu["cost_model"]))
-    lap("phase 14")
-    by_path.update(host_oracles(onehot, kept))
-    lap("phase 15")
+    # Processes of their own, beside the phases that claim no time: the
+    # elastic drills (phase 13) and phase 16's `python -m` process.
+    drills, module = start_drills(), start_module()
+    try:
+        by_path.update(consumers(onehot, cpu))
+        lap("phase 12")
+        by_path.update(sharded_runs(onehot, gossip, kept, drills))
+        lap("phase 13")
+        # The first run of merge_10k in this process: phase 2's build and
+        # load, then phase 6's run.
+        by_path.update(bench_harness(onehot, led, built.wall_ms / 1e3 + walls["merge_10k"],
+                                     built.compile_ms, cpu["cost_model"]))
+        lap("phase 14")
+        by_path.update(host_oracles(onehot, kept))
+        lap("phase 15")
+        by_path.update(command_line(onehot, kept, module))
+        lap("phase 16")
+    finally:
+        for proc in (drills[0], drills[2], module[0]):
+            stop_worker(proc)
     rows = kernel_rows(measured, by_path)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build to the end")
     print(json.dumps({"kernels": rows}), flush=True)
@@ -2771,4 +3060,6 @@ if __name__ == "__main__":
         sys.exit(cpu_small_runs(sys.argv[2]))
     if sys.argv[1:2] == ["--cpu-elastic-drills"]:
         sys.exit(cpu_elastic_drills(sys.argv[2]))
+    if sys.argv[1:2] == ["--card-elastic-drills"]:
+        sys.exit(card_elastic_drills(sys.argv[2]))
     sys.exit(main())

@@ -25,12 +25,15 @@ Conventions:
 
 from __future__ import annotations
 
-import torch
 
+def resolve_device(device=None):
+    """The device an entry point runs on (a ``torch.device``): ``device``
+    when given, else CUDA. Raises when neither is available — never a
+    silent CPU run. torch is imported here, not at package import, so the
+    host-only command line (``lint``, the flight reports) starts without
+    it."""
+    import torch
 
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``device`` when given, else
-    CUDA. Raises when neither is available — never a silent CPU run."""
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():

@@ -800,7 +800,7 @@ def measure_placement(cfg, n_samples: int, mesh) -> dict:
 
 def capacity_model(node_counts=CAPACITY_NODE_GRID, device_count: int = 8,
                    memory_bytes: int | None = None, measured_100k: dict | None = None,
-                   tol: float = 0.05, device=None) -> dict:
+                   tol: float = 0.05, device=None, validate_live: bool = True) -> dict:
     """The ``corro-capacity/1`` artifact: predicted state bytes a position
     over ``node_counts`` for the flagship config on the ``device_count``-
     position mesh on ``device`` (default CUDA), validated, with a verdict a
@@ -810,8 +810,8 @@ def capacity_model(node_counts=CAPACITY_NODE_GRID, device_count: int = 8,
     Validation (a failed point raises):
 
     - the lane's 512-node point (``benchlib.MULTICHIP_NODES``), placed
-      live: the prediction must equal the measured bytes of the largest
-      position exactly;
+      live (unless ``validate_live`` is False): the prediction must equal
+      the measured bytes of the largest position exactly;
     - ``measured_100k`` (``{"nodes", "device_count", "per_device_bytes",
       "source"}``), a measured placement of ``flagship_cfg(100_352)``:
       within ``tol``.
@@ -829,21 +829,23 @@ def capacity_model(node_counts=CAPACITY_NODE_GRID, device_count: int = 8,
     if mesh is None:
         raise ValueError("capacity_model needs device_count > 1")
 
-    lane = benchlib.MULTICHIP_NODES
-    cfg512, _, sched512 = baselines.merge_10k(n=lane, rounds=8, samples=64, device=device)
-    n_s = len(sched512.sample_writer)
-    measured512 = measure_placement(cfg512, n_s, mesh)["per_device_bytes"]
-    predicted512 = predicted_state_bytes(cfg512, n_s, mesh)
-    if measured512 != predicted512:
-        raise ValueError(
-            f"capacity validation failed at the {lane}-node lane point: predicted "
-            f"{predicted512} B != measured {measured512} B a position — the placement "
-            f"specs and the shard helpers have drifted"
-        )
-    validation: dict = {"lane_512": {
-        "nodes": lane, "predicted_bytes": predicted512, "measured_bytes": measured512,
-        "exact": True,
-    }}
+    validation: dict = {}
+    if validate_live:
+        lane = benchlib.MULTICHIP_NODES
+        cfg512, _, sched512 = baselines.merge_10k(n=lane, rounds=8, samples=64, device=device)
+        n_s = len(sched512.sample_writer)
+        measured512 = measure_placement(cfg512, n_s, mesh)["per_device_bytes"]
+        predicted512 = predicted_state_bytes(cfg512, n_s, mesh)
+        if measured512 != predicted512:
+            raise ValueError(
+                f"capacity validation failed at the {lane}-node lane point: predicted "
+                f"{predicted512} B != measured {measured512} B a position — the placement "
+                f"specs and the shard helpers have drifted"
+            )
+        validation["lane_512"] = {
+            "nodes": lane, "predicted_bytes": predicted512, "measured_bytes": measured512,
+            "exact": True,
+        }
     if measured_100k is not None:
         cfg100k, _, sched100k = flagship_cfg(measured_100k["nodes"])
         pred = predicted_state_bytes(cfg100k, len(sched100k.sample_writer), mesh)

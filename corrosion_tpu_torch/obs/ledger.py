@@ -22,12 +22,12 @@ The port has no jitted functions and so no compile caches.
 :func:`jitted_functions` reports what stands in their place, the
 operators of the kernel library (``torch.ops.corro.<name>``, which every
 engine module reaches through ``ops.onehot``), and :func:`cache_sizes`
-says of each whether the loaded library holds it (1) or not (0): there is
-no cache of several entries behind an operator. Their ``module``
-argument, and so the engine of the watch set
-(:meth:`CompileLedger.watch`, :meth:`CompileLedger.watch_engines`,
-``ENGINE_MODULES``), filters nothing: every engine gives the same
-operators. Nothing should build on it as if it did.
+says of each whether the loaded library holds it (1) or not (0), plus
+the rebuilds a ledger saw after its first window (the sanitizer's CT030
+tripwire). An entry that keeps its own count (``_cache_size()``) is read
+as itself. The engine of the watch set (:meth:`CompileLedger.watch`,
+:meth:`CompileLedger.watch_engines`, ``ENGINE_MODULES``) filters
+nothing: every engine gives the same operators.
 
 The library is built and loaded at most once a process (``cuda_build.load``
 returns at once after the first load), so once it is loaded an armed
@@ -60,21 +60,38 @@ class RetraceError(RuntimeError):
     """A kernel-library build or load fired while the ledger was armed."""
 
 
-def jitted_functions(module) -> dict[str, str]:
-    """The compiled entry points ``module`` reaches, by name: the kernel
-    library's operators (operator name -> ``corro::<name>``). Every engine
-    module reaches all of them through ``ops.onehot``, so the set is the
-    same for each."""
+def jitted_functions(module) -> dict[str, object]:
+    """The compiled entry points ``module`` reaches, by name. An attribute
+    of ``module`` that keeps its own compile count (a ``_cache_size()``
+    method, the reference's jit products and test stand-ins) is watched
+    as itself; a module without one — every engine module of the port —
+    reaches the kernel library's operators (operator name ->
+    ``corro::<name>``) through ``ops.onehot``, the same set for each."""
+    own = {
+        name: obj
+        for name in dir(module)
+        if callable(obj := getattr(module, name, None))
+        and hasattr(obj, "_cache_size")
+    }
+    if own:
+        return own
     from corrosion_tpu_torch.ops import onehot
 
-    del module
     return {name: f"corro::{name}" for name in onehot.OPERATORS}
 
 
-def cache_sizes(fns: dict[str, str]) -> dict[str, int]:
-    """1 for each operator of ``fns`` the loaded library registers, else
-    0."""
-    return {name: int(hasattr(torch.ops.corro, name)) for name in fns}
+def cache_sizes(fns: dict[str, object], ledger: "CompileLedger | None" = None) -> dict[str, int]:
+    """How often each watched entry was compiled: an entry's own
+    ``_cache_size()`` where it has one; for an operator, 1 when the loaded
+    library registers it (else 0), plus the builds and loads ``ledger``
+    saw after its first window — the library is built and loaded once,
+    so anything after the first window is a rebuild."""
+    again = 0 if ledger is None else sum(w.compiles for w in ledger.windows[1:])
+    return {
+        name: fn._cache_size() if hasattr(fn, "_cache_size")
+        else int(hasattr(torch.ops.corro, name)) + again
+        for name, fn in fns.items()
+    }
 
 
 # One process-wide listener fanning out to the active ledgers.

@@ -62,12 +62,14 @@ def reset_host_syncs() -> None:
         HOST_SYNCS[k] = 0
 
 
+# corro-lint: disable=CT004 reason=the round's counted sync: a lax.cond predicate read on the host, tallied in HOST_SYNCS["branch"]
 def _branch(pred: torch.Tensor) -> bool:
     """A ``lax.cond`` predicate read on the host (one device sync)."""
     HOST_SYNCS["branch"] += 1
     return bool(pred)
 
 
+# corro-lint: disable=CT001 reason=the round's counted sync: the drop-scatter's row mask read on the host, tallied in HOST_SYNCS["drop_scatter"]
 def _ok_rows(rows: torch.Tensor, row_ok: torch.Tensor) -> torch.Tensor:
     """Positions of rows whose scatter lands (``mode="drop"`` on the
     rest); reads the mask on the host."""
@@ -1235,6 +1237,7 @@ def cells_agree(data: DataState, cfg: GossipConfig) -> torch.Tensor:
     )
 
 
+# corro-lint: disable=CT001,CT005 reason=host ground truth, not a round: reads head once and builds the version list on the host
 def serial_merge_reference(head, cfg: GossipConfig, device=None) -> crdt.CellState:
     """Ground truth: every committed version (w, v <= head[w]) merged into
     one fresh cell state (``cells_per_write`` change batches through

@@ -211,6 +211,7 @@ def contiguous_watermark(iv: IntervalSet, base) -> torch.Tensor:
     return wm
 
 
+# corro-lint: disable=CT001 reason=testing and debugging helper: the set's whole point is a host list, never called in a round
 def to_host(iv: IntervalSet):
     """The set as ``[(start, end), ...]``; a list of such lists per leading
     index when batched (testing and debugging)."""

@@ -208,7 +208,7 @@ def mixed_round(
     # without a queue entry (the chunk plane carries the content). A stream
     # not committing this round is a no-op (a max with 0), so only the
     # committing ones run.
-    commits = np.flatnonzero(np.asarray(big_commit))
+    commits = np.flatnonzero(np.asarray(big_commit))  # corro-lint: disable=CT001 reason=the host schedule's row, no tensor
     if len(commits):
         head, contig, seen = data.head.clone(), data.contig.clone(), data.seen.clone()
         for s in commits:

@@ -10,18 +10,18 @@ Covered: every case of ``test_agent_cluster``, ``test_agent_hardening``,
 ``test_torch_obs_rest.py``), ``test_pool_restore``, ``test_sync_serve``,
 ``test_sync_parallel``, ``test_transport_resilience`` and
 ``test_compaction``; ``test_trace_replay``'s end-to-end case with the
-replay on the CPU; ``test_obs_timeline``'s two live-agent cases (the
-second drives ``loadgen``'s fan-out storm); and the cases of
-``test_ops_surface`` and ``test_observability`` that need no unported
-module (``tpl`` and ``integrations.consul`` are ported). The cases that
-do are named in ``WAITING``, with the module each waits for; they are
-not collected.
+replay on the CPU; ``test_obs_timeline``'s three live-agent cases (the
+second and third drive ``loadgen``'s fan-out storm, the third through the
+CLI); and every case of ``test_ops_surface`` and ``test_observability``
+(the CLI and ``obs.metrics_ref`` included). The CLI is the port's, with
+``--device cpu`` bound in front of every argv (``CPU_CLI``).
 ``test_pgsql_lexer::test_normalize_sql_idempotent`` runs against the
 port's ``subs`` in ``test_torch_pgsql.py``.
 """
 
 import contextlib
 import functools
+import sys
 import types
 
 import pytest
@@ -38,6 +38,7 @@ import test_sync_parallel as ref_sync_parallel
 import test_sync_serve as ref_sync_serve
 import test_trace_replay as ref_trace_replay
 import test_transport_resilience as ref_transport
+from corrosion_tpu_torch import cli as tcli
 from corrosion_tpu_torch import client as tclient
 from corrosion_tpu_torch import native as tnative
 from corrosion_tpu_torch import tpl as ttpl
@@ -67,6 +68,7 @@ from corrosion_tpu_torch.loadgen import pgread as tpgread
 from corrosion_tpu_torch.loadgen import report as treport
 from corrosion_tpu_torch.loadgen import scenarios as tscenarios
 from corrosion_tpu_torch.loadgen import schedule as tschedule
+from corrosion_tpu_torch.obs import metrics_ref as tmetrics_ref
 from corrosion_tpu_torch.obs import serving as tserving
 from corrosion_tpu_torch.obs import timeline as ttimeline
 from corrosion_tpu_torch.sim import health as thealth
@@ -81,7 +83,26 @@ from corrosion_tpu_torch.utils import tracing as ttracing
 from corrosion_tpu_torch.utils import tripwire as ttripwire
 from test_torch_core import reference_cases, run_against
 
+
+
+def _cpu_cli():
+    """The port's ``cli`` with ``main`` (and the ``cli_main`` alias the
+    reference's tests import it under) running ``--device cpu`` before
+    every argv: the one place the CPU is named for the CLI's cases."""
+    mod = types.ModuleType(tcli.__name__)
+    mod.__dict__.update(vars(tcli))
+
+    def main(argv=None):
+        return tcli.main(["--device", "cpu", *(sys.argv[1:] if argv is None else argv)])
+
+    mod.main = mod.cli_main = main
+    return mod
+
+
+CPU_CLI = _cpu_cli()
+
 RUNTIME_SWAPS = {
+    "corrosion_tpu.cli": CPU_CLI,
     "corrosion_tpu.client": tclient,
     "corrosion_tpu.native": tnative,
     "corrosion_tpu.tpl": ttpl,
@@ -111,6 +132,7 @@ RUNTIME_SWAPS = {
     "corrosion_tpu.loadgen.report": treport,
     "corrosion_tpu.loadgen.scenarios": tscenarios,
     "corrosion_tpu.loadgen.schedule": tschedule,
+    "corrosion_tpu.obs.metrics_ref": tmetrics_ref,
     "corrosion_tpu.obs.serving": tserving,
     "corrosion_tpu.obs.timeline": ttimeline,
     "corrosion_tpu.sim.health": thealth,
@@ -125,13 +147,6 @@ RUNTIME_SWAPS = {
     "corrosion_tpu.utils.tripwire": ttripwire,
 }
 
-# Reference cases that need a module the port does not have yet, by the
-# module each waits for. They are left out of the parametrisation.
-WAITING = {
-    ref_ops: {"test_cli_help_and_query_exec": "cli"},
-    ref_observability: {"test_metric_names_match_docs": "obs.metrics_ref"},
-    ref_timeline: {"test_obs_timeline_cli_from_run": "cli"},
-}
 # test_sub_costs' pure-dict cases, run against the port in
 # test_torch_obs_rest.py.
 SERVING_ELSEWHERE = (
@@ -147,13 +162,12 @@ SERVING_ELSEWHERE = (
 # The live-agent cases of test_obs_timeline; its synthetic cases run in
 # test_torch_obs_rest.py.
 TIMELINE_LIVE = ("test_default_agent_write_path_allocates_no_spans",
-                 "test_traced_cluster_end_to_end_timeline")
+                 "test_traced_cluster_end_to_end_timeline",
+                 "test_obs_timeline_cli_from_run")
 
 
 def _cases(module, skip=()) -> list:
-    waiting = WAITING.get(module, {})
-    return [(module, c) for c in reference_cases(module)
-            if c not in waiting and c not in skip]
+    return [(module, c) for c in reference_cases(module) if c not in skip]
 
 
 WHOLE_FILES = (ref_cluster, ref_hardening, ref_pool, ref_sync_serve, ref_sync_parallel,
@@ -212,14 +226,17 @@ def test_trace_record_replay_end_to_end_on_the_port(tmp_path, monkeypatch):
 
 
 def test_every_reference_case_is_run_or_waits():
-    """Each whole file's cases are all parametrised here or named in
-    ``WAITING``; test_sub_costs' rest runs in test_torch_obs_rest.py."""
+    """Each whole file's cases are all parametrised here (none waits for an
+    unported module any more); test_sub_costs' rest runs in
+    test_torch_obs_rest.py."""
     for m in WHOLE_FILES + (ref_sub_costs,):
         ran = {c for mm, c in CASES if mm is m}
         rest = set(SERVING_ELSEWHERE) if m is ref_sub_costs else set()
-        assert ran | set(WAITING.get(m, {})) | rest == set(reference_cases(m)), m.__name__
+        assert ran | rest == set(reference_cases(m)), m.__name__
     assert len([c for m, c in CASES if m is ref_cluster]) == 18
-    assert set(ref_timeline.__dict__) >= set(TIMELINE_LIVE) | set(WAITING[ref_timeline])
+    assert set(ref_timeline.__dict__) >= set(TIMELINE_LIVE)
+    assert {"test_cli_help_and_query_exec", "test_metric_names_match_docs"} <= {
+        c for _, c in CASES}
 
 
 def test_the_cases_launch_the_port(tmp_path, monkeypatch):

@@ -29,7 +29,8 @@ def test_port_imports_no_jax_and_no_reference():
     res = _run(
         "import importlib, pkgutil, sys\n"
         "import corrosion_tpu_torch as p\n"
-        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')\n"
+        "         if m.name != 'corrosion_tpu_torch.__main__']  # it runs the CLI\n"
         "for n in names: importlib.import_module(n)\n"
         "assert len(names) >= 100, len(names)\n"
         "assert {'corrosion_tpu_torch.obs.epidemic', 'corrosion_tpu_torch.sim.invariants',\n"
@@ -40,13 +41,14 @@ def test_port_imports_no_jax_and_no_reference():
         "        'corrosion_tpu_torch.elastic.preempt',\n"
         "        'corrosion_tpu_torch.elastic.scenarios', 'corrosion_tpu_torch.sim.benchlib',\n"
         "        'corrosion_tpu_torch.obs.ledger', 'corrosion_tpu_torch.obs.costs'} <= set(names)\n"
-        "want = set(HOST_PLANES) | set(SERVING) | set(CHAOS_FIDELITY)\n"
+        "want = set(HOST_PLANES) | set(SERVING) | set(CHAOS_FIDELITY) | set(CLI_LINT)\n"
         "assert want <= set(names), want - set(names)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'corrosion_tpu' or m.startswith('corrosion_tpu.'))\n"
         "assert not bad, bad\n"
         "print('clean', len(names))\n",
         HOST_PLANES=HOST_PLANES, SERVING=SERVING, CHAOS_FIDELITY=CHAOS_FIDELITY,
+        CLI_LINT=CLI_LINT,
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("clean")
@@ -96,6 +98,18 @@ CHAOS_FIDELITY = (
     "corrosion_tpu_torch.fidelity.scenarios",
 )
 
+# The command line and the lint plane (the last slice): every module but
+# ``__main__``, which runs the CLI when imported.
+CLI_LINT = (
+    "corrosion_tpu_torch.cli", "corrosion_tpu_torch.obs.commands",
+    "corrosion_tpu_torch.obs.metrics_ref", "corrosion_tpu_torch.analysis",
+    "corrosion_tpu_torch.analysis.findings", "corrosion_tpu_torch.analysis.source",
+    "corrosion_tpu_torch.analysis.schema", "corrosion_tpu_torch.analysis.concurrency",
+    "corrosion_tpu_torch.analysis.asynclint", "corrosion_tpu_torch.analysis.determinism",
+    "corrosion_tpu_torch.analysis.purity", "corrosion_tpu_torch.analysis.clonemap",
+    "corrosion_tpu_torch.analysis.runner", "corrosion_tpu_torch.analysis.sanitize",
+)
+
 
 def test_lazy_imports_of_the_host_planes_stay_in_the_port():
     """Every import inside a function of the host planes (read from their
@@ -105,7 +119,8 @@ def test_lazy_imports_of_the_host_planes_stay_in_the_port():
     import ast
     import importlib.util
 
-    for name in HOST_PLANES + SERVING + CHAOS_FIDELITY + ("corrosion_tpu_torch.elastic.scenarios",):
+    for name in HOST_PLANES + SERVING + CHAOS_FIDELITY + CLI_LINT + (
+            "corrosion_tpu_torch.elastic.scenarios", "corrosion_tpu_torch.__main__"):
         src = Path(importlib.util.find_spec(name).origin).read_text()
         for node in ast.walk(ast.parse(src)):
             if isinstance(node, ast.ImportFrom):
@@ -178,6 +193,8 @@ def test_entry_points_raise_without_cuda():
         "from corrosion_tpu_torch.fidelity import compare, report as freport, scenarios as fscen\n"
         "from corrosion_tpu_torch.hostchaos import report as hreport\n"
         "from corrosion_tpu_torch.sim.trace import Trace\n"
+        "from corrosion_tpu_torch import cli\n"
+        "from corrosion_tpu_torch.analysis import sanitize\n"
         "trace = Trace(events=[(0, 'aa', 1), (40, 'bb', 1)])\n"
         "plan = faults.named_scenarios(24, 4, 48)['loss-burst']\n"
         "kw = dict(n=40, n_regions=2, n_writers=4, rounds=4, samples=4)\n"
@@ -214,7 +231,13 @@ def test_entry_points_raise_without_cuda():
         "             lambda: host_oracles.fidelity_live('steady'),\n"
         "             lambda: host_oracles.fidelity_replay_10k(trace, nodes=4),\n"
         "             lambda: host_oracles.fidelity_dcn(),\n"
-        "             lambda: host_oracles.hostchaos_pair()):\n"
+        "             lambda: host_oracles.hostchaos_pair(),\n"
+        "             lambda: cli.main(['obs', 'record', '--out', os.devnull, '--nodes', '32',\n"
+        "                               '--rounds', '16']),\n"
+        "             lambda: cli.main(['obs', 'cost', 'show', '--engines', 'dense']),\n"
+        "             lambda: cli.main(['chaos', 'run', 'loss-burst', '--engines', 'dense']),\n"
+        "             lambda: cli.main(['lint', '--no-static', '--sanitize']),\n"
+        "             lambda: sanitize.sanitize_engines()):\n"
         "    try:\n"
         "        call()\n"
         "    except RuntimeError as e:\n"

@@ -17,10 +17,9 @@ reference's:
   a flight by each package, equal to the reference's (each package's
   reader on each package's flight).
 
-The live-agent case of ``tests/test_obs_timeline.py`` at :545 and the
-rest of ``tests/test_sub_costs.py`` run against the port's agent runtime
-in ``test_torch_agent_runtime.py``; :609 waits for ``loadgen/``, :642 for
-``loadgen/`` and ``cli``.
+The live-agent cases of ``tests/test_obs_timeline.py`` (:545, :609 and
+the CLI's :642) and the rest of ``tests/test_sub_costs.py`` run against
+the port's agent runtime in ``test_torch_agent_runtime.py``.
 """
 
 import json

@@ -2,8 +2,9 @@
 reference's:
 
 - the reference's own cases (``tests/test_endurance.py``, all but its
-  engine, agent, CLI and load-generator install points) run against the
-  port's ``series``, ``endurance`` and ``utils.metrics``;
+  engine, agent and load-generator install points) run against the
+  port's ``series``, ``endurance`` and ``utils.metrics``, the CLI's
+  through the port's ``cli`` with ``--device cpu``;
 - the same reports from the same samples: ``build_report``,
   ``render_report``, ``check_soak_budget`` and ``diff_soak`` equal, dict
   for dict, on the positive controls of those cases;
@@ -32,20 +33,21 @@ from corrosion_tpu_torch.sim import engine as tengine
 from corrosion_tpu_torch.sim import telemetry as ttele
 from corrosion_tpu_torch.utils import metrics as tmetrics
 from test_endurance import _clean_samples, _soak_report, mk_hist, mk_sample
+from test_torch_agent_runtime import CPU_CLI
 from test_torch_core import reference_cases, run_against
 
 SWAPS = {
+    "corrosion_tpu.cli": CPU_CLI,
     "corrosion_tpu.obs.endurance": tend,
     "corrosion_tpu.obs.series": tseries,
     "corrosion_tpu.utils.metrics": tmetrics,
 }
-# The reference's install-point cases drive its engine, agent, CLI and
-# load generator, which the port does not hold here; the kernel install
-# point has its own test below.
+# The reference's install-point cases drive its engine, agent and load
+# generator, which the swaps here do not hold; the kernel install point
+# has its own test below.
 INSTALL_POINTS = {
     "test_kernel_series_chunked_deterministic_and_zero_cost",
     "test_agent_runtime_series_install",
-    "test_obs_soak_cli_report_and_diff",
     "test_loadgen_soak_process_block_rides_the_recorder",
 }
 
@@ -53,8 +55,9 @@ INSTALL_POINTS = {
 @pytest.mark.parametrize(
     "case", [c for c in reference_cases(ref_endurance_tests) if c not in INSTALL_POINTS]
 )
-def test_reference_endurance_cases_hold_on_the_port(case, tmp_path, monkeypatch):
-    run_against(ref_endurance_tests, case, SWAPS, monkeypatch, tmp_path=tmp_path)
+def test_reference_endurance_cases_hold_on_the_port(case, tmp_path, capsys, monkeypatch):
+    run_against(ref_endurance_tests, case, SWAPS, monkeypatch, tmp_path=tmp_path,
+                capsys=capsys)
 
 
 def _set(samples, family, name, fn, when=lambda i: True):
