@@ -104,9 +104,9 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    deviation entry dropped, ``table_gather``, ``rowmax``, ``rowgather``
    and ``delivery_reduce`` launched, the watermark invariants;
 8. ``wan_100k_adaptive``: full-size ``wan_100k()`` with
-   ``ADAPTIVE_GOSSIP`` and 8-bucket sync sketches, all 240 rounds in
-   chunks of 12: its five kernels launched (``table_gather`` among them),
-   the watermark invariants;
+   ``ADAPTIVE_GOSSIP`` and 8-bucket sync sketches, its first
+   ``ADAPTIVE_ROUNDS`` (120) rounds in chunks of 12: its five kernels
+   launched (``table_gather`` among them), the watermark invariants;
 9. ``geo_10k``: ``churned_demo_cluster(nodes=10_000, rounds=64, geo=True)``
    (4 regions, 16 writers, a kill/revive wave of 625 nodes, dense SWIM,
    ``prop_observe``), push-only and adaptive: the propagation plane's
@@ -404,6 +404,10 @@ ELASTIC_DRILLS = ("reshard_dense_4to8", "reshard_sparse_4to8", "reshard_chunk_4t
                   "reshard_mixed_4to8", "preempt_dense_churn", "soak_preempt")
 # Phase 13's merge_10k burst at n=2560 on 2 positions (48 in phase 4).
 MERGE_SHARDED_ROUNDS = 24
+# Phase 8's wan_100k_adaptive: the first half of the 240-round schedule,
+# cut to make room for the partitioned round's host time in phases 13-14
+# (its kernels all launch in the first rounds; nothing of it is kept).
+ADAPTIVE_ROUNDS = 120
 CHUNK_100K_ROUNDS = 48  # phase 10's 100,000-node run (the 1,000-node run takes all 240)
 CHECKPOINT_ROUNDS = 50  # phase 12's churn_32 run for the checkpoint round trip
 COST_DEVICES = (1, 4)  # phase 14's ``obs cost show --devices`` (and its CPU twin's)
@@ -970,16 +974,19 @@ def check_kernels(onehot, device) -> list:
                torch.randint(0, w, (64, 16), generator=g, device=device))
     del idx, heads
 
-    # The shard bodies of phase 13, one row block a position (the sync
-    # grants, visibility and rotate run whole, at their paths' shapes):
-    # wan_100k on 4 positions, [25,000, 144] a body over 512 writers and
-    # 256 cells; anywrite_sparse n=2000 on 4, [500, 320] over 56 hot
-    # slots and 256 cells, with rotate's table_gather at [2000, 64];
-    # the merge_10k burst n=2560 on 2, [1280, 144] over 2,560 writers and
-    # 1,024 cells (the legacy delivery); the elastic drills' dense wan
-    # workload n=64 on 8, [8, 144] over 16 writers and 256 cells.
-    for path, n, kk, w, k in (("wan_100k_sharded", 25_000, 144, 512, 256),
-                              ("anywrite_sparse_sharded", 500, 320, 56, 256),
+    # The shard bodies of phase 13, one row block a position. The
+    # partitioned dense round (wan_100k on 4 positions, the merge_10k
+    # burst on 2) runs every kernel site per position: [25,000, 144] a
+    # body over 512 writers and 256 cells, its sync grants over a quarter
+    # of the 16,667-row cohort and its visibility over its 25,000 rows;
+    # the merge burst n=2560, [1280, 144] over 2,560 writers and 1,024
+    # cells (the legacy delivery), grants over 256 of a 512-row cohort.
+    # anywrite_sparse n=2000 on 4 ([500, 320] over 56 hot slots and 256
+    # cells) runs its sync grants, visibility and rotate whole
+    # (table_gather at [2000, 64]); the elastic drills' dense wan workload
+    # n=64 on 8, [8, 144] over 16 writers and 256 cells.
+    fast_path("wan_100k_sharded", 25_000, 144, 512, 256, 128, 4_167, 512)
+    for path, n, kk, w, k in (("anywrite_sparse_sharded", 500, 320, 56, 256),
                               ("elastic", 8, 144, 16, 256)):
         idx = rowmax_case(path, n, kk, k)
         gather_case(path, "base gather", u24(n, w), torch.randint(0, w, (n, kk), generator=g, device=device))
@@ -994,6 +1001,9 @@ def check_kernels(onehot, device) -> list:
     n, kk, w, k = 1280, 144, 2560, 1024
     idx = rowmax_case("merge_10k_sharded", n, kk, k)
     gather_case("merge_10k_sharded", "CRDT winner check", u24(n, k), idx)
+    gather_case("merge_10k_sharded", "sync grants", u24(256, w), sorted_idx(256, 512, w))
+    gather_case("merge_10k_sharded", "visibility", u24(n, w),
+                torch.randint(0, w, (256,), generator=g, device=device))
     reduce_case("merge_10k_sharded", n, kk, w, 1 << 20, 1 << 20)
     widx = torch.randint(0, w, (n, kk), generator=g, device=device)
     gather_case("merge_10k_sharded", "legacy base gather", u24(n, w), widx, wide=True)
@@ -1634,7 +1644,8 @@ def build_path(path: str):
         # The reference tests' composed_sketch tuning; prop_observe stays
         # off (20 regions exceed the plane's PROP_REGIONS = 4).
         cfg, topo, sched = baselines.wan_100k(device="cuda")
-        return health.with_adaptive(cfg, sync_sketch_buckets=8), topo, sched
+        return (health.with_adaptive(cfg, sync_sketch_buckets=8), topo,
+                sched.slice(0, ADAPTIVE_ROUNDS))
     return getattr(baselines, path)(device="cuda")
 
 
@@ -1690,6 +1701,7 @@ def full_run(onehot, gossip, phase: int, builder: str, keep: dict | None = None,
     if walls is not None:
         walls[builder] = wall
     if keep is not None:
+        keep["peak"] = torch.cuda.max_memory_allocated()
         # Phase 15 holds the final cells to the SQLite store and reads the
         # flight's write journeys. The cell planes, the watermarks and the
         # window words are held on the host, as phase 13's round's are.
@@ -2122,14 +2134,19 @@ def sharded_runs(onehot, gossip, kept: dict, drills: tuple, phase: int = 13) -> 
     launch counts reset just before it and read just after:
 
     (a) full-width ``wan_100k()`` on a (2, 2) mesh of card positions,
-        ``SHARDED_ROUNDS`` rounds in calls of 12: curves equal phase 5's
-        first rounds (but the xshard keys), the final state equals phase
-        5's at that round, the exchange bytes equal ``traffic_model``,
-        each position holds the predicted bytes;
+        partitioned (every plane per position, the state resident in the
+        positions' blocks), ``SHARDED_ROUNDS`` rounds in calls of 12:
+        curves equal phase 5's first rounds (but the xshard keys), the
+        final state equals phase 5's at that round, the queue wire's bytes
+        equal ``traffic_model``, each position holds the predicted bytes
+        after every round; first, one round from a fresh state under the
+        structural check (no whole node plane inside a position body).
+        Printed beside phase 5's: ms/round and peak memory; beside
+        ``traffic_model``'s detail: the bytes of each exchange kind;
     (b) ``anywrite_sparse`` at phase 4's n=2000 on 4 positions == the
         unsharded card run;
-    (c) the merge_10k burst at n=2560 (legacy delivery) on 2 positions ==
-        the unsharded card run;
+    (c) the merge_10k burst at n=2560 (legacy delivery) on 2 positions,
+        partitioned, == the unsharded card run;
     (d) the elastic drills on the card (``ELASTIC_DRILLS``, ``drills``:
         the processes ``start_drills`` started with phase 12): each equal
         to its uninterrupted run, the preemption's recovery machinery
@@ -2141,27 +2158,50 @@ def sharded_runs(onehot, gossip, kept: dict, drills: tuple, phase: int = 13) -> 
     from corrosion_tpu_torch.models import baselines
     from corrosion_tpu_torch.obs import epidemic
     from corrosion_tpu_torch.parallel import mesh as mesh_mod
+    from corrosion_tpu_torch.parallel import shard_driver
     from corrosion_tpu_torch.sim import engine, sparse_engine
     from corrosion_tpu_torch.sim.telemetry import XSHARD_CURVE_KEYS
 
     t_phase = time.perf_counter()
     by_path = {}
 
-    # (a) wan_100k at full width on a (2, 2) mesh.
+    # (a) wan_100k at full width on a (2, 2) mesh, partitioned.
     cfg, topo, sched = build_path("wan_100k")
     mesh = parallel.make_wan_mesh(2, 2)
     log(f"phase {phase}: {mesh!r}")
+    n, nl = cfg.n_nodes, cfg.n_nodes // mesh.size
+    # The structural check: one full-width round from a fresh state, every
+    # operation of every position body watched (its launches not counted).
+    check = shard_driver.WholePlaneCheck(n, nl, n_cells=cfg.gossip.n_cells)
+    out, check_ms = _timed(lambda: parallel.simulate_sharded(
+        cfg, topo, sched.slice(0, 1), mesh, seed=0, watch=check
+    ))
+    watched = out[1]
+    del out  # the watched round's state, so the timed run's peak is its own
+    assert not _curve_diff({k: v[:1] for k, v in kept["curves"].items()}, watched,
+                           XSHARD_CURVE_KEYS), "wan_100k watched round differs from phase 5's"
+    assert check.ops > 1000 and check.found == [], \
+        f"wan_100k: whole node planes inside the position bodies: {check.found[:8]}"
+    log(f"phase {phase}: structural check over one full-width round: {check.ops} operations "
+        f"in the position bodies, none outputs a whole node plane ({check_ms:.0f} ms watched)")
+    del watched
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     onehot.reset_launches()
     gossip.reset_host_syncs()
-    state, parts, elapsed = None, [], 0.0
+    state, parts, elapsed, info = None, [], 0.0, {"exchange_bytes": {}, "state_bytes": []}
     for r0 in range(0, SHARDED_ROUNDS, 12):
+        call = {}
         (state, curves), ms = _timed(lambda: parallel.simulate_sharded(
-            cfg, topo, sched.slice(r0, r0 + 12), mesh, seed=0, state=state
+            cfg, topo, sched.slice(r0, r0 + 12), mesh, seed=0, state=state, info=call
         ))
         elapsed += ms
         parts.append(curves)
+        for k, v in call["exchange_bytes"].items():
+            info["exchange_bytes"][k] = info["exchange_bytes"].get(k, 0.0) + v
+        for k, v in call["exchange_bytes_by_tag"].items():
+            info.setdefault("by_tag", {})[k] = info.get("by_tag", {}).get(k, 0.0) + v
+        info["state_bytes"] += call["state_bytes"]
     by_path["wan_100k_sharded"] = launches = dict(onehot.LAUNCHES)
     syncs = dict(gossip.HOST_SYNCS)
     peak = torch.cuda.max_memory_allocated()
@@ -2180,16 +2220,30 @@ def sharded_runs(onehot, gossip, kept: dict, drills: tuple, phase: int = 13) -> 
         state, mesh_mod.cluster_state_specs(state, mesh), mesh
     )
     assert sorted(per) == list(range(mesh.size)) and set(per.values()) == {predicted}, per
-    whole = sum(x.numel() * x.element_size() for x in mesh_mod.tree_leaves(mesh_mod.assemble(state)))
-    log(f"phase {phase}: wan_100k N={cfg.n_nodes} on {mesh.size} positions, {SHARDED_ROUNDS} "
-        f"rounds: {elapsed / SHARDED_ROUNDS:.1f} ms/round sharded against "
-        f"{kept['ms'] / SHARDED_ROUNDS:.1f} unsharded (phase 5, CUDA events; all positions share "
-        f"one card, so no speed claim), peak memory {peak / 2**30:.2f} GiB; curves equal phase "
-        f"5's first {SHARDED_ROUNDS} rounds, final state equal leaf for leaf; exchange bytes a "
-        f"round ici {curves['xshard_bytes_ici'][0]:.0f}, dcn {curves['xshard_bytes_dcn'][0]:.0f} "
-        f"== traffic_model ({tm['xshard_bytes_ici']:.0f}, {tm['xshard_bytes_dcn']:.0f}); state "
-        f"bytes a position {predicted} == predicted ({predicted / whole:.4f} of the whole "
-        f"{whole}); launches {json.dumps(launches)}; host syncs {json.dumps(syncs)}")
+    during = {b for row in info["state_bytes"] for b in row}
+    assert len(info["state_bytes"]) == SHARDED_ROUNDS and during == {predicted}, during
+    whole = sum(math.prod(x.shape) * x.dtype.itemsize for x in mesh_mod.tree_leaves(state))
+    rounds = SHARDED_ROUNDS
+    exch = {k: v / rounds for k, v in sorted(info["exchange_bytes"].items())}
+    by_tag = {k: v / rounds for k, v in sorted(info["by_tag"].items())}
+    detail = {k: tm["detail"][k] for k in
+              ("alive_gather_bytes", "pulled_reduce_bytes", "sync_gather_bytes_est")}
+    assert by_tag["gather:alive"] == detail["alive_gather_bytes"], (by_tag, detail)
+    log(f"phase {phase}: wan_100k N={n} partitioned on {mesh.size} positions, {rounds} "
+        f"rounds: {elapsed / rounds:.1f} ms/round against {kept['ms'] / rounds:.1f} unsharded "
+        f"(phase 5, CUDA events; all positions share one card, so no speed claim), peak memory "
+        f"{peak / 2**30:.2f} GiB against phase 5's {kept['peak'] / 2**30:.2f} GiB (its whole "
+        f"240-round run); curves equal phase 5's first {rounds} rounds, final state equal leaf "
+        f"for leaf; queue wire a round ici {curves['xshard_bytes_ici'][0]:.0f}, dcn "
+        f"{curves['xshard_bytes_dcn'][0]:.0f} == traffic_model ({tm['xshard_bytes_ici']:.0f}, "
+        f"{tm['xshard_bytes_dcn']:.0f}); state bytes a position after every round {predicted} "
+        f"== predicted ({predicted / whole:.4f} of the whole {whole}); launches "
+        f"{json.dumps(launches)}; host syncs {json.dumps(syncs)}")
+    log(f"phase {phase}: exchange bytes a round between positions, by kind "
+        f"{json.dumps(exch)}; by tag {json.dumps(by_tag)}; traffic_model's estimates "
+        f"{json.dumps(detail)}")
+    kept["sharded"] = dict(ms_per_round=elapsed / rounds, peak=peak, state_bytes=predicted,
+                           exchange=exch, by_tag=by_tag, detail=detail)
     mid = kept.pop("state")
     # Phase 15 holds this round's rows that fall short of head to the
     # SQLite store: the cells, watermarks and window words stay on the host.

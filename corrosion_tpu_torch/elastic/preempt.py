@@ -132,8 +132,6 @@ def run_dense_preempted(
     position)`` event kill that position's block, reload the latest
     checkpoint, replay the gap (its curves held to the first pass) and go
     on. ``events`` is a ``FaultPlan.preempt_events()`` worklist."""
-    from corrosion_tpu_torch.sim import engine
-
     ce = int(checkpoint_every)
     if ce <= 0:
         raise ValueError("checkpoint_every must be positive")
@@ -151,7 +149,7 @@ def run_dense_preempted(
     reconciles: list = []
     n_samples = len(sched.sample_writer)
 
-    state = mesh_mod.shard_cluster_state(engine.init_cluster(cfg, n_samples, mesh.home), mesh)
+    state = shard_driver.init_sharded(cfg, n_samples, mesh)
     ckpt = {"round": 0, "host": mesh_mod.to_host(state)}
 
     def specs_for(host):

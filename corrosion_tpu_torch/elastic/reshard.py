@@ -99,15 +99,11 @@ def run_dense_resharded(
 ) -> ReshardRun:
     """Dense engine: ``[0, split_round)`` on ``mesh_from``, checkpoint and
     reshard, ``[split_round, rounds)`` on ``mesh_to``."""
-    from corrosion_tpu_torch.sim import engine
-
     if not (0 < split_round < sched.rounds):
         raise ValueError(f"split_round must be inside (0, {sched.rounds}), got {split_round}")
     wall: dict = {}
     t = time.perf_counter()
-    state = mesh_mod.shard_cluster_state(
-        engine.init_cluster(cfg, len(sched.sample_writer), mesh_from.home), mesh_from
-    )
+    state = shard_driver.init_sharded(cfg, len(sched.sample_writer), mesh_from)
     state, prefix_curves = shard_driver.simulate_sharded(
         cfg, topo, schedule_slice(sched, 0, split_round), mesh_from, seed=seed,
         state=state, telemetry=telemetry,

@@ -10,9 +10,16 @@ re-admission or inherited budgets), the anti-entropy sessions of
 reads (``visibility``, ``total_need``, ``staleness``, ``queue_backlog``).
 ``track_writer_ids`` carries each queued version's global writer id beside
 its slot, for the rotating writer slots of ``ops/sparse_writers.py``.
-Under a ``ShardCtx`` the broadcast round is one mesh position's body of
-the explicit shard driver (``parallel/shard_driver.py``). The module
-docstring of the reference describes the model.
+The module docstring of the reference describes the model.
+
+The underscored bodies (``_broadcast_round``, ``_sync_round``,
+``_revive_sync``, ``_sync_rows``) run over one mesh position's rows of the
+node axis (``ops/exchange.py``): the broadcast plane reads the gathered
+queue tables, the sync sessions read their candidates' and peers' rows by
+``Rows`` gathers from their owners and draw by session entry, and the
+tracking reads give per-position partials (``_need_part``,
+``_staleness_parts``). The public functions are the same bodies on one
+position holding every row.
 
 The adaptive-dissemination plane rides the same rounds, each mechanism
 off by default: the duplicate-receipt rumor kill (``rumor_kill_k``, with
@@ -38,7 +45,7 @@ import torch
 
 from corrosion_tpu_torch import resolve_device
 from corrosion_tpu_torch import rng as rng_mod
-from corrosion_tpu_torch.ops import crdt, faulting, onehot, routing
+from corrosion_tpu_torch.ops import crdt, exchange, faulting, onehot, routing
 
 MASK = 0xFFFFFFFF
 
@@ -224,31 +231,6 @@ def make_topology(
     )
 
 
-class ShardCtx(NamedTuple):
-    """Per-shard context of the explicit shard driver
-    (``parallel/shard_driver.py``; reference ``gossip.ShardCtx``).
-
-    With a context, ``_broadcast_round`` is the round body of one mesh
-    position: ``data`` holds only that position's row block, while ``topo``,
-    ``alive``, ``partition``, ``writes`` and ``loss`` are the replicated
-    full tables and the pending-queue tables arrive gathered (the round's
-    one batched exchange). Each cross-shard sum (the reference's
-    ``lax.psum``) is a ``yield`` of this position's partials, which the
-    driver answers with their sum over every position. Random draws whose
-    shape would depend on the shard are made at the full shape and
-    row-sliced, so a sharded round equals the unsharded one bit for bit.
-    The unsharded ``broadcast_round`` is the same body on a mesh of one
-    position (``row_start`` 0, the block's own queue tables).
-    """
-
-    axes: tuple  # mesh axis names, outer -> inner
-    row_start: int  # global node index of this position's first row
-    q_writer: torch.Tensor  # [N, Q] gathered queue tables
-    q_ver: torch.Tensor
-    q_tx: torch.Tensor
-    q_gw: torch.Tensor | None  # track_writer_ids configs only
-
-
 class DataState(NamedTuple):
     """Per-node replica state (reference DataState; u32 in int64)."""
 
@@ -265,9 +247,12 @@ class DataState(NamedTuple):
     cells: crdt.CellState  # [N * K] x3 per-node registers
 
 
-def init_data(cfg: GossipConfig, device=None) -> DataState:
+def init_data(cfg: GossipConfig, device=None, n_rows: int | None = None) -> DataState:
+    """The initial state; ``n_rows`` builds just a position's block of
+    that many rows (the writer heads and the window flag whole)."""
     device = resolve_device(device)
-    n, w, q = cfg.n_nodes, cfg.n_writers, cfg.queue
+    w, q = cfg.n_writers, cfg.queue
+    n = cfg.n_nodes if n_rows is None else n_rows
 
     def z(*shape):
         return torch.zeros(shape, dtype=torch.int64, device=device)
@@ -715,26 +700,21 @@ def broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss=None):
     rebuild, with the adaptive-dissemination switches where the reference
     has them. Returns (DataState, stats).
 
-    It is the shard body on a mesh of one position: the whole state is the
-    block, and each cross-shard sum is the body's own partials."""
-    shard = ShardCtx(axes=(), row_start=0, q_writer=data.q_writer, q_ver=data.q_ver,
-                     q_tx=data.q_tx, q_gw=data.q_gw)
-    body = _broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss, shard=shard)
-    partials = None
-    try:
-        while True:
-            partials = body.send(partials)
-    except StopIteration as done:
-        return done.value
+    It is the position body on one position holding every row."""
+    return exchange.solo(_broadcast_round(
+        data, topo, alive, partition, writes, rng, cfg, loss, exchange.whole(cfg.n_nodes)
+    ))
 
 
-def _broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss, shard):
+def _broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss, pos):
     """The broadcast round's body (reference ``_broadcast_round``): a
-    generator that returns (DataState, stats). It is one mesh position's
-    body over its row block (``shard``) and yields a tuple of partials at
-    each cross-shard sum (the rumor kill's sender feedback, the pulled
-    counts, the round's stats), expecting their sum over every position
-    back."""
+    generator over one mesh position's rows (``pos``; ``data`` its block,
+    ``topo``, ``alive``, ``partition``, ``writes`` and ``loss`` whole) that
+    returns (DataState, stats). It asks for the gathered queue tables (the
+    round's one batched exchange of the plane, whose wire bytes join the
+    stats as ``xshard_bytes_*``), routes the rumor kill's sender feedback
+    to the senders' owners, and reduces the pulled counts and the round's
+    stats across positions."""
     track = cfg.track_writer_ids
     if track and topo.writer_ids is None:
         raise ValueError("track_writer_ids requires topo.writer_ids")
@@ -745,13 +725,17 @@ def _broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss, shard
     # its rows); the queue tables are the gathered [N, Q] ones.
     n = data.contig.shape[0]
     dev = data.contig.device
-    rs = shard.row_start
+    rs = pos.row_start
     rows = slice(rs, rs + n)
     region_r, rstart_r = topo.region[rows], topo.region_start[rows]
     rsize_r, won, alive_r = topo.region_size[rows], topo.writer_of_node[rows], alive[rows]
-    qf_w, qf_v, qf_t, qf_g = shard.q_writer, shard.q_ver, shard.q_tx, shard.q_gw
-    nodes = rs + torch.arange(n, device=dev)  # global node id of each row
-    keys = rng_mod.split(rng, 3)
+    wire = yield exchange.Queue(
+        (data.q_writer, data.q_ver, data.q_tx) + ((data.q_gw,) if track else ())
+    )
+    qf_w, qf_v, qf_t = wire.tables[:3]
+    qf_g = wire.tables[3] if track else None
+    nodes = pos.nodes(dev)  # global node id of each row
+    keys = rng_mod.split_keys(rng, 3)
     k_near, k_far, k_loss = keys[0], keys[1], keys[2]
 
     # ---- 1. local writes ---------------------------------------------------
@@ -792,10 +776,10 @@ def _broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss, shard
     f = cfg.fanout
     if f > 0:
         # ---- 2. source selection -------------------------------------------
-        # Drawn at the full [N, F] shape and row-sliced: every shard draws
-        # what the unsharded round draws.
-        near_off = rng_mod.randint(k_near, (n_total, cfg.fanout_near), 0, 1 << 30)[rows]
-        far = rng_mod.randint(k_far, (n_total, cfg.fanout_far), 0, n_total)[rows]
+        # The position's rows of the full [N, F] draws: every position
+        # draws what the unsharded round draws for its rows.
+        near_off = rng_mod.randint(k_near, (n_total, cfg.fanout_near), 0, 1 << 30, rows=pos.box)
+        far = rng_mod.randint(k_far, (n_total, cfg.fanout_far), 0, n_total, rows=pos.box)
         near = rstart_r[:, None] + near_off % torch.clamp(rsize_r[:, None], min=1)
         src = torch.cat([near, far], dim=1)  # [N, F]
         link_ok = (
@@ -844,12 +828,14 @@ def _broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss, shard
             hits = _duplicate_hits(m_ok, m_w, m_v, data.q_writer, data.q_ver)
             cw = onehot.rowgather(contig_before, torch.clamp(m_w, min=0))
             red = (m_ok & (m_v <= cw)).reshape(n * f, q_cap).to(torch.int64)
-            # Sources live on any shard: the feedback scatters into the
-            # full [N, Q] plane, sums across shards, and this shard keeps
-            # its rows (the one cross-shard reduction of the kill).
-            fb = torch.zeros((n_total, q_cap), dtype=torch.int64, device=dev)
-            (fb,) = yield (fb.index_add_(0, src.reshape(n * f), red),)
-            hits = hits + fb[rows]
+            # Sources live on any position: the feedback goes to each
+            # source's owner, which adds it onto its rows (the one
+            # cross-position exchange of the kill).
+            dest, valid, (fb_rows,) = yield exchange.Route(
+                "feedback", src.reshape(n * f), red.any(1), (red,)
+            )
+            fb = torch.zeros((n, q_cap), dtype=torch.int64, device=dev)
+            hits = hits + fb.index_add_(0, dest, torch.where(valid[:, None], fb_rows, 0))
         k_in = cfg.rebroadcast_intake or cfg.fanout * 2
         fast = (
             cfg.rebroadcast_fresh_budget
@@ -874,13 +860,12 @@ def _broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss, shard
                 m_ok, region_r, topo.region[src], q_cap, partition.shape[0]
             )
         # A source's budgets burn when at least one receiver pulled it.
-        # Sources live on any shard: a shard counts into the full vector,
-        # sums across shards and keeps its rows.
+        # Sources live on any position: a position counts into the full
+        # vector, sums across positions and keeps its rows.
         pulled = torch.bincount(
             torch.where(link_ok, src, n_total).reshape(-1), minlength=n_total + 1
         )[:n_total]
-        (pulled,) = yield (pulled,)
-        pulled = pulled[rows]
+        pulled = (yield exchange.Reduce("pulled", sum=(pulled,))).sum[0][rows]
         sent_any = pulled > 0
     else:
         n_msgs = zero
@@ -943,7 +928,7 @@ def _broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss, shard
     q_dup = out[-1] if cfg.rumor_kill_k > 0 else data.q_dup
     q_writer = torch.where(keep, q_writer, -1)
 
-    # One coalesced cross-shard sum of the round's stats, with the
+    # One coalesced cross-position sum of the round's stats, with the
     # window-live flag as a count (> 0 is the global OR) and, under
     # prop_observe, the propagation counters. The u32 counters wrap as the
     # reference's u32 psum does.
@@ -951,7 +936,7 @@ def _broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss, shard
             oo_any_new.to(torch.int64))
     if cfg.prop_observe:
         part += (prop_useful, prop_link, n_kills, n_pulls)
-    total = yield part
+    total = (yield exchange.Reduce("broadcast", sum=part)).sum
     applied_b, n_msgs, n_merges, n_degraded, n_lost, oo_cnt = total[:6]
     applied_b, n_merges = applied_b & MASK, n_merges & MASK
     oo_any_new = oo_cnt > 0
@@ -971,6 +956,9 @@ def _broadcast_round(data, topo, alive, partition, writes, rng, cfg, loss, shard
             prop_link=prop_link, prop_useful=prop_useful,
             prop_dup=n_msgs - prop_useful, prop_kills=n_kills, prop_pulls=n_pulls,
         )
+    if wire.ici_bytes is not None:
+        stats["xshard_bytes_ici"] = torch.full((), wire.ici_bytes, dtype=torch.float64, device=dev)
+        stats["xshard_bytes_dcn"] = torch.full((), wire.dcn_bytes, dtype=torch.float64, device=dev)
     return (
         DataState(
             head=head, contig=contig, seen=seen, oo=oo_new, oo_any=oo_any_new,
@@ -986,23 +974,37 @@ def sync_round(data, topo, alive, partition, round_idx, rng, cfg):
     cohorts, every due node). Under push->pull switching a second session
     follows over every saturated node not due this round, on a key split
     off first. Reference ``_sync_round``."""
+    return exchange.solo(_sync_round(
+        data, topo, alive, partition, round_idx, rng, cfg, exchange.whole(cfg.n_nodes)
+    ))
+
+
+def _sync_round(data, topo, alive, partition, round_idx, rng, cfg, pos):
+    """``sync_round`` over one position's rows (``data`` its block,
+    ``alive`` whole). Returns (data, the position's partial stats)."""
     if cfg.pull_switch_age > 0:
-        keys = rng_mod.split(rng, 2)
+        keys = rng_mod.split_keys(rng, 2)
         rng, k_esc = keys[0], keys[1]
-    data, stats = _scheduled_sync(data, topo, alive, partition, round_idx, rng, cfg)
+    data, stats = yield from _scheduled_sync(data, topo, alive, partition, round_idx, rng, cfg,
+                                             pos)
     if cfg.pull_switch_age == 0:
         return data, stats
     # ---- (b) pull escalation: saturation re-read from the post-broadcast
     # queues; phase identity excludes the rows the session just served.
-    sat = _queue_saturation(data.q_writer, data.q_ver, data.head, alive, cfg)
-    already = torch.remainder(round_idx + topo.sync_phase, cfg.sync_interval) == 0
-    nodes = torch.arange(cfg.n_nodes, device=data.contig.device)
-    data, estats = _sync_rows(data, topo, alive, partition, nodes, sat & ~already, k_esc, cfg)
+    rows = slice(pos.row_start, pos.row_start + pos.n_local)
+    sat = _queue_saturation(data.q_writer, data.q_ver, data.head, alive[rows], cfg)
+    already = torch.remainder(round_idx + topo.sync_phase[rows], cfg.sync_interval) == 0
+    data, estats = yield from _sync_rows(
+        data, topo, alive, partition, pos.nodes(data.contig.device), sat & ~already, k_esc,
+        cfg, pos, draw_rows=pos.box, r_total=cfg.n_nodes,
+    )
     return data, {k: stats[k] + estats[k] for k in stats}
 
 
-def _scheduled_sync(data, topo, alive, partition, round_idx, rng, cfg):
-    """The round's scheduled sessions: one cohort, or every due node."""
+def _scheduled_sync(data, topo, alive, partition, round_idx, rng, cfg, pos):
+    """The round's scheduled sessions: one cohort, or every due node. A
+    position serves the cohort entries whose node it owns (``pos.cohorts``)
+    and draws by cohort entry."""
     if topo.sync_cohorts is not None:
         if topo.sync_cohorts.shape[0] != cfg.sync_interval:
             raise ValueError(
@@ -1011,38 +1013,62 @@ def _scheduled_sync(data, topo, alive, partition, round_idx, rng, cfg):
                 f"{cfg.sync_interval}"
             )
         cohort = torch.remainder(-round_idx, cfg.sync_interval).reshape(1)
-        rows = torch.index_select(topo.sync_cohorts, 0, cohort)[0]
-        rows_safe = torch.clamp(rows, min=0)
+        members = torch.index_select(topo.sync_cohorts, 0, cohort)[0]
+        ents = None
+        rows = members
+        if pos.cohorts is not None:
+            ents = torch.index_select(pos.cohorts, 0, cohort)[0]
+            rows = torch.where(ents >= 0, members[torch.clamp(ents, min=0)], -1)
+        # Empty entries point at the position's first row, masked off.
+        rows_safe = torch.clamp(rows, min=pos.row_start)
         row_ok = (rows >= 0) & alive[rows_safe]
-        return _sync_rows(data, topo, alive, partition, rows_safe, row_ok, rng, cfg)
-    nodes = torch.arange(cfg.n_nodes, device=data.contig.device)
-    due = alive & (torch.remainder(round_idx + topo.sync_phase, cfg.sync_interval) == 0)
-    return _sync_rows(data, topo, alive, partition, nodes, due, rng, cfg)
+        return (yield from _sync_rows(
+            data, topo, alive, partition, rows_safe, row_ok, rng, cfg, pos, draw_rows=ents,
+            r_total=members.shape[0],
+        ))
+    rows = slice(pos.row_start, pos.row_start + pos.n_local)
+    due = alive[rows] & (
+        torch.remainder(round_idx + topo.sync_phase[rows], cfg.sync_interval) == 0
+    )
+    return (yield from _sync_rows(
+        data, topo, alive, partition, pos.nodes(data.contig.device), due, rng, cfg, pos,
+        draw_rows=pos.box, r_total=cfg.n_nodes,
+    ))
 
 
-def _sync_rows(data, topo, alive, partition, rows, row_ok, rng, cfg):
+def _sync_rows(data, topo, alive, partition, rows, row_ok, rng, cfg, pos, draw_rows=None,
+               r_total=None):
     """One pull session per row: score ``sync_candidates`` sampled peers
     by need (exact per-writer deficit, or above ``_EXACT_SCORE_MAX`` the
     bucketed sketch or the total-progress digest), pull the union of the
     top ``sync_peers`` plus the origin of the largest known gap under one
     budget, absorb the window, and merge the granted versions' cells.
-    Reference ``_sync_rows``."""
+    Reference ``_sync_rows``.
+
+    A position body over its own session rows (``rows``, global ids it
+    owns): the sessions are entries ``draw_rows`` (a range, an index
+    tensor, or None for all) of the ``r_total`` sessions whose draws the
+    reference makes, the candidates' and peers' rows come by ``Rows``
+    gathers, and the window and cell branches turn on cross-position ORs.
+    Returns (data, the position's partial stats)."""
     n = cfg.n_nodes
     r = rows.shape[0]
+    r_total = r if r_total is None else r_total
     dev = data.contig.device
-    keys = rng_mod.split(rng, 2)
+    keys = rng_mod.split_keys(rng, 2)
     k_near, k_far = keys[0], keys[1]
+    local = rows - pos.row_start
     region_r = topo.region[rows]
-    contig0 = data.contig[rows]  # [R, W]
-    seen_r = data.seen[rows]
+    contig0 = data.contig[local]  # [R, W]
+    seen_r = data.seen[local]
 
     c_count = cfg.sync_candidates
     c_near = c_count // 2
     c_far = c_count - c_near
     near = topo.region_start[rows][:, None] + rng_mod.randint(
-        k_near, (r, c_near), 0, 1 << 30
+        k_near, (r_total, c_near), 0, 1 << 30, rows=draw_rows
     ) % torch.clamp(topo.region_size[rows][:, None], min=1)
-    far = rng_mod.randint(k_far, (r, c_far), 0, n)
+    far = rng_mod.randint(k_far, (r_total, c_far), 0, n, rows=draw_rows)
     cand = torch.cat([near, far], dim=1)  # [R, C]
     ok_c = (
         row_ok[:, None]
@@ -1051,22 +1077,22 @@ def _sync_rows(data, topo, alive, partition, rows, row_ok, rng, cfg):
         & ~partition[region_r[:, None], topo.region[cand]]
     )
 
-    exact = r * cfg.n_writers * c_count <= _EXACT_SCORE_MAX
+    # The whole session count decides the scoring, as in the reference.
+    exact = r_total * cfg.n_writers * c_count <= _EXACT_SCORE_MAX
     if not exact and cfg.sync_sketch_buckets > 0:
         # Bucketed sketch: B one-sided differences in place of one total.
         sketch = bucket_sketch(data.contig, cfg.sync_sketch_buckets)
-        defc = _sketch_score(sketch[cand], sketch[rows][:, None, :], cfg.sync_budget)
+        (sk_c,) = yield exchange.Rows("sync", (sketch,), cand)
+        defc = _sketch_score(sk_c, sketch[local][:, None, :], cfg.sync_budget)
     elif exact:
-        cc = data.contig[cand]  # [R, C, W]
+        cc, sc = yield exchange.Rows("sync", (data.contig, data.seen), cand)  # [R, C, W]
         defc = _as_i32((cc - torch.minimum(cc, contig0[:, None, :])).sum(-1))
-        seen_r = torch.maximum(
-            seen_r,
-            torch.where(ok_c[:, :, None], data.seen[cand], 0).amax(dim=1),
-        )
+        seen_r = torch.maximum(seen_r, torch.where(ok_c[:, :, None], sc, 0).amax(dim=1))
+        del sc
     else:
         total = data.contig.sum(1) & MASK
-        total_r = total[rows]
-        tc = total[cand]
+        total_r = total[local]
+        (tc,) = yield exchange.Rows("sync", (total,), cand)
         defc = _digest_score(tc - torch.minimum(tc, total_r[:, None]), cfg.sync_budget)
 
     ring = topo.region_rtt[region_r[:, None], topo.region[cand]]
@@ -1090,13 +1116,14 @@ def _sync_rows(data, topo, alive, partition, rows, row_ok, rng, cfg):
     )
     peers = torch.cat([sel, origin[:, None]], dim=1)
     ok_p = torch.cat([sel_ok, origin_ok[:, None]], dim=1)
-    avail = torch.maximum(
-        contig0, torch.where(ok_p[:, :, None], data.contig[peers], 0).amax(dim=1)
-    )
+    # One [R, P, W] gather alive at a time, as in the reference.
+    (got,) = yield exchange.Rows("sync", (data.contig,), peers)
+    avail = torch.maximum(contig0, torch.where(ok_p[:, :, None], got, 0).amax(dim=1))
+    del got
     if not exact:
-        seen_r = torch.maximum(
-            seen_r, torch.where(ok_p[:, :, None], data.seen[peers], 0).amax(dim=1)
-        )
+        (got,) = yield exchange.Rows("sync", (data.seen,), peers)
+        seen_r = torch.maximum(seen_r, torch.where(ok_p[:, :, None], got, 0).amax(dim=1))
+        del got
     deficit = avail - torch.minimum(avail, contig0)
     per_w = torch.clamp(deficit, max=cfg.sync_chunk)
     cum = torch.cumsum(per_w, dim=1)
@@ -1107,8 +1134,11 @@ def _sync_rows(data, topo, alive, partition, rows, row_ok, rng, cfg):
 
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     oo_new, oo_any_new, n_regrant = data.oo, data.oo_any, zero
-    if cfg.window_k and _branch(data.oo_any):
-        oo_r = data.oo[:, rows]
+    # The window-live flag is replicated, so every position takes the
+    # same branch.
+    window = cfg.window_k > 0 and _branch(data.oo_any)
+    if window:
+        oo_r = data.oo[:, local]
         regrant = zero
         for b in range(oo_r.shape[0]):
             g = torch.clamp(grant - 32 * b, 0, 32)
@@ -1119,15 +1149,23 @@ def _sync_rows(data, topo, alive, partition, rows, row_ok, rng, cfg):
         c2, oo2 = window_absorb(contig0, oo_r, grant, torch.zeros_like(oo_r))
         sel_rows = _ok_rows(rows, row_ok)
         oo_new = data.oo.clone()
-        oo_new[:, rows[sel_rows]] = oo2[:, sel_rows]
+        oo_new[:, local[sel_rows]] = oo2[:, sel_rows]
         contig_r = torch.where(row_ok[:, None], c2, contig_r)
-        oo_any_new = oo_new.any()
         n_regrant = regrant & MASK
     seen_r = torch.maximum(seen_r, contig_r)
+    # Cross-position ORs: any grant (the cell merge runs where any
+    # position granted) and, after the window, any live window bit.
+    anys = ((grant > 0).any(),) if cfg.n_cells > 0 else ()
+    if window:
+        anys += (oo_new.any(),)
+    if anys:
+        anys = (yield exchange.Reduce("sync", any=anys)).any
+    if window:
+        oo_any_new = anys[-1]
 
     cells = data.cells
     n_merges = zero
-    if cfg.n_cells > 0 and _branch((grant > 0).any()):
+    if cfg.n_cells > 0 and _branch(anys[0]):
         cum_g = torch.cumsum(grant, dim=1)
         total_g = cum_g[:, -1]
         e = torch.arange(cfg.sync_budget, device=dev)
@@ -1150,11 +1188,11 @@ def _sync_rows(data, topo, alive, partition, rows, row_ok, rng, cfg):
             if cfg.track_writer_ids else w_idx
         )
         cells, n_merges = _merge_versions_dense(
-            cells, rows, w_merge, ver, mask, row_ok, n, cfg
+            cells, local, w_merge, ver, mask, row_ok, pos.n_local, cfg
         )
 
     sel_rows = _ok_rows(rows, row_ok)
-    tgt = rows[sel_rows]
+    tgt = local[sel_rows]
     contig = data.contig.clone()
     contig[tgt] = contig_r[sel_rows]
     seen = data.seen.clone()
@@ -1180,24 +1218,40 @@ def revive_sync(data, topo, alive, partition, revived, rng, cfg):
     ``_sync_rows`` session over every node, with only the revived live
     rows taking part. Rounds without a revival skip it (the reference's
     ``lax.cond``). Reference ``revive_sync``."""
-    row_ok = revived & alive
-    if not _branch(row_ok.any()):
+    return exchange.solo(_revive_sync(
+        data, topo, alive, partition, revived, rng, cfg, exchange.whole(cfg.n_nodes)
+    ))
+
+
+def _revive_sync(data, topo, alive, partition, revived, rng, cfg, pos):
+    """``revive_sync`` over one position's rows (``alive`` and ``revived``
+    whole, so every position takes the same branch)."""
+    if not _branch((revived & alive).any()):
         zero = torch.zeros((), dtype=torch.int64, device=alive.device)
         return data, {
             "applied_sync": zero, "sessions": zero, "cell_merges": zero,
             "sync_regrant": zero,
         }
-    nodes = torch.arange(cfg.n_nodes, device=alive.device)
-    return _sync_rows(data, topo, alive, partition, nodes, row_ok, rng, cfg)
+    rows = slice(pos.row_start, pos.row_start + pos.n_local)
+    return (yield from _sync_rows(
+        data, topo, alive, partition, pos.nodes(alive.device), revived[rows] & alive[rows], rng,
+        cfg, pos, draw_rows=pos.box, r_total=cfg.n_nodes,
+    ))
 
 
 def total_need(data: DataState) -> torch.Tensor:
     """Cluster-wide outstanding need (sum of heard-of minus possessed, u32
     wraparound); window-possessed versions are not needed."""
-    need = (data.seen - data.contig).sum() & MASK
+    return _need_part(data) & MASK
+
+
+def _need_part(data: DataState) -> torch.Tensor:
+    """A block's share of ``total_need`` before the u32 wrap (the shares
+    sum to the need, mod 2^32)."""
+    need = (data.seen - data.contig).sum()
     if data.oo.shape[0] == 0 or not _branch(data.oo_any):
         return need
-    return (need - popcount32(data.oo).sum()) & MASK
+    return need - popcount32(data.oo).sum()
 
 
 def staleness(data: DataState) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1206,9 +1260,16 @@ def staleness(data: DataState) -> tuple[torch.Tensor, torch.Tensor]:
     rounded once to float32 — equal to the reference's float32 sum
     whenever the mass stays below 2^24, and independent of the device's
     reduction order."""
+    total, worst = _staleness_parts(data)
+    return total.to(torch.float32), worst
+
+
+def _staleness_parts(data: DataState) -> tuple[torch.Tensor, torch.Tensor]:
+    """A block's exact integer lag sum and its largest node lag: the sums
+    add and the maxima max across positions, and the total rounds once."""
     gap = data.head[None, :] - torch.minimum(data.contig, data.head[None, :])
     node_lag = gap.sum(dim=1) & MASK
-    return node_lag.sum().to(torch.float32), node_lag.max()
+    return node_lag.sum(), node_lag.max()
 
 
 def queue_backlog(data: DataState) -> torch.Tensor:

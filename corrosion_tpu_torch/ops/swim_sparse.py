@@ -6,6 +6,11 @@ exceptions above the all-alive@inc0 baseline; probes, suspect->down
 timers, bounded piggyback dissemination and refutation run as batched
 table merges (``_merge_scan``); ``apply_churn`` applies kills, revivals
 and wipes between rounds.
+
+As in ``swim``, the underscored bodies run over one mesh position's rows
+(``ops/exchange.py``): alive and incarnations by control-vector gathers,
+the gossip sources' backlogs and a revived node's seed table by ``Rows``
+gathers, and the mismatch and health counts as per-position shares.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ import torch
 
 from corrosion_tpu_torch import resolve_device
 from corrosion_tpu_torch import rng as rng_mod
-from corrosion_tpu_torch.ops import faulting, routing
+from corrosion_tpu_torch.ops import exchange, faulting, routing
 from corrosion_tpu_torch.ops.swim import (
     SEV_ALIVE,
     SEV_DOWN,
@@ -45,9 +50,12 @@ class SparseSwimState(NamedTuple):
     upd_tx: torch.Tensor  # [N, U] transmissions left
 
 
-def init_state(cfg: SwimConfig, device=None) -> SparseSwimState:
+def init_state(cfg: SwimConfig, device=None, n_rows: int | None = None) -> SparseSwimState:
+    """The initial state; ``n_rows`` builds just a position's block of
+    that many rows."""
     device = resolve_device(device)
-    n, s, u, k = cfg.n_nodes, cfg.timers, cfg.backlog, cfg.view_capacity
+    s, u, k = cfg.timers, cfg.backlog, cfg.view_capacity
+    n = cfg.n_nodes if n_rows is None else n_rows
     if k <= 0:
         raise ValueError("sparse kernel needs SwimConfig.view_capacity > 0")
 
@@ -168,13 +176,24 @@ def _merge_scan(exc_tgt, exc_pkd, tgts, pkds, valids):
 
 def swim_round(state: SparseSwimState, rng, round_idx, cfg: SwimConfig, probe_loss=None):
     """One bulk-synchronous SWIM protocol period for all N nodes."""
-    n = cfg.n_nodes
+    return exchange.solo(_swim_round(
+        state, state.alive, rng, round_idx, cfg, probe_loss, exchange.whole(cfg.n_nodes)
+    ))
+
+
+def _swim_round(state: SparseSwimState, alive, rng, round_idx, cfg: SwimConfig, probe_loss,
+                pos):
+    """``swim_round`` over one position's rows (``state`` its block,
+    ``alive`` the whole liveness vector)."""
+    n_all = cfg.n_nodes
+    n = pos.n_local
     dev = state.exc_tgt.device
-    nodes = torch.arange(n, device=dev)
-    keys = rng_mod.split(rng, 3)
+    nodes = pos.nodes(dev)  # global id of each row
+    keys = rng_mod.split_keys(rng, 3)
     k_probe, k_loss, k_goss = keys[0], keys[1], keys[2]
     exc_tgt, exc_pkd = state.exc_tgt, state.exc_pkd
-    alive = state.alive
+    alive_r = state.alive
+    (inc_all,) = yield exchange.Gather("incarnation", (state.incarnation,))
     inc_self = state.incarnation
     cand_tgt, cand_pkd, cand_tx, cand_ok = [], [], [], []
 
@@ -182,17 +201,18 @@ def swim_round(state: SparseSwimState, rng, round_idx, cfg: SwimConfig, probe_lo
         return torch.full(shape, v, dtype=torch.int64, device=dev)
 
     # ---- 1. probe ----------------------------------------------------------
-    tries = rng_mod.randint(k_probe, (cfg.probe_tries, n), 0, n)
+    tries = rng_mod.randint(k_probe, (cfg.probe_tries, n_all), 0, n_all, rows=pos.box, axis=1)
     probe_tgt = full((n,), -1)
     for i in range(cfg.probe_tries):
         t = tries[i]
         sev_t = packed_sev(_lookup(exc_tgt, exc_pkd, t))
         ok = (t != nodes) & (sev_t < SEV_DOWN) & (probe_tgt < 0)
         probe_tgt = torch.where(ok, t, probe_tgt)
-    has_probe = (probe_tgt >= 0) & alive
+    has_probe = (probe_tgt >= 0) & alive_r
     pt = torch.clamp(probe_tgt, min=0)
-    ack, _ = faulting.apply_loss(k_loss, has_probe & alive[pt], cfg.loss_prob, probe_loss)
-    ack_pkd = pack(inc_self[pt], SEV_ALIVE)
+    ack, _ = faulting.apply_loss(k_loss, has_probe & alive[pt], cfg.loss_prob, probe_loss,
+                                 full_rows=(n_all, pos.row_start))
+    ack_pkd = pack(inc_all[pt], SEV_ALIVE)
     known = _lookup(exc_tgt, exc_pkd, pt)
     susp_pkd = pack(packed_inc(known), SEV_SUSPECT)
     probe_pkd = torch.where(ack, ack_pkd, susp_pkd)
@@ -209,16 +229,17 @@ def swim_round(state: SparseSwimState, rng, round_idx, cfg: SwimConfig, probe_lo
     susp_target = state.susp_target.clone()
     susp_inc = state.susp_inc.clone()
     susp_started = state.susp_started.clone()
-    susp_target[nodes, slot] = torch.where(new_susp, pt, susp_target[nodes, slot])
-    susp_inc[nodes, slot] = torch.where(new_susp, packed_inc(known), susp_inc[nodes, slot])
-    susp_started[nodes, slot] = torch.where(new_susp, round_idx, susp_started[nodes, slot])
+    local = torch.arange(n, device=dev)
+    susp_target[local, slot] = torch.where(new_susp, pt, susp_target[local, slot])
+    susp_inc[local, slot] = torch.where(new_susp, packed_inc(known), susp_inc[local, slot])
+    susp_started[local, slot] = torch.where(new_susp, round_idx, susp_started[local, slot])
 
     # ---- 2. suspect->down timer expiry -------------------------------------
     active = susp_target >= 0
     expired = active & (round_idx - susp_started >= cfg.suspect_rounds)
     exp_tgt = torch.clamp(susp_target, min=0)
     down_pkd = pack(susp_inc, SEV_DOWN)
-    fire = expired & alive[:, None]
+    fire = expired & alive_r[:, None]
     exc_tgt, exc_pkd, fired = _merge_scan(exc_tgt, exc_pkd, exp_tgt, down_pkd, fire)
     cand_tgt.append(exp_tgt)
     cand_pkd.append(down_pkd)
@@ -227,17 +248,19 @@ def swim_round(state: SparseSwimState, rng, round_idx, cfg: SwimConfig, probe_lo
     susp_target = torch.where(expired, -1, susp_target)
 
     # ---- 3. gossip dissemination (bounded piggyback, pull model) -----------
-    sendable = (state.upd_target >= 0) & (state.upd_tx > 0) & alive[:, None]
-    src = rng_mod.randint(k_goss, (n, cfg.gossip_fanout), 0, n)
-    m_tgt = state.upd_target[src].reshape(n, -1)
-    m_pkd = state.upd_packed[src].reshape(n, -1)
-    m_tx = state.upd_tx[src].reshape(n, -1)
+    sendable = (state.upd_target >= 0) & (state.upd_tx > 0) & alive_r[:, None]
+    src = rng_mod.randint(k_goss, (n_all, cfg.gossip_fanout), 0, n_all, rows=pos.box)
+    # The sources' backlogs live at their owners.
+    m_tgt, m_pkd, m_tx = yield exchange.Rows(
+        "swim", (state.upd_target, state.upd_packed, state.upd_tx), src
+    )
+    m_tgt, m_pkd, m_tx = m_tgt.reshape(n, -1), m_pkd.reshape(n, -1), m_tx.reshape(n, -1)
     src_ok = alive[src] & (src != nodes[:, None])
     m_ok = (
         (m_tgt >= 0)
         & (m_tx > 0)
         & src_ok[:, :, None].expand(n, cfg.gossip_fanout, cfg.backlog).reshape(n, -1)
-        & alive[:, None]
+        & alive_r[:, None]
     )
     upd_tx = torch.where(sendable, state.upd_tx - 1, state.upd_tx)
     r_view = cfg.view_intake if cfg.view_intake > 0 else cfg.gossip_fanout * cfg.backlog
@@ -257,7 +280,7 @@ def swim_round(state: SparseSwimState, rng, round_idx, cfg: SwimConfig, probe_lo
 
     # ---- 4. refutation -----------------------------------------------------
     self_belief = _lookup(exc_tgt, exc_pkd, nodes)
-    refute = alive & (packed_sev(self_belief) >= SEV_SUSPECT) & (
+    refute = alive_r & (packed_sev(self_belief) >= SEV_SUSPECT) & (
         packed_inc(self_belief) >= inc_self
     )
     new_inc = torch.where(refute, packed_inc(self_belief) + 1, inc_self)
@@ -286,14 +309,14 @@ def swim_round(state: SparseSwimState, rng, round_idx, cfg: SwimConfig, probe_lo
     if cfg.down_gc_rounds > 0:
         k_gc = rng_mod.fold_in(k_goss, 7)
         drop = (packed_sev(exc_pkd) == SEV_DOWN) & (
-            rng_mod.uniform(k_gc, tuple(exc_pkd.shape))
+            rng_mod.uniform(k_gc, (n_all, exc_pkd.shape[1]), rows=pos.box)
             < torch.tensor(1.0 / cfg.down_gc_rounds, dtype=torch.float32)
         )
         exc_tgt = torch.where(drop, -1, exc_tgt)
         exc_pkd = torch.where(drop, 0, exc_pkd)
 
     return SparseSwimState(
-        exc_tgt=exc_tgt, exc_pkd=exc_pkd, incarnation=new_inc, alive=alive,
+        exc_tgt=exc_tgt, exc_pkd=exc_pkd, incarnation=new_inc, alive=alive_r,
         susp_target=susp_target, susp_inc=susp_inc, susp_started=susp_started,
         upd_target=upd_target, upd_packed=upd_packed, upd_tx=upd_tx2,
     )
@@ -307,8 +330,18 @@ def apply_churn(state: SparseSwimState, kill, revive, rng=None,
     self-announce and, when ``rng`` is given, bootstrap-pulls one random
     alive peer's exception table. ``wipe`` resets the wiped nodes'
     tables, timers and queues; incarnations are kept."""
+    pos = exchange.whole(state.alive.shape[0])
+    return exchange.solo(_apply_churn(state, kill, revive, rng, max_transmissions, wipe, pos))[0]
+
+
+def _apply_churn(state: SparseSwimState, kill, revive, rng, max_transmissions: int, wipe, pos):
+    """``apply_churn`` over one position's rows (``kill``/``revive``/
+    ``wipe`` the whole masks). Returns (state, the whole post-churn
+    liveness vector)."""
+    rows = slice(pos.row_start, pos.row_start + pos.n_local)
+    kill_r, revive_r = kill[rows], revive[rows]
     if wipe is not None:
-        w = wipe[:, None]
+        w = wipe[rows][:, None]
         state = state._replace(
             exc_tgt=torch.where(w, -1, state.exc_tgt),
             exc_pkd=torch.where(w, 0, state.exc_pkd),
@@ -316,61 +349,73 @@ def apply_churn(state: SparseSwimState, kill, revive, rng=None,
             upd_target=torch.where(w, -1, state.upd_target),
             upd_tx=torch.where(w, 0, state.upd_tx),
         )
-    alive = (state.alive & ~kill) | revive
-    inc = torch.where(revive, (state.incarnation + 1) & 0xFFFFFFFF, state.incarnation)
-    nodes = torch.arange(alive.shape[0], device=alive.device)
+    alive_r = (state.alive & ~kill_r) | revive_r
+    inc = torch.where(revive_r, (state.incarnation + 1) & 0xFFFFFFFF, state.incarnation)
+    nodes = pos.nodes(alive_r.device)
     self_pkd = pack(inc, SEV_ALIVE)
-    exc_tgt, exc_pkd, _ = _merge_one(state.exc_tgt, state.exc_pkd, nodes, self_pkd, revive)
+    exc_tgt, exc_pkd, _ = _merge_one(state.exc_tgt, state.exc_pkd, nodes, self_pkd, revive_r)
+    (alive,) = yield exchange.Gather("alive", (alive_r,))
     if rng is not None:
-        seed = _seed_pick(rng, alive, revive)
-        pull_ok = revive & (seed != nodes)
+        seed = _seed_pick(rng, alive, revive, pos)
+        pull_ok = revive_r & (seed != nodes)
+        s_tgt, s_pkd = yield exchange.Rows("churn", (exc_tgt, exc_pkd), seed)
         exc_tgt, exc_pkd, _ = _merge_scan(
-            exc_tgt, exc_pkd, exc_tgt[seed], exc_pkd[seed],
-            pull_ok[:, None] & (exc_tgt[seed] >= 0),
+            exc_tgt, exc_pkd, s_tgt, s_pkd, pull_ok[:, None] & (s_tgt >= 0),
         )
     upd_target, upd_packed, upd_tx = _queue_announce(
-        state, revive, self_pkd, max_transmissions
+        state, revive_r, self_pkd, max_transmissions, nodes
     )
     return state._replace(
-        alive=alive, incarnation=inc, exc_tgt=exc_tgt, exc_pkd=exc_pkd,
+        alive=alive_r, incarnation=inc, exc_tgt=exc_tgt, exc_pkd=exc_pkd,
         upd_target=upd_target, upd_packed=upd_packed, upd_tx=upd_tx,
-    )
+    ), alive
 
 
 def mismatches(state: SparseSwimState) -> torch.Tensor:
     """Exact count of (live observer, peer) beliefs contradicting truth."""
-    n = state.exc_tgt.shape[0]
-    alive = state.alive
-    alive_count = alive.sum()
-    dead_count = n - alive_count
+    return _mismatches(state, state.alive, exchange.whole(state.alive.shape[0]))
+
+
+def _entries(state: SparseSwimState, alive, pos):
+    """(valid, truth, live observers, dead nodes) of the position's
+    exception entries: entries of live observers about other nodes, the
+    truth about each entry's target, the position's live observers and the
+    cluster's dead (``alive`` the whole vector)."""
+    nodes = pos.nodes(alive.device)
     ent_valid = (
-        (state.exc_tgt >= 0)
-        & alive[:, None]
-        & (state.exc_tgt != torch.arange(n, device=alive.device)[:, None])
+        (state.exc_tgt >= 0) & state.alive[:, None] & (state.exc_tgt != nodes[:, None])
     )
     truth = alive[torch.clamp(state.exc_tgt, min=0)]
+    return ent_valid, truth, state.alive.sum(), alive.shape[0] - alive.sum()
+
+
+def _mismatches(state: SparseSwimState, alive, pos) -> torch.Tensor:
+    """The position's observers' share of ``mismatches``: each live
+    observer believes every dead node up by default, less its entries'
+    corrections. The shares sum to the count."""
+    ent_valid, truth, observers, dead_count = _entries(state, alive, pos)
     believed_up = packed_sev(state.exc_pkd) < SEV_DOWN
     ent_mis = (ent_valid & (believed_up != truth)).sum()
     ent_default_mis = (ent_valid & ~truth).sum()
-    return alive_count * dead_count + ent_mis - ent_default_mis
+    return observers * dead_count + ent_mis - ent_default_mis
 
 
 def health_counts(state: SparseSwimState) -> tuple[torch.Tensor, torch.Tensor]:
     """(false_alarms, undetected_deaths) without materializing N x N."""
-    n = state.exc_tgt.shape[0]
-    alive = state.alive
-    alive_count = alive.sum()
-    dead_count = n - alive_count
-    ent_valid = (
-        (state.exc_tgt >= 0)
-        & alive[:, None]
-        & (state.exc_tgt != torch.arange(n, device=alive.device)[:, None])
+    false_alarms, undetected = _health_counts(
+        state, state.alive, exchange.whole(state.alive.shape[0])
     )
+    return false_alarms, undetected & 0xFFFFFFFF
+
+
+def _health_counts(state: SparseSwimState, alive, pos) -> tuple[torch.Tensor, torch.Tensor]:
+    """The position's observers' shares of ``health_counts`` (the
+    undetected share before its u32 wrap, which the total takes)."""
+    ent_valid, truth, observers, dead_count = _entries(state, alive, pos)
     sev = packed_sev(state.exc_pkd)
-    truth = alive[torch.clamp(state.exc_tgt, min=0)]
     false_alarms = (ent_valid & truth & (sev >= SEV_SUSPECT)).sum()
     detected = (ent_valid & ~truth & (sev == SEV_DOWN)).sum()
-    return false_alarms, (alive_count * dead_count - detected) & 0xFFFFFFFF
+    return false_alarms, observers * dead_count - detected
 
 
 def beliefs_about(state: SparseSwimState, target: int) -> torch.Tensor:

@@ -2,22 +2,30 @@
 corrosion_tpu/parallel/).
 
 The parallel axis is the virtual node dimension: O(N) and O(N·W) state is
-split along its node rows over a ``Mesh`` of positions, writer heads and
-slot metadata replicate, and the broadcast plane's delivery chain runs
-once per position on its rows, fed by one batched exchange of the
-pending-queue tables a round (``shard_driver``).
+split along its node rows over a ``Mesh`` of positions, and writer heads
+and slot metadata replicate. The dense engine runs partitioned
+(``simulate_sharded``): every plane of the round (wipe and churn, the
+broadcast, SWIM, sync, visibility, the health reductions) runs once per
+position on its rows, on state that stays in the position's blocks from
+the first round to the last. Where a plane reads what other positions own,
+the positions exchange it: partial sums, maxima and ORs; the gather of the
+``[N]`` alive and incarnation vectors; rows by global index, served by
+their owners; entries routed to the owners of their rows; and the
+broadcast plane's batched exchange of the pending-queue tables
+(``shard_driver``'s module docstring names each).
 
 One controller drives every position, as in the reference, whose tests
 run 8 virtual devices in one process. A mesh is a grid of ``torch.device``
 positions filled from the visible cards in turn: on one card every
 position sits on ``cuda:0``, and the CPU stands in with ``device="cpu"``.
 
-Where the port differs from the reference on purpose: the reference lets
-XLA partition SWIM, anti-entropy sync, churn and visibility over the
-sharded state (GSPMD). The port has no partitioner, so the controller runs
-those planes on whole tensors assembled from the position blocks, and only
-the broadcast plane runs per position. Results are the same bit for bit;
-the placement of those planes' work is not.
+Where the port differs from the reference: the reference lets XLA
+partition SWIM, sync, churn and visibility over the sharded state (GSPMD);
+the port partitions them by hand, and its results are the same bit for
+bit. The sparse, mixed and chunk engines (``simulate_sparse_sharded``,
+``simulate_mixed_sharded``, ``simulate_chunks_sharded``) still run in the
+controller: their state is placed at rest and assembled on the mesh's home
+device for a run, and only their broadcast plane runs per position.
 """
 
 from corrosion_tpu_torch.parallel.mesh import (  # noqa: F401
@@ -35,6 +43,8 @@ from corrosion_tpu_torch.parallel.mesh import (  # noqa: F401
     shard_topology,
 )
 from corrosion_tpu_torch.parallel.shard_driver import (  # noqa: F401
+    WholePlaneCheck,
+    init_sharded,
     make_sharded_broadcast,
     per_device_state_bytes,
     replicate,

@@ -331,6 +331,36 @@ def assemble(tree, device=None):
     return tree_map(one, tree)
 
 
+def position_tree(tree, i: int):
+    """Position ``i``'s blocks of a placed tree: each ``Placed`` leaf
+    replaced by its block there (plain leaves pass through)."""
+    return tree_map(lambda x: x.blocks[i] if isinstance(x, Placed) else x, tree)
+
+
+def from_positions(trees: list, specs, mesh: Mesh):
+    """The placed tree whose position ``i`` holds ``trees[i]``'s leaves,
+    each the block its spec leaf splits (or a whole copy where the spec
+    replicates): ``position_tree``'s inverse."""
+    def one(spec, *blocks):
+        split = _split_dim(spec, mesh)
+        return Placed(blocks, None if split is None else split[0], spec, mesh)
+
+    return tree_map(one, specs, *trees)
+
+
+def specs_of(tree):
+    """The spec tree of a placed tree."""
+    return tree_map(lambda x: x.spec, tree)
+
+
+def owner_of(rows, n_nodes: int, mesh: Mesh):
+    """(position, local row) of global node rows on ``mesh``: position i
+    owns the i-th of its equal row blocks (C order of ``mesh.devices``,
+    the node axis split dcn-major). Works on ints, arrays and tensors."""
+    n_local = n_nodes // mesh.size
+    return rows // n_local, rows % n_local
+
+
 def to_host(tree):
     """A placed (or plain) state tree as whole CPU tensors: the port's
     counterpart of ``jax.device_get``."""

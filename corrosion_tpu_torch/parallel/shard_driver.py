@@ -1,44 +1,68 @@
-"""The explicit shard driver of the broadcast plane (counterpart of
-corrosion_tpu/parallel/shard_driver.py; its docstring describes the
-design).
+"""The shard driver: the dense round partitioned over a mesh of positions
+(counterpart of corrosion_tpu/parallel/shard_driver.py, whose docstring
+describes the design; there XLA partitions SWIM, sync, churn and
+visibility over the sharded state, here every plane runs per position).
 
-- **One batched queue exchange a round.** The pending-broadcast queue
-  tables (``q_writer``/``q_ver``/``q_tx``, and ``q_gw`` under rotating
-  slots) are the whole wire format of the delivery plane. Each position
-  publishes its row block once: a gather over the inner (ici) axis, then
-  one coalesced hop over the outer (dcn) axis, each a concatenation of
-  the blocks of a group of positions in mesh order. The tables travel in
-  the reference's 32-bit wire form (``q_writer``/``q_tx`` as int32,
-  ``q_ver``/``q_gw`` as their u32 bit patterns in int32) and are widened
-  back on receipt; each hop's bytes are counted from the operands it
-  moved and emitted as ``xshard_bytes_ici``/``xshard_bytes_dcn``.
-  ``traffic_model`` derives the same numbers from the config alone. These
-  curves count the queue wire only: the controller cuts the whole
-  DataState into the positions' blocks before the bodies run and joins
-  their output blocks back after (``_data_block``, ``_join``), and those
-  copies, which move the whole [N, W] data plane between positions on
-  different devices, are counted nowhere.
-- **The round body per position.** ``gossip._broadcast_round`` under a
-  ``ShardCtx`` runs once per position on its row block; the bodies run in
-  lockstep, and at each cross-shard sum (the reference's ``lax.psum``) the
-  driver sums the positions' partials and hands the total back to each.
-- **Bit-identity by construction.** Draws whose shape would depend on the
-  shard are made at the full shape and row-sliced, so a sharded run
-  equals the unsharded one on any mesh.
+- **Resident state.** ``simulate_sharded`` carries the ``Placed`` blocks
+  of ``mesh.shard_cluster_state`` from the first round to the last, across
+  rounds and ``max_chunk`` pieces: each position's round body
+  (``sim.engine.round_body``) reads and writes only its own rows of every
+  node-major leaf, its columns of ``vis_round`` and its copy of the
+  replicated leaves. Nothing assembles the whole state during a run.
+- **Typed exchanges.** The bodies run in lockstep (``_lockstep``); where
+  the round reads what other positions own, every body yields the same
+  request (``ops/exchange.py``) and the driver answers them together:
+  ``Reduce`` (partial sums, maxima, ORs: the broadcast's and the round's
+  stats, the pulled counts, the window and grant flags), ``Gather`` (the
+  ``[N]`` alive and incarnation vectors, the reference's alive-vector
+  gather at the shard_map boundary), ``Rows`` (rows by global node index,
+  each owner serving what was asked of it: sync's candidates and peers,
+  the sparse SWIM sources' backlogs, a revived node's seed view),
+  ``Route`` (entries addressed to rows, delivered to their owners in
+  sender order: the dense view's push merge, the rumor kill's feedback)
+  and ``Queue`` (the pending-queue tables).
+- **The queue wire.** ``Queue`` is the broadcast plane's one batched
+  exchange a round: each position publishes its queue tables in the
+  reference's 32-bit wire form (``q_writer``/``q_tx`` as int32,
+  ``q_ver``/``q_gw`` as their u32 bit patterns in int32), gathered over
+  the inner (ici) axis, then in one coalesced hop over each outer (dcn)
+  axis, and widened back on receipt. Its bytes are the
+  ``xshard_bytes_ici``/``xshard_bytes_dcn`` curves, equal to
+  ``traffic_model``.
+- **Measured exchange bytes.** Every exchange counts the bytes that cross
+  from one position to another (each position stands for a device:
+  positions that share a card still count), by kind and by tag, returned
+  in ``info["exchange_bytes"]`` and ``info["exchange_bytes_by_tag"]``;
+  ``traffic_model``'s ``detail`` holds the reference's estimates of the
+  same traffic (``alive_gather_bytes``, ``pulled_reduce_bytes``,
+  ``sync_gather_bytes_est``).
+- **Bit-identity by construction.** A position draws its own rows (or
+  its sync cohort entries) of the reference's full-shape draws (``rng``'s
+  sub-box draws), sums are integer and exact, float32 stats round once
+  after the sum, and every branch a body takes is decided on replicated
+  values or on a cross-position OR, so a partitioned run equals the
+  unsharded one on any mesh.
 
-SWIM, anti-entropy sync, churn and visibility run in the controller on
-whole tensors (see ``parallel/__init__.py``).
+The sparse, mixed and chunk engines (``simulate_sparse_sharded``,
+``simulate_mixed_sharded``, ``simulate_chunks_sharded``) still run in the
+controller: their state is placed at rest, assembled on the mesh's home
+device for the run, and only their broadcast plane goes per position
+(``make_sharded_broadcast``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
+from corrosion_tpu_torch import rng as rng_mod
+from corrosion_tpu_torch.ops import exchange
 from corrosion_tpu_torch.ops import gossip as gossip_ops
-from corrosion_tpu_torch.ops.gossip import MASK, DataState, ShardCtx
+from corrosion_tpu_torch.ops.gossip import MASK, Topology
 from corrosion_tpu_torch.parallel import mesh as mesh_mod
 from corrosion_tpu_torch.parallel.mesh import Mesh, P, Placed
 
@@ -110,18 +134,18 @@ def _u32_bits(x: torch.Tensor) -> torch.Tensor:
     return (x - ((x >> 31) << 32)).to(torch.int32)
 
 
-def _wire(block: DataState, track: bool) -> list:
-    """A block's queue tables in the 32-bit wire form."""
-    qs = [block.q_writer.to(torch.int32), _u32_bits(block.q_ver), block.q_tx.to(torch.int32)]
-    if track:
-        qs.append(_u32_bits(block.q_gw))
+def _wire(tables: tuple) -> list:
+    """A position's queue tables in the 32-bit wire form."""
+    qs = [tables[0].to(torch.int32), _u32_bits(tables[1]), tables[2].to(torch.int32)]
+    if len(tables) > 3:
+        qs.append(_u32_bits(tables[3]))
     return qs
 
 
-def _widen(qs: list, track: bool) -> tuple:
+def _widen(qs: list) -> tuple:
     """Gathered wire tables back into the port's int64 carriers."""
-    q_w, q_v, q_t = qs[0].to(torch.int64), qs[1].to(torch.int64) & MASK, qs[2].to(torch.int64)
-    return q_w, q_v, q_t, (qs[3].to(torch.int64) & MASK) if track else None
+    out = (qs[0].to(torch.int64), qs[1].to(torch.int64) & MASK, qs[2].to(torch.int64))
+    return out + ((qs[3].to(torch.int64) & MASK,) if len(qs) > 3 else ())
 
 
 def _exchange(wire: list, mesh: Mesh):
@@ -160,79 +184,211 @@ def _exchange(wire: list, mesh: Mesh):
     return held, float(ici), float(dcn)
 
 
-def _data_block(data: DataState, start: int, n: int, device) -> DataState:
-    """A position's block of a whole DataState: its rows of every
-    node-major leaf (its cells on node boundaries), the replicated leaves
-    whole; views where the position shares the data's device."""
-    k = data.cells.cl.shape[0] // max(data.contig.shape[0], 1)
+# ---- the exchanges ----------------------------------------------------------
 
-    def rows(x):
-        return x[start : start + n].to(device)
 
-    return DataState(
-        head=data.head.to(device), contig=rows(data.contig), seen=rows(data.seen),
-        # The window words' rows are a view only while there is one word
-        # (the kernels take contiguous operands).
-        oo=data.oo[:, start : start + n].to(device).contiguous(), oo_any=data.oo_any.to(device),
-        q_writer=rows(data.q_writer), q_ver=rows(data.q_ver), q_tx=rows(data.q_tx),
-        q_gw=rows(data.q_gw), q_dup=rows(data.q_dup),
-        cells=type(data.cells)(*(c[start * k : (start + n) * k].to(device) for c in data.cells)),
+class ExchangeTally:
+    """Bytes the exchanges moved between positions, by kind and by tag,
+    and each position's state bytes after every round."""
+
+    def __init__(self):
+        self.by_kind: dict = {}
+        self.by_tag: dict = {}
+        self.state_bytes: list = []
+
+    def add(self, kind: str, tag: str, nbytes) -> None:
+        self.by_kind[kind] = self.by_kind.get(kind, 0.0) + float(nbytes)
+        key = f"{kind}:{tag}"
+        self.by_tag[key] = self.by_tag.get(key, 0.0) + float(nbytes)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _row_bytes(t: torch.Tensor) -> int:
+    return _nbytes(t) // max(t.shape[0], 1) if t.dim() else t.element_size()
+
+
+def _on_devices(values: tuple, devices: list) -> list:
+    """``values`` (a tuple of tensors) on each position's device, moved
+    once per distinct device."""
+    at: dict = {}
+    out = []
+    for dev in devices:
+        if str(dev) not in at:
+            at[str(dev)] = tuple(v.to(dev) for v in values)
+        out.append(at[str(dev)])
+    return out
+
+
+def _host_counts(counts: list, home) -> list:
+    """Small per-position count vectors read on the host in one
+    transfer."""
+    flat = torch.cat([c.to(home) for c in counts]).tolist()
+    d = len(flat) // len(counts)
+    return [flat[i * d : (i + 1) * d] for i in range(len(counts))]
+
+
+def _answer_reduce(reqs, devices, tally):
+    home = devices[0]
+
+    def total(parts, op):
+        return functools.reduce(op, (p.to(home) for p in parts))
+
+    first = reqs[0]
+    sums = tuple(total([r.sum[j] for r in reqs], torch.add) for j in range(len(first.sum)))
+    maxes = tuple(total([r.max[j] for r in reqs], torch.maximum) for j in range(len(first.max)))
+    anys = tuple(total([r.any[j] for r in reqs], torch.logical_or) for j in range(len(first.any)))
+    d = len(reqs)
+    # Every position sends its partials in and takes the totals back.
+    tally.add("reduce", first.tag, 2 * (d - 1) * sum(_nbytes(t) for t in first.sum + first.max
+                                                      + first.any))
+    k, m = len(sums), len(maxes)
+    return [exchange.Reduce(first.tag, v[:k], v[k : k + m], v[k + m :])
+            for v in _on_devices(sums + maxes + anys, devices)]
+
+
+def _answer_gather(reqs, devices, tally):
+    home = devices[0]
+    whole = tuple(
+        torch.cat([r.parts[j].to(home) for r in reqs]) for j in range(len(reqs[0].parts))
     )
+    d = len(reqs)
+    # Each position receives the other positions' blocks.
+    tally.add("gather", reqs[0].tag, d * (d - 1) * sum(_nbytes(t) for t in reqs[0].parts))
+    return _on_devices(whole, devices)
 
 
-def _join(blocks: list, home) -> DataState:
-    """The whole DataState on ``home`` from the positions' output blocks
-    (replicated leaves from position 0)."""
-    def cat(xs, dim=0):
-        return torch.cat([x.to(home) for x in xs], dim=dim)
+def _answer_rows(reqs, devices, n_nodes, tally, mesh):
+    d = len(reqs)
+    owned = [mesh_mod.owner_of(r.index.reshape(-1), n_nodes, mesh) for r in reqs]
+    orders = [torch.argsort(o, stable=True) for o, _ in owned]
+    counts = _host_counts([torch.bincount(o, minlength=d) for o, _ in owned], devices[0])
+    out = []
+    for a, req in enumerate(reqs):
+        dev = devices[a]
+        got = [torch.empty((req.index.numel(),) + tuple(t.shape[1:]), dtype=t.dtype, device=dev)
+               for t in req.tables]
+        start = 0
+        for o in range(d):
+            c = counts[a][o]
+            if c == 0:
+                continue
+            sel = orders[a][start : start + c]  # the asker's entries that o owns
+            start += c
+            ask = owned[a][1][sel].to(devices[o])
+            for j, t in enumerate(reqs[o].tables):
+                got[j][sel] = t[ask].to(dev)
+            if o != a:
+                tally.add("rows", req.tag, c * (8 + sum(_row_bytes(t) for t in req.tables)))
+        out.append(tuple(
+            g.reshape(tuple(req.index.shape) + tuple(t.shape[1:]))
+            for g, t in zip(got, req.tables)
+        ))
+    return out
 
-    first = blocks[0]
-    return DataState(
-        head=first.head.to(home), contig=cat([b.contig for b in blocks]),
-        seen=cat([b.seen for b in blocks]), oo=cat([b.oo for b in blocks], 1),
-        oo_any=first.oo_any.to(home),
-        q_writer=cat([b.q_writer for b in blocks]), q_ver=cat([b.q_ver for b in blocks]),
-        q_tx=cat([b.q_tx for b in blocks]), q_gw=cat([b.q_gw for b in blocks]),
-        q_dup=cat([b.q_dup for b in blocks]),
-        cells=type(first.cells)(*(cat(list(c)) for c in zip(*(b.cells for b in blocks)))),
-    )
+
+def _answer_route(reqs, devices, n_nodes, tally, mesh):
+    d = len(reqs)
+    owned = [mesh_mod.owner_of(r.dest, n_nodes, mesh) for r in reqs]
+    # Invalid entries go to no owner (d), sorted last and dropped.
+    owners = [torch.where(r.valid, o, d) for r, (o, _) in zip(reqs, owned)]
+    orders = [torch.argsort(o, stable=True) for o in owners]
+    counts = _host_counts([torch.bincount(o, minlength=d + 1) for o in owners], devices[0])
+    dests = [[] for _ in range(d)]
+    pays = [[[] for _ in reqs[0].payloads] for _ in range(d)]
+    for s, req in enumerate(reqs):
+        start = 0
+        for o in range(d):
+            c = counts[s][o]
+            if c == 0:
+                continue
+            sel = orders[s][start : start + c]
+            start += c
+            dests[o].append(owned[s][1][sel].to(devices[o]))
+            for j, p in enumerate(req.payloads):
+                pays[o][j].append(p[sel].to(devices[o]))
+            if o != s:
+                tally.add("route", req.tag, c * (8 + sum(_row_bytes(p) for p in req.payloads)))
+    out = []
+    for o, dev in enumerate(devices):
+        dest = torch.cat(dests[o]) if dests[o] else reqs[o].dest[:0]
+        payloads = tuple(
+            torch.cat(pays[o][j]) if pays[o][j] else p[:0]
+            for j, p in enumerate(reqs[o].payloads)
+        )
+        out.append((dest, torch.ones(dest.shape, dtype=torch.bool, device=dev), payloads))
+    return out
 
 
-def _lockstep(bodies: list, devices: list) -> list:
-    """Drive the positions' round bodies together. At each cross-shard sum
-    every body yields a tuple of partials; their sum (in position order,
-    on position 0's device) goes back to each body on its own device.
-    Returns each body's result."""
+def _answer_queue(reqs, devices, mesh, tally):
+    tables, ici, dcn = _exchange([_wire(r.tables) for r in reqs], mesh)
+    tally.add("queue", "broadcast", ici + dcn)
+    widened = {}  # positions that share a gathered table widen it once
+    out = []
+    for t in tables:
+        if id(t[0]) not in widened:
+            widened[id(t[0])] = _widen(t)
+        out.append(exchange.QueueAnswer(widened[id(t[0])], ici, dcn))
+    return out
+
+
+def _answer(reqs: list, mesh: Mesh, n_nodes: int, tally: ExchangeTally) -> list:
+    """Every position's answer to the positions' requests (one of each)."""
+    first = reqs[0]
+    tag = getattr(first, "tag", None)
+    if any(type(r) is not type(first) or getattr(r, "tag", None) != tag for r in reqs):
+        raise RuntimeError("shard bodies disagree on the round's exchanges: "
+                           f"{sorted({type(r).__name__ for r in reqs})}")
+    if len(reqs) == 1:
+        return [exchange.answer_solo(first)]
+    devices = list(mesh.devices.flat)
+    if isinstance(first, exchange.Reduce):
+        return _answer_reduce(reqs, devices, tally)
+    if isinstance(first, exchange.Gather):
+        return _answer_gather(reqs, devices, tally)
+    if isinstance(first, exchange.Rows):
+        return _answer_rows(reqs, devices, n_nodes, tally, mesh)
+    if isinstance(first, exchange.Route):
+        return _answer_route(reqs, devices, n_nodes, tally, mesh)
+    if isinstance(first, exchange.Queue):
+        return _answer_queue(reqs, devices, mesh, tally)
+    raise TypeError(f"not an exchange request: {type(first).__name__}")
+
+
+def _lockstep(bodies: list, mesh: Mesh, n_nodes: int, tally: ExchangeTally, watch=None) -> list:
+    """Drive the positions' round bodies together: every body runs to its
+    next request, then the driver answers them all and hands each its
+    answer. ``watch`` (a context manager, entered around every step of
+    every body and never around the driver's exchanges) is the structural
+    check's hook. Returns each body's result."""
     sends = [None] * len(bodies)
     while True:
         steps = []
         for body, value in zip(bodies, sends):
-            try:
-                steps.append((False, body.send(value)))
-            except StopIteration as done:
-                steps.append((True, done.value))
+            with watch if watch is not None else contextlib.nullcontext():
+                try:
+                    steps.append((False, body.send(value)))
+                except StopIteration as done:
+                    steps.append((True, done.value))
         finished = {f for f, _ in steps}
         if finished == {True}:
             return [v for _, v in steps]
         if len(finished) > 1:
-            raise RuntimeError("shard bodies disagree on the round's cross-shard sums")
-        parts = [v for _, v in steps]
-        total = tuple(
-            functools.reduce(torch.add, (p[j].to(devices[0]) for p in parts))
-            for j in range(len(parts[0]))
-        )
-        sends = [tuple(t.to(dev) for t in total) for dev in devices]
+            raise RuntimeError("shard bodies disagree on the round's exchanges")
+        sends = _answer([v for _, v in steps], mesh, n_nodes, tally)
 
 
 @functools.lru_cache(maxsize=None)
 def make_sharded_broadcast(mesh: Mesh):
-    """A drop-in for ``gossip.broadcast_round`` that runs the delivery
-    chain once per mesh position on its row block. It takes the whole
-    DataState (the controller's), and returns the whole next DataState and
-    the unsharded round's stats plus ``xshard_bytes_ici``/
-    ``xshard_bytes_dcn``, the exchange's bytes this round. Cached per
-    mesh."""
-    axes = tuple(mesh.axis_names)
+    """A drop-in for ``gossip.broadcast_round`` in an engine that runs in
+    the controller (the sparse and mixed engines, the plane composites):
+    it places the whole DataState it is given over ``mesh``, runs the
+    broadcast body once per position on its blocks in lockstep, and
+    returns the whole next DataState and the round's stats plus
+    ``xshard_bytes_ici``/``xshard_bytes_dcn``, the queue exchange's bytes
+    this round. Cached per mesh."""
     devices = list(mesh.devices.flat)
     d = mesh.size
 
@@ -244,31 +400,30 @@ def make_sharded_broadcast(mesh: Mesh):
                 f"{n_total} % {d} != 0"
             )
         nl = n_total // d
-        track = cfg.track_writer_ids
         home = data.contig.device
-        blocks = [_data_block(data, i * nl, nl, dev) for i, dev in enumerate(devices)]
-        tables, ici, dcn = _exchange([_wire(b, track) for b in blocks], mesh)
-        widened = {}  # positions that share a gathered table widen it once
+        specs = mesh_mod.data_state_specs(data, mesh)
+        placed = mesh_mod.place(data, specs, mesh)
         bodies = []
-        for i, (block, dev) in enumerate(zip(blocks, devices)):
-            key = id(tables[i][0])
-            if key not in widened:
-                widened[key] = _widen(tables[i], track)
-            q_w, q_v, q_t, q_g = widened[key]
+        for i, dev in enumerate(devices):
+            block = mesh_mod.position_tree(placed, i)
 
             def at(x, dev=dev):
                 return None if x is None else x.to(dev)
 
-            ctx = ShardCtx(axes=axes, row_start=i * nl, q_writer=q_w, q_ver=q_v, q_tx=q_t, q_gw=q_g)
             bodies.append(gossip_ops._broadcast_round(
-                block, type(topo)(*(at(x) for x in topo)), at(alive), at(partition),
-                at(writes), at(rng), cfg, loss=at(loss), shard=ctx,
+                # The kernels take contiguous operands: a row block of the
+                # [B, N, W] window words is one only at B = 1.
+                block._replace(oo=block.oo.contiguous()), Topology(*(at(x) for x in topo)),
+                at(alive), at(partition), at(writes), at(rng), cfg, at(loss),
+                exchange.Pos(i * nl, nl, n_total),
             ))
-        outs = _lockstep(bodies, devices)
+        outs = _lockstep(bodies, mesh, n_total, ExchangeTally())
         stats = {k: v.to(home) for k, v in outs[0][1].items()}
-        stats["xshard_bytes_ici"] = torch.full((), ici, dtype=torch.float64, device=home)
-        stats["xshard_bytes_dcn"] = torch.full((), dcn, dtype=torch.float64, device=home)
-        return _join([o[0] for o in outs], home), stats
+        if d == 1:
+            for k in ("xshard_bytes_ici", "xshard_bytes_dcn"):
+                stats[k] = torch.zeros((), dtype=torch.float64, device=home)
+        out = mesh_mod.from_positions([o[0] for o in outs], specs, mesh)
+        return mesh_mod.assemble(out, home), stats
 
     return bcast
 
@@ -279,11 +434,11 @@ def per_device_state_bytes(tree) -> dict:
     of the per-position memory claim. Replicated leaves count whole at
     every position, split leaves their block.
 
-    This is the placement at rest, as a ``simulate_*_sharded`` call
-    returns it. It is not what a position holds during a run: each round
-    the controller assembles the whole state on the mesh's home device
-    and runs SWIM, sync and visibility on it, and the broadcast plane's
-    blocks are cut from it and joined back into it."""
+    For the dense engine this is also what a position holds during a run:
+    ``simulate_sharded`` carries these blocks from round to round and its
+    ``info["state_bytes"]`` reads them after every round. The sparse,
+    mixed and chunk engines assemble their state in the controller for a
+    run, so for them it is the placement at rest."""
     out: dict = {}
     for leaf in mesh_mod.tree_leaves(tree):
         if not isinstance(leaf, Placed):
@@ -293,26 +448,180 @@ def per_device_state_bytes(tree) -> dict:
     return out
 
 
-def simulate_sharded(
-    cfg, topo, sched, mesh: Mesh, seed: int = 0, state=None, max_chunk: int | None = None,
-    telemetry=None,
-):
-    """The dense engine's run under the shard driver: the broadcast plane
-    runs through ``make_sharded_broadcast``, SWIM/sync/visibility run in
-    the controller. ``state`` (placed or whole) resumes; the final state
-    comes back placed per position. Equal to ``sim.engine.simulate`` on
-    one device, bit for bit."""
+class WholePlaneCheck(TorchDispatchMode):
+    """The partitioned round's structural check: a dispatch mode that
+    ``simulate_sharded(watch=...)`` enters around every step of every
+    position body (never around the driver's exchanges). It records each
+    operation whose output is a whole node plane: a tensor of two or more
+    dimensions (size-1 dimensions aside) with an extent of ``n_nodes``,
+    other than a position's ``[n_local, n_nodes]`` block of the dense SWIM
+    view, or the flat ``[n_nodes * n_cells]`` cell plane. ``[N]`` control
+    vectors pass. Choose a mesh where no other per-position extent equals
+    ``n_nodes``."""
+
+    def __init__(self, n_nodes: int, n_local: int, n_cells: int = 0):
+        super().__init__()
+        self.n, self.nl, self.k = n_nodes, n_local, n_cells
+        self.ops = 0
+        self.found: list = []
+
+    def _whole(self, shape: tuple) -> bool:
+        dims = tuple(x for x in shape if x != 1)
+        if len(dims) >= 2:
+            return self.n in dims and dims != (self.nl, self.n)
+        return self.k > 1 and dims == (self.n * self.k,)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.ops += 1
+        for t in out if isinstance(out, (tuple, list)) else (out,):
+            if torch.is_tensor(t) and self._whole(tuple(t.shape)):
+                self.found.append((str(func), tuple(t.shape)))
+        return out
+
+
+def _positions(topo: Topology, mesh: Mesh, n_nodes: int) -> list:
+    """Each position's ``exchange.Pos``: its row block and, under sync
+    cohorts, the entries of each cohort whose node it owns (built once on
+    the host from the replicated topology)."""
+    d = mesh.size
+    if d == 1:
+        return [exchange.whole(n_nodes)]
+    nl = n_nodes // d
+    cohorts = None if topo.sync_cohorts is None else topo.sync_cohorts.cpu().numpy()
+    out = []
+    for i, dev in enumerate(mesh.devices.flat):
+        ents = None
+        if cohorts is not None:
+            own = [np.flatnonzero((c >= i * nl) & (c < (i + 1) * nl)) for c in cohorts]
+            table = np.full((len(own), max(1, max(len(e) for e in own))), -1, np.int64)
+            for c, e in enumerate(own):
+                table[c, : len(e)] = e
+            ents = torch.as_tensor(table, device=dev)
+        out.append(exchange.Pos(i * nl, nl, n_nodes, ents))
+    return out
+
+
+def _is_placed_on(tree, mesh: Mesh) -> bool:
+    leaves = mesh_mod.tree_leaves(tree)
+    return bool(leaves) and all(isinstance(x, Placed) and x.mesh == mesh for x in leaves)
+
+
+def _run_rounds(cfg, topo, sched, mesh: Mesh, positions: list, seed: int, box: list, tally,
+                watch):
+    """The schedule's rounds on the placed state ``box`` holds (popped: the
+    only reference, so each round's input blocks are freed as the next are
+    made): one ``round_body`` a position a round, in lockstep. Returns the
+    placed next state and the curves."""
+    from corrosion_tpu_torch.sim import engine
+    from corrosion_tpu_torch.sim import telemetry as telemetry_mod
+
+    devices = list(mesh.devices.flat)
+    state = box.pop()
+    specs = mesh_mod.specs_of(state)
+    inputs, keys = {}, {}
+    for dev in devices:
+        if str(dev) not in inputs:
+            inputs[str(dev)] = engine.round_inputs(cfg, topo, sched, dev)
+            keys[str(dev)] = rng_mod.PRNGKey(seed, dev)
+    blocks = []
+    for i in range(mesh.size):
+        b = mesh_mod.position_tree(state, i)
+        # The kernels take contiguous operands: a row block of the [B, N,
+        # W] window words is one only at B = 1.
+        blocks.append(b._replace(data=b.data._replace(oo=b.data.oo.contiguous())))
+    del state
+    offset = int(blocks[0].round)
+    rows = []
+    for r in range(sched.rounds):
+        round_keys = {k: rng_mod.fold_in(v, offset + r) for k, v in keys.items()}
+        bodies = [
+            engine.round_body(blocks[i], rng=round_keys[str(dev)], cfg=cfg, pos=positions[i],
+                              **inputs[str(dev)].at(r))
+            for i, dev in enumerate(devices)
+        ]
+        outs = _lockstep(bodies, mesh, cfg.n_nodes, tally, watch)
+        del bodies
+        blocks = [o[0] for o in outs]
+        rows.append(outs[0][1])
+        tally.state_bytes.append([
+            sum(_nbytes(x) for x in mesh_mod.tree_leaves(b)) for b in blocks
+        ])
+    return mesh_mod.from_positions(blocks, specs, mesh), telemetry_mod.stack_curves(rows)
+
+
+def init_sharded(cfg, n_samples: int, mesh: Mesh):
+    """The dense engine's initial state placed on ``mesh``, each position's
+    block built where it sits (``engine.init_cluster(n_rows=)``): no device
+    holds the whole state."""
     from corrosion_tpu_torch.sim import engine
 
-    home = mesh.home
+    d = mesh.size
+    if cfg.n_nodes % d:
+        raise ValueError(
+            f"the shard driver needs n_nodes divisible by the mesh size: "
+            f"{cfg.n_nodes} % {d} != 0"
+        )
+    blocks = [engine.init_cluster(cfg, n_samples, dev, n_rows=cfg.n_nodes // d)
+              for dev in mesh.devices.flat]
+    return mesh_mod.from_positions(blocks, mesh_mod.cluster_state_specs(blocks[0], mesh), mesh)
+
+
+def simulate_sharded(
+    cfg, topo, sched, mesh: Mesh, seed: int = 0, state=None, max_chunk: int | None = None,
+    telemetry=None, info: dict | None = None, watch=None,
+):
+    """The dense engine partitioned over ``mesh``: every plane of the round
+    (wipe and churn, broadcast, SWIM in either form, sync with the rejoin
+    sync and the pull escalation, visibility, the health reductions) runs
+    once per position on its rows, the positions in lockstep through the
+    typed exchanges (module docstring). The state stays in the positions'
+    blocks across rounds and ``max_chunk`` pieces: a fresh run builds each
+    position's block where it sits, ``state`` (placed on ``mesh``, or
+    whole or placed elsewhere and then re-placed once) resumes, and the
+    final state comes back placed. Equal to ``sim.engine.simulate`` on one
+    device, bit for bit.
+
+    ``info`` (a dict) receives the exchanges' bytes between positions by
+    kind (``exchange_bytes``: reduce, gather, rows, route, queue) and by
+    kind and tag (``exchange_bytes_by_tag``, e.g. ``gather:alive``), and
+    each position's state bytes after every round (``state_bytes``).
+    ``watch`` is the structural check's hook (``WholePlaneCheck``)."""
+    from corrosion_tpu_torch.sim import engine
+
+    d = mesh.size
+    n = cfg.n_nodes
+    if n % d:
+        raise ValueError(
+            f"the shard driver needs n_nodes divisible by the mesh size: {n} % {d} != 0"
+        )
     if state is None:
-        state = engine.init_cluster(cfg, len(sched.sample_writer), home)
-    final, curves = engine.simulate(
-        cfg, topo, sched, seed=seed, state=mesh_mod.assemble(state, home),
-        max_chunk=max_chunk, telemetry=telemetry, device=home,
-        bcast_fn=make_sharded_broadcast(mesh),
-    )
-    return mesh_mod.shard_cluster_state(final, mesh), curves
+        state = init_sharded(cfg, len(sched.sample_writer), mesh)
+    elif not _is_placed_on(state, mesh):
+        state = mesh_mod.shard_cluster_state(state, mesh)
+    start_round = int(state.round.blocks[0])
+    engine.check_head_domain(cfg, start_round, sched.rounds)
+    positions = _positions(topo, mesh, n)
+    tally = ExchangeTally()
+
+    def piece(part, box):
+        return _run_rounds(cfg, topo, part, mesh, positions, seed, box, tally, watch)
+
+    box = [state]
+    state = None
+    if max_chunk is not None and sched.rounds > max_chunk:
+        final, curves = engine.run_in_chunks(sched, box, max_chunk, start_round, telemetry,
+                                             piece)
+    elif telemetry is None:
+        final, curves = piece(sched, box)
+    else:
+        final, curves = telemetry.run_chunk(start_round, lambda: piece(sched, box))
+        telemetry.on_run_end(curves)
+    if info is not None:
+        info["exchange_bytes"] = dict(tally.by_kind)
+        info["exchange_bytes_by_tag"] = dict(tally.by_tag)
+        info["state_bytes"] = tally.state_bytes
+    return final, curves
 
 
 def _place_sparse_resume(resume: dict, mesh: Mesh) -> dict:
@@ -329,11 +638,13 @@ def simulate_sparse_sharded(
     cfg, topo, sched, mesh: Mesh, seed: int = 0, telemetry=None, resume: dict | None = None,
     stop_after_epoch: int | None = None,
 ):
-    """The any-node-writes engine under the shard driver: the slot plane's
-    broadcast goes through the exchange (``q_gw`` rides it); rotation,
-    cold sync and SWIM run in the controller. Returns what
-    ``simulate_sparse`` returns, with the states (and ``info["resume"]``'s)
-    placed per position."""
+    """The any-node-writes engine under the shard driver, still in the
+    controller: the placed state is assembled on the mesh's home device
+    for the run, the slot plane's broadcast runs per position through
+    ``make_sharded_broadcast`` (``q_gw`` rides the queue exchange), and
+    rotation, cold sync, SWIM and the rest run on whole tensors. Returns
+    what ``simulate_sparse`` returns, with the states (and
+    ``info["resume"]``'s) placed per position."""
     from corrosion_tpu_torch.sim import sparse_engine
 
     home = mesh.home
@@ -357,11 +668,12 @@ def simulate_chunks_sharded(
     max_chunk: int | None = None, telemetry=None, faults=None, state=None, vis=None,
     start_round: int = 0,
 ):
-    """The seq-chunk plane with its coverage placed per position. The
-    plane has no broadcast queue to exchange, so the xshard curves stay
-    zero; ``state``/``vis``/``start_round`` resume a run (the elastic
-    seam). Returns (placed state, metrics) with ``metrics["vis"]``
-    placed."""
+    """The seq-chunk plane with its coverage placed per position at rest,
+    still run in the controller: the state is assembled on the mesh's home
+    device and the plane runs on whole tensors. It has no broadcast queue
+    to exchange, so the xshard curves stay zero; ``state``/``vis``/
+    ``start_round`` resume a run (the elastic seam). Returns (placed
+    state, metrics) with ``metrics["vis"]`` placed."""
     from corrosion_tpu_torch.sim import chunk_engine
 
     home = mesh.home
@@ -380,10 +692,12 @@ def simulate_mixed_sharded(
     cfg, ccfg, topo, sched, streams, mesh: Mesh, seed: int = 0, max_chunk: int | None = None,
     telemetry=None, state=None,
 ):
-    """The mixed chunk+version engine under the shard driver: the version
-    plane's delivery chain through the exchange, the chunk plane and the
-    big versions' admission in the controller. ``state`` resumes at its
-    carried ``round``; the final state comes back placed."""
+    """The mixed chunk+version engine under the shard driver, still in the
+    controller: the state is assembled on the mesh's home device, the
+    version plane's delivery chain runs per position through
+    ``make_sharded_broadcast``, and the chunk plane, the big versions'
+    admission and the other planes run on whole tensors. ``state`` resumes
+    at its carried ``round``; the final state comes back placed."""
     from corrosion_tpu_torch.sim import mixed_engine
 
     home = mesh.home

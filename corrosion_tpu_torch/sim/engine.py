@@ -9,10 +9,18 @@ seed's key, so chunked runs (``max_chunk``) equal unchunked ones bit for
 bit, and a run equals the reference's at the same seed. Schedules with
 churn (kill/revive masks, optionally wipe) take the reference's churn
 branch: a 5-way key split, wipe before churn, and a rejoin sync.
+
+The round itself is ``round_body``: a generator over one mesh position's
+rows of the node axis (``ops/exchange.py``) that yields where the round
+reads what other positions own. ``cluster_round`` runs it on one position
+holding every row, answering each request itself; the shard driver
+(``parallel.simulate_sharded``) runs one body per position in lockstep on
+state that stays in the positions' blocks.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
@@ -22,10 +30,10 @@ from torch.profiler import record_function
 
 from corrosion_tpu_torch import resolve_device
 from corrosion_tpu_torch import rng as rng_mod
-from corrosion_tpu_torch.ops import faulting
+from corrosion_tpu_torch.ops import exchange, faulting
 from corrosion_tpu_torch.ops import gossip as gossip_ops
 from corrosion_tpu_torch.ops import swim as swim_ops
-from corrosion_tpu_torch.ops.gossip import DataState, GossipConfig, Topology
+from corrosion_tpu_torch.ops.gossip import MASK, DataState, GossipConfig, Topology
 from corrosion_tpu_torch.ops.swim import SwimConfig
 from corrosion_tpu_torch.sim import telemetry as telemetry_mod
 
@@ -103,15 +111,18 @@ class Schedule:
         )
 
 
-def init_cluster(cfg: ClusterConfig, n_samples: int, device=None) -> ClusterState:
+def init_cluster(
+    cfg: ClusterConfig, n_samples: int, device=None, n_rows: int | None = None
+) -> ClusterState:
+    """The initial cluster state; ``n_rows`` builds just a mesh position's
+    block of that many node rows (the shard driver's resident state)."""
     device = resolve_device(device)
+    nr = cfg.n_nodes if n_rows is None else n_rows
     return ClusterState(
-        swim=swim_ops.impl(cfg.swim).init_state(cfg.swim, device),
-        data=gossip_ops.init_data(cfg.gossip, device),
+        swim=swim_ops.impl(cfg.swim).init_state(cfg.swim, device, n_rows=n_rows),
+        data=gossip_ops.init_data(cfg.gossip, device, n_rows=n_rows),
         round=torch.zeros((), dtype=torch.int64, device=device),
-        vis_round=torch.full(
-            (n_samples, cfg.n_nodes), -1, dtype=torch.int64, device=device
-        ),
+        vis_round=torch.full((n_samples, nr), -1, dtype=torch.int64, device=device),
     )
 
 
@@ -130,102 +141,142 @@ def cluster_round(
     kill=None,  # bool[N] churn: processes that die this round
     revive=None,  # bool[N] churn: processes that come back
     wipe=None,  # bool[N] crash-with-state-wipe (needs kill/revive)
-    bcast_fn=None,  # broadcast override (parallel/shard_driver)
 ) -> tuple[ClusterState, dict]:
     """One bulk-synchronous cluster round. Returns the next state and the
     round's stats dict (``ROUND_CURVE_KEYS``). Passing ``kill`` and
     ``revive`` selects the churn branch, whose 5-way key split differs
-    from the churn-free 4-way one, as in the reference. ``bcast_fn``
-    replaces ``gossip.broadcast_round`` (the shard driver's, whose
-    exchange bytes join the curves)."""
+    from the churn-free 4-way one, as in the reference. ``round_body`` on
+    one position holding every row."""
+    return exchange.solo(round_body(
+        state, topo, writes, partition, sample_writer, sample_ver, sample_round, rng, cfg,
+        exchange.whole(cfg.n_nodes), loss=loss, probe_loss=probe_loss, kill=kill,
+        revive=revive, wipe=wipe,
+    ))
+
+
+def round_body(
+    state: ClusterState, topo: Topology, writes, partition, sample_writer, sample_ver,
+    sample_round, rng, cfg: ClusterConfig, pos: exchange.Pos, loss=None, probe_loss=None,
+    kill=None, revive=None, wipe=None,
+):
+    """``cluster_round`` over one mesh position's rows: a generator that
+    returns (the position's next state, the round's stats). ``state`` is
+    the position's block (its rows of every node-major leaf, its columns of
+    ``vis_round``, the replicated leaves whole); the topology and the
+    round's inputs, the churn masks included, are whole. The planes run in
+    the reference's order (wipe and churn, broadcast, SWIM, sync with the
+    rejoin sync, visibility, the health reductions), each on the
+    position's rows; the whole liveness vector comes from one gather a
+    round, and the stats from one cross-position reduction."""
     has_churn = kill is not None
     if (revive is not None) != has_churn:
         raise ValueError("kill and revive masks go together")
     if wipe is not None and not has_churn:
         raise ValueError("wipe masks require a churn schedule")
-    keys = rng_mod.split(rng, 5 if has_churn else 4)
+    keys = rng_mod.split_keys(rng, 5 if has_churn else 4)
     k_churn, k_bcast, k_swim, k_sync = keys[0], keys[1], keys[2], keys[3]
     swim_impl = swim_ops.impl(cfg.swim)
+    rows = slice(pos.row_start, pos.row_start + pos.n_local)
+    # Profiler ranges named like the reference's jax.named_scope blocks
+    # (scripts/torch_round_profile.py attributes device time by them);
+    # lockstepped positions would interleave them, so only a position
+    # holding every row opens them.
+    plane = record_function if pos.whole else (lambda name: contextlib.nullcontext())
     sw = state.swim
     data_pre = state.data
     if wipe is not None:
         # The replica state resets BEFORE this round's protocol work.
-        data_pre = faulting.wipe_nodes(data_pre, wipe, cfg.gossip)
+        data_pre = yield from faulting._wipe_nodes(data_pre, wipe[rows], cfg.gossip)
     if has_churn:
-        sw = swim_impl.apply_churn(
-            sw, kill, revive, k_churn, cfg.swim.max_transmissions, wipe=wipe
+        sw, alive = yield from swim_impl._apply_churn(
+            sw, kill, revive, k_churn, cfg.swim.max_transmissions, wipe, pos
         )
-    alive = sw.alive
+    else:
+        (alive,) = yield exchange.Gather("alive", (sw.alive,))
 
-    # Profiler ranges named like the reference's jax.named_scope blocks
-    # (scripts/torch_round_profile.py attributes device time by them).
-    bfn = gossip_ops.broadcast_round if bcast_fn is None else bcast_fn
-    with record_function("corro_broadcast"):
-        data, bstats = bfn(
-            data_pre, topo, alive, partition, writes, k_bcast, cfg.gossip,
-            loss=loss,
+    with plane("corro_broadcast"):
+        data, bstats = yield from gossip_ops._broadcast_round(
+            data_pre, topo, alive, partition, writes, k_bcast, cfg.gossip, loss, pos
         )
-    with record_function("corro_swim"):
+    with plane("corro_swim"):
         # Incarnations after churn: revive bumps are rejoins, not flaps.
         inc_pre = sw.incarnation
-        sw = swim_impl.swim_round(
-            sw, k_swim, state.round, cfg.swim, probe_loss=probe_loss
+        sw = yield from swim_impl._swim_round(
+            sw, alive, k_swim, state.round, cfg.swim, probe_loss, pos
         )
-    with record_function("corro_sync"):
-        data, sstats = gossip_ops.sync_round(
-            data, topo, alive, partition, state.round, k_sync, cfg.gossip
+    with plane("corro_sync"):
+        data, sstats = yield from gossip_ops._sync_round(
+            data, topo, alive, partition, state.round, k_sync, cfg.gossip, pos
         )
         if has_churn:
             # Rejoining nodes pull at once instead of waiting for their
             # cohort slot.
-            k_rejoin = keys[4]
-            data, rstats = gossip_ops.revive_sync(
-                data, topo, alive, partition, revive, k_rejoin, cfg.gossip
+            data, rstats = yield from gossip_ops._revive_sync(
+                data, topo, alive, partition, revive, keys[4], cfg.gossip, pos
             )
             sstats = {k: sstats[k] + rstats[k] for k in sstats}
 
-    with record_function("corro_track"):
+    with plane("corro_track"):
         active = state.round >= sample_round  # [S]
-        vis_now = gossip_ops.visibility(data, sample_writer, sample_ver)  # [S, N]
+        vis_now = gossip_ops.visibility(data, sample_writer, sample_ver)  # [S, n]
         vis_round = torch.where(
             (state.vis_round < 0) & vis_now & active[:, None],
             state.round, state.vis_round,
         )
-    with record_function("corro_health"):
+    with plane("corro_health"):
+        # The position's shares of every summed stat, summed across
+        # positions in one reduction (integers, so the order does not
+        # matter; the float32 staleness rounds once, after).
         newly = (vis_round >= 0) & (state.vis_round < 0)
-        lat_hist = telemetry_mod.delivery_latency_hist(
-            state.round - sample_round[:, None], newly
+        lat = state.round - sample_round[:, None]
+        lat_hist = telemetry_mod.delivery_latency_hist(lat, newly)
+        part = dict(lat_hist)
+        if cfg.gossip.prop_observe:
+            part.update(telemetry_mod.rumor_age_hist(lat, newly))
+        stale_sum, stale_max = gossip_ops._staleness_parts(data)
+        false_alarms, undetected = swim_impl._health_counts(sw, alive, pos)
+        part.update(
+            mismatches=swim_impl._mismatches(sw, alive, pos),
+            need=gossip_ops._need_part(data),
+            vis_count=newly.sum(),
+            staleness_sum=stale_sum,
+            swim_false_alarms=false_alarms,
+            swim_undetected_deaths=undetected,
+            swim_flaps=(sw.incarnation != inc_pre).sum(),
+            queue_backlog=gossip_ops.queue_backlog(data),
+            sync_cells=sstats["cell_merges"],
+            **{k: sstats[k] for k in ("applied_sync", "sessions", "sync_regrant")},
         )
-        stale_sum, stale_max = gossip_ops.staleness(data)
-        false_alarms, undetected = swim_impl.health_counts(sw)
+        if wipe is not None:
+            part["chaos_wiped"] = wipe[rows].sum()
+        total = yield exchange.Reduce("health", sum=tuple(part.values()), max=(stale_max,))
+        t = dict(zip(part, total.sum))
+        lat_hist.update((k, t[k]) for k in lat_hist)
         prop_stats = telemetry_mod.prop_curves(
             cfg.gossip.prop_observe, bstats.get("prop_link"),
             bstats.get("prop_useful"), bstats.get("prop_dup"),
-            state.round - sample_round[:, None], newly,
             kills=bstats.get("prop_kills"), pulls=bstats.get("prop_pulls"),
+            age_hist={k: t[k] for k in telemetry_mod.RUMOR_AGE_KEYS if k in t},
         )
-        mism = swim_impl.mismatches(sw)
-        need = gossip_ops.total_need(data)
-        backlog = gossip_ops.queue_backlog(data)
     stats = telemetry_mod.round_curves(
-        mismatches=mism,
-        need=need,
+        mismatches=t["mismatches"],
+        need=t["need"] & MASK,
         applied_broadcast=bstats["applied_broadcast"],
-        applied_sync=sstats["applied_sync"],
+        applied_sync=t["applied_sync"] & MASK,
         msgs=bstats["msgs"],
-        sessions=sstats["sessions"],
-        cell_merges=(bstats["cell_merges"] + sstats["cell_merges"]) & 0xFFFFFFFF,
+        sessions=t["sessions"],
+        cell_merges=(bstats["cell_merges"] + t["sync_cells"]) & MASK,
         window_degraded=bstats["window_degraded"],
-        sync_regrant=sstats["sync_regrant"],
-        vis_count=newly.sum(),
-        staleness_sum=stale_sum,
-        staleness_max=stale_max,
-        swim_false_alarms=false_alarms,
-        swim_undetected_deaths=undetected,
-        swim_flaps=(sw.incarnation != inc_pre).sum(),
-        queue_backlog=backlog,
+        sync_regrant=t["sync_regrant"] & MASK,
+        vis_count=t["vis_count"],
+        staleness_sum=t["staleness_sum"].to(torch.float32),
+        staleness_max=total.max[0],
+        swim_false_alarms=t["swim_false_alarms"],
+        swim_undetected_deaths=t["swim_undetected_deaths"] & MASK,
+        swim_flaps=t["swim_flaps"],
+        queue_backlog=t["queue_backlog"],
         chaos_lost_msgs=bstats["lost_msgs"],
-        chaos_wiped=0 if wipe is None else wipe.sum(),
+        chaos_wiped=t.get("chaos_wiped", 0),
         xshard_bytes_ici=bstats.get("xshard_bytes_ici", 0),
         xshard_bytes_dcn=bstats.get("xshard_bytes_dcn", 0),
         **lat_hist,
@@ -237,60 +288,38 @@ def cluster_round(
     )
 
 
-def simulate(
-    cfg: ClusterConfig,
-    topo: Topology,
-    schedule: Schedule,
-    seed: int = 0,
-    state: ClusterState | None = None,
-    max_chunk: int | None = None,
-    telemetry: telemetry_mod.KernelTelemetry | None = None,
-    device=None,
-    bcast_fn=None,
-) -> tuple[ClusterState, dict]:
-    """Run ``cluster_round`` over the schedule. Returns the final state and
-    per-round curves (numpy arrays of length ``schedule.rounds``, in the
-    reference's dtypes). ``state`` resumes a run (never modified);
-    ``max_chunk`` splits the run into pieces of at most that many rounds
-    with identical results. ``telemetry`` (``KernelTelemetry``) times and
-    flushes each piece as a chunk (the whole run is one chunk when
-    unchunked) and takes the merged curves at the end; curves and state
-    are the same with it or without. ``bcast_fn`` replaces the broadcast
-    plane's driver (``parallel.make_sharded_broadcast``). Runs on
-    ``device`` (default CUDA; raises when CUDA is absent and no device is
-    given)."""
-    device = resolve_device(device)
-    start_round = 0 if state is None else int(state.round)
-    max_head = (start_round + schedule.rounds) * max(
-        cfg.gossip.max_writes_per_round, 1
-    )
-    if cfg.gossip.n_cells > 0 and max_head >= (1 << 24):
-        raise ValueError(
-            f"reachable version head {max_head} exceeds the CRDT pack "
-            f"domain (< 2^24); shorten the run or disable the cell plane"
+class RoundInputs(NamedTuple):
+    """A schedule's per-round tables on one device, the topology with
+    them; ``at(i)`` gives round i's keyword arguments of ``cluster_round``
+    and ``round_body``."""
+
+    topo: Topology
+    writes: torch.Tensor
+    partition: torch.Tensor
+    sample_writer: torch.Tensor
+    sample_ver: torch.Tensor
+    sample_round: torch.Tensor
+    loss: torch.Tensor | None
+    probe_loss: torch.Tensor | None
+    kill: torch.Tensor | None
+    revive: torch.Tensor | None
+    wipe: torch.Tensor | None
+
+    def at(self, i: int) -> dict:
+        def row(x):
+            return None if x is None else x[i]
+
+        return dict(
+            topo=self.topo, writes=self.writes[i], partition=self.partition[i],
+            sample_writer=self.sample_writer, sample_ver=self.sample_ver,
+            sample_round=self.sample_round, loss=row(self.loss),
+            probe_loss=row(self.probe_loss), kill=row(self.kill), revive=row(self.revive),
+            wipe=row(self.wipe),
         )
-    if max_chunk is not None and schedule.rounds > max_chunk:
-        cur = state
-        parts = []
-        for start in range(0, schedule.rounds, max_chunk):
-            part = schedule.slice(start, min(start + max_chunk, schedule.rounds))
-            box = [cur]  # the piece takes the only reference to its start
-            cur = None
 
-            def run():
-                return simulate(cfg, topo, part, seed=seed, state=box.pop(), device=device,
-                                bcast_fn=bcast_fn)
 
-            if telemetry is None:
-                cur, curves = run()
-            else:
-                cur, curves = telemetry.run_chunk(start_round + start, run)
-            parts.append(curves)
-        merged = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
-        if telemetry is not None:
-            telemetry.on_run_end(merged)
-        return cur, merged
-
+def round_inputs(cfg: ClusterConfig, topo: Topology, schedule: Schedule, device) -> RoundInputs:
+    """The schedule's tables and the topology on ``device``."""
     topo = Topology(*(None if x is None else x.to(device) for x in topo))
     n_regions = int(topo.region.max()) + 1
     rounds = schedule.rounds
@@ -298,18 +327,12 @@ def simulate(
     def dev(x, dtype):
         return torch.as_tensor(np.asarray(x), device=device).to(dtype)
 
-    writes = dev(schedule.writes, torch.int64)
     if schedule.partition is not None:
         partition = dev(schedule.partition, torch.bool)
     else:
         partition = torch.zeros(
             (rounds, n_regions, n_regions), dtype=torch.bool, device=device
         )
-    loss = None if schedule.loss is None else dev(schedule.loss, torch.float32)
-    probe_loss = (
-        None if schedule.probe_loss is None
-        else dev(schedule.probe_loss, torch.float32)
-    )
     # A wipe mask implies churn (the wipe applies at the kill round).
     kill = revive = wipe = None
     if (
@@ -323,9 +346,88 @@ def simulate(
         )
         if schedule.wipe is not None:
             wipe = dev(schedule.wipe, torch.bool)
-    s_writer = dev(schedule.sample_writer, torch.int64)
-    s_ver = dev(schedule.sample_ver, torch.int64)
-    s_round = dev(schedule.sample_round, torch.int64)
+    return RoundInputs(
+        topo=topo,
+        writes=dev(schedule.writes, torch.int64),
+        partition=partition,
+        sample_writer=dev(schedule.sample_writer, torch.int64),
+        sample_ver=dev(schedule.sample_ver, torch.int64),
+        sample_round=dev(schedule.sample_round, torch.int64),
+        loss=None if schedule.loss is None else dev(schedule.loss, torch.float32),
+        probe_loss=(
+            None if schedule.probe_loss is None
+            else dev(schedule.probe_loss, torch.float32)
+        ),
+        kill=kill, revive=revive, wipe=wipe,
+    )
+
+
+def check_head_domain(cfg: ClusterConfig, start_round: int, rounds: int) -> None:
+    """Raise when the run could reach a version head past the CRDT pack
+    domain."""
+    max_head = (start_round + rounds) * max(cfg.gossip.max_writes_per_round, 1)
+    if cfg.gossip.n_cells > 0 and max_head >= (1 << 24):
+        raise ValueError(
+            f"reachable version head {max_head} exceeds the CRDT pack "
+            f"domain (< 2^24); shorten the run or disable the cell plane"
+        )
+
+
+def run_in_chunks(schedule: Schedule, box: list, max_chunk: int, start_round: int, telemetry,
+                  run_piece):
+    """``run_piece(part, box) -> (state, curves)`` over pieces of at most
+    ``max_chunk`` rounds, each timed and flushed as a chunk by
+    ``telemetry`` when given; returns the last state and the merged
+    curves. ``box`` is a list holding a piece's start state, which the
+    piece pops: it takes the only reference, so each round's input state
+    is freed as the next is made."""
+    parts = []
+    for start in range(0, schedule.rounds, max_chunk):
+        part = schedule.slice(start, min(start + max_chunk, schedule.rounds))
+        if telemetry is None:
+            cur, curves = run_piece(part, box)
+        else:
+            cur, curves = telemetry.run_chunk(start_round + start, lambda: run_piece(part, box))
+        box = [cur]
+        cur = None
+        parts.append(curves)
+    merged = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    if telemetry is not None:
+        telemetry.on_run_end(merged)
+    return box.pop(), merged
+
+
+def simulate(
+    cfg: ClusterConfig,
+    topo: Topology,
+    schedule: Schedule,
+    seed: int = 0,
+    state: ClusterState | None = None,
+    max_chunk: int | None = None,
+    telemetry: telemetry_mod.KernelTelemetry | None = None,
+    device=None,
+) -> tuple[ClusterState, dict]:
+    """Run ``cluster_round`` over the schedule. Returns the final state and
+    per-round curves (numpy arrays of length ``schedule.rounds``, in the
+    reference's dtypes). ``state`` resumes a run (never modified);
+    ``max_chunk`` splits the run into pieces of at most that many rounds
+    with identical results. ``telemetry`` (``KernelTelemetry``) times and
+    flushes each piece as a chunk (the whole run is one chunk when
+    unchunked) and takes the merged curves at the end; curves and state
+    are the same with it or without. Runs on ``device`` (default CUDA;
+    raises when CUDA is absent and no device is given). The partitioned
+    run over a mesh is ``parallel.simulate_sharded``."""
+    device = resolve_device(device)
+    start_round = 0 if state is None else int(state.round)
+    check_head_domain(cfg, start_round, schedule.rounds)
+    if max_chunk is not None and schedule.rounds > max_chunk:
+        return run_in_chunks(
+            schedule, [state], max_chunk, start_round, telemetry,
+            lambda part, box: simulate(cfg, topo, part, seed=seed, state=box.pop(),
+                                       device=device),
+        )
+
+    inp = round_inputs(cfg, topo, schedule, device)
     if state is None:
         state = init_cluster(cfg, len(schedule.sample_writer), device)
     offset = int(state.round)
@@ -338,18 +440,9 @@ def simulate(
     def run():
         state = box.pop()
         rows = []
-        for i in range(rounds):
+        for i in range(schedule.rounds):
             key = rng_mod.fold_in(base_key, offset + i)
-            state, stats = cluster_round(
-                state, topo, writes[i], partition[i], s_writer, s_ver, s_round,
-                key, cfg,
-                loss=None if loss is None else loss[i],
-                probe_loss=None if probe_loss is None else probe_loss[i],
-                kill=None if kill is None else kill[i],
-                revive=None if revive is None else revive[i],
-                wipe=None if wipe is None else wipe[i],
-                bcast_fn=bcast_fn,
-            )
+            state, stats = cluster_round(state, rng=key, cfg=cfg, **inp.at(i))
             rows.append(stats)
         return state, telemetry_mod.stack_curves(rows)
 

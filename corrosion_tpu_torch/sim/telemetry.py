@@ -133,13 +133,14 @@ def link_curves(link) -> dict:
 
 def prop_curves(
     enabled: bool, link=None, useful=None, dup=None, lat_rounds=None, newly=None,
-    kills=None, pulls=None,
+    kills=None, pulls=None, age_hist: dict | None = None,
 ) -> dict:
     """Per-round propagation-plane stats, or {} when the plane is off (the
     reference's static skip): the link matrix, the useful/duplicate split
     of delivered copies, the rumor-age histogram of the pairs first
-    delivered this round (``RUMOR_AGE_EDGES``), and the kill and pull
-    counters (zero when None)."""
+    delivered this round (``RUMOR_AGE_EDGES``; ``age_hist`` when the
+    caller summed it across mesh positions, ``rumor_age_hist``), and the
+    kill and pull counters (zero when None)."""
     if not enabled:
         return {}
     out = {
@@ -149,8 +150,14 @@ def prop_curves(
         "prop_pull_rounds": 0 if pulls is None else pulls,
     }
     out.update(link_curves(link))
-    out.update(delivery_latency_hist(lat_rounds, newly, RUMOR_AGE_EDGES, RUMOR_AGE_KEYS))
+    out.update(rumor_age_hist(lat_rounds, newly) if age_hist is None else age_hist)
     return out
+
+
+def rumor_age_hist(lat_rounds, newly) -> dict:
+    """The propagation plane's rumor-age histogram (``RUMOR_AGE_KEYS``)
+    of the pairs first delivered this round."""
+    return delivery_latency_hist(lat_rounds, newly, RUMOR_AGE_EDGES, RUMOR_AGE_KEYS)
 
 
 def round_curves(**stats) -> dict:
@@ -389,13 +396,19 @@ def publish_curves(registry, curves: dict, engine: str = "dense") -> None:
 
 def _synchronize(tree) -> None:
     """Wait for the card to finish the work behind ``tree``'s tensors
-    (nothing to wait for on the CPU)."""
+    (nothing to wait for on the CPU); a leaf placed over a mesh
+    (``parallel.mesh.Placed``) waits for each of its positions' cards."""
     stack = [tree]
     while stack:
         x = stack.pop()
         if torch.is_tensor(x):
             if x.is_cuda:
                 torch.cuda.synchronize(x.device)
+            return
+        blocks = getattr(x, "blocks", None)
+        if blocks is not None:
+            for dev in {b.device for b in blocks if b.is_cuda}:
+                torch.cuda.synchronize(dev)
             return
         if isinstance(x, dict):
             stack.extend(x.values())
