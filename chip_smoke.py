@@ -23,7 +23,8 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    offset) and at every shape each main path gives it
    (wan_100k and anywrite_sparse: the fast path's kernels with every
    ``rowgather`` site — base gather, CRDT winner check, sync grants,
-   ``visibility``, and anywrite's ``cold_sync`` grants; merge_10k:
+   ``visibility``, and anywrite's ``cold_sync`` grants, also at the
+   partitioned round's per-position shapes; merge_10k:
    ``rowmax`` and ``rowgather`` in the CRDT merge, ``rowgather`` in the
    sync grants and ``visibility``, ``delivery_reduce`` at W = 10,000,
    ``rowgather_wide`` and ``rowsum``; anywrite_sparse also ``table_gather``
@@ -102,7 +103,8 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
 7. full-size ``anywrite_sparse()`` (100,000 nodes, any of them a writer,
    2,048 hot slots), all 320 rounds, epoch by epoch: converged, no
    deviation entry dropped, ``table_gather``, ``rowmax``, ``rowgather``
-   and ``delivery_reduce`` launched, the watermark invariants;
+   and ``delivery_reduce`` launched, the watermark invariants; its state
+   after 48 rounds is held on the host for phase 13;
 8. ``wan_100k_adaptive``: full-size ``wan_100k()`` with
    ``ADAPTIVE_GOSSIP`` and 8-bucket sync sketches, its first
    ``ADAPTIVE_ROUNDS`` (120) rounds in chunks of 12: its five kernels
@@ -139,9 +141,16 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    24 rounds in calls of 12: curves equal to phase 5's first 24 rounds but
    the exchange's byte keys, the final state equal to phase 5's at round
    24, the exchange bytes equal to ``traffic_model`` and each position's
-   state bytes equal to the prediction; phase 4's ``anywrite_sparse(n=2000,
-   rounds=32, ...)`` on 4 positions and the merge_10k burst at n=2560 (the
-   legacy delivery, 24 rounds) on 2, each equal to its unsharded card run;
+   state bytes equal to the prediction; full-width ``anywrite_sparse()``
+   partitioned on the same mesh, one round under the structural check and
+   then its first 48 rounds (through the first epoch boundary that retires
+   slots): curves, state and info equal to phase 7's at that round, every
+   position's state bytes equal to the prediction after every round, its
+   ms/round, peak memory (at or below phase 7's over the same rounds) and
+   exchange bytes by tag printed; phase 4's ``anywrite_sparse(n=2000,
+   rounds=32, ...)`` on 4 positions (forced demotions: the partitioned
+   cold plane) and the merge_10k burst at n=2560 (the legacy delivery, 24
+   rounds) on 2, each equal to its unsharded card run;
    the elastic drills
    (``reshard_{dense,sparse,chunk,mixed}_4to8``, ``preempt_dense_churn``,
    ``soak_preempt``) on the card, each equal to its uninterrupted run, the
@@ -332,7 +341,9 @@ PATH_KERNELS = {
     "checkpoint": ("rowmax", "rowgather", "delivery_reduce"),
     # Phase 13: the shard driver's bodies and the elastic drills.
     "wan_100k_sharded": ("rowmax", "rowgather", "delivery_reduce", "window_delivery"),
-    "anywrite_sparse_sharded": ("table_gather", "rowmax", "rowgather", "delivery_reduce"),
+    "anywrite_sparse_sharded": ("table_gather", "rowmax", "rowgather", "delivery_reduce",
+                                "window_delivery"),
+    "anywrite_sparse_small_sharded": ("table_gather", "rowmax", "rowgather", "delivery_reduce"),
     "merge_10k_sharded": ("rowgather_wide", "rowsum", "rowmax", "rowgather", "delivery_reduce"),
     "elastic": ("rowmax", "rowgather", "delivery_reduce", "window_delivery", "table_gather"),
     # Phase 14: the bench harness (merge_10k's legacy delivery, the
@@ -402,6 +413,10 @@ PATH_KERNELS = {
 SHARDED_ROUNDS = 24
 ELASTIC_DRILLS = ("reshard_dense_4to8", "reshard_sparse_4to8", "reshard_chunk_4to8",
                   "reshard_mixed_4to8", "preempt_dense_churn", "soak_preempt")
+# Phase 13 runs anywrite_sparse's first epochs partitioned, through the
+# first boundary that retires slots (epoch 2, round 32); phase 7 keeps its
+# state and curves there to hold them to.
+SPARSE_SHARDED_ROUNDS = 48
 # Phase 13's merge_10k burst at n=2560 on 2 positions (48 in phase 4).
 MERGE_SHARDED_ROUNDS = 24
 # Phase 8's wan_100k_adaptive: the first half of the 240-round schedule,
@@ -981,20 +996,34 @@ def check_kernels(onehot, device) -> list:
     # of the 16,667-row cohort and its visibility over its 25,000 rows;
     # the merge burst n=2560, [1280, 144] over 2,560 writers and 1,024
     # cells (the legacy delivery), grants over 256 of a 512-row cohort.
-    # anywrite_sparse n=2000 on 4 ([500, 320] over 56 hot slots and 256
-    # cells) runs its sync grants, visibility and rotate whole
-    # (table_gather at [2000, 64]); the elastic drills' dense wan workload
-    # n=64 on 8, [8, 144] over 16 writers and 256 cells.
+    # The partitioned anywrite_sparse at full width on 4 positions runs the
+    # same sites per position: [25,000, 320] a body over 2,048 hot slots
+    # and 256 cells, its sync grants over a quarter of the 16,667-row
+    # cohort, its visibility over its 25,000 rows, cold_sync's grant
+    # gathers on its [25,000, 256] deviation tables, and table_gather in
+    # the sync grants and in rotate over its [25,000, 64] queue; the same
+    # at phase 4's n=2000 on 4 ([500, 320] over 56 hot slots and 256
+    # cells); the elastic drills' dense wan workload n=64 on 8, [8, 144]
+    # over 16 writers and 256 cells.
     fast_path("wan_100k_sharded", 25_000, 144, 512, 256, 128, 4_167, 512)
-    for path, n, kk, w, k in (("anywrite_sparse_sharded", 500, 320, 56, 256),
+    n, q = 25_000, 64
+    fast_path("anywrite_sparse_sharded", n, 5 * q, w_hot, 256, 256, 4_167, budget)
+    gather_case("anywrite_sparse_sharded", "cold_sync grants", u24(n, 256), sorted_idx(n, 64, 256))
+    table_case("anywrite_sparse_sharded", "sync grants",
+               torch.randint(0, 100_000, (w_hot,), generator=g, device=device),
+               sorted_idx(4_167, budget, w_hot))
+    table_case("anywrite_sparse_sharded", "rotate",
+               (torch.rand((w_hot,), generator=g, device=device) < 0.4).to(torch.int64),
+               torch.randint(0, w_hot, (n, q), generator=g, device=device))
+    for path, n, kk, w, k in (("anywrite_sparse_small_sharded", 500, 320, 56, 256),
                               ("elastic", 8, 144, 16, 256)):
         idx = rowmax_case(path, n, kk, k)
         gather_case(path, "base gather", u24(n, w), torch.randint(0, w, (n, kk), generator=g, device=device))
         gather_case(path, "CRDT winner check", u24(n, k), idx)
         window_case(path, n, kk, w)
-    table_case("anywrite_sparse_sharded", "rotate",
+    table_case("anywrite_sparse_small_sharded", "rotate",
                (torch.rand((56,), generator=g, device=device) < 0.4).to(torch.int64),
-               torch.randint(0, 56, (2000, 64), generator=g, device=device))
+               torch.randint(0, 56, (500, 64), generator=g, device=device))
     # The sparse drill's rotate: 8 hot slots, n=64, queue 64.
     table_case("elastic", "rotate", (torch.rand((8,), generator=g, device=device) < 0.4).to(torch.int64),
                torch.randint(0, 8, (64, 64), generator=g, device=device))
@@ -1621,9 +1650,11 @@ def dense_chunks(cfg, topo, sched, chunk: int = 12, telemetry=None):
         yield state, curves, {}
 
 
-def sparse_epochs(cfg, topo, sched):
+def sparse_epochs(cfg, topo, sched, last: dict | None = None):
     """``simulate_sparse`` one epoch at a time, each call resuming the last;
-    yields (SparseState, curves, info) per epoch."""
+    yields (SparseState, curves, info) per epoch, and puts the epoch's
+    resume point (swim state and vis_round with it) under ``last["resume"]``
+    when ``last`` is given."""
     from corrosion_tpu_torch.sim import sparse_engine
 
     resume = None
@@ -1632,6 +1663,8 @@ def sparse_epochs(cfg, topo, sched):
             cfg, topo, sched, seed=0, resume=resume, stop_after_epoch=epoch, device="cuda"
         )
         resume = info.pop("resume")  # only the latest state stays alive
+        if last is not None:
+            last["resume"] = resume
         yield sstate, curves, dict(info, unseen=int((vis < 0).sum()))
 
 
@@ -1654,10 +1687,13 @@ def full_run(onehot, gossip, phase: int, builder: str, keep: dict | None = None,
     """A main path at full size, every round of its schedule, one call per
     chunk (dense engine) or epoch (sparse engine), with the launch counts
     reset just before and read just after. ``keep`` takes the state, the
-    curves and the CUDA-event ms after ``SHARDED_ROUNDS`` rounds, and under
-    ``final`` the last round's cell planes, ``head``, ``contig``, window
-    words and alive mask (on the host), the gossip config and the
-    schedule's writes; ``walls`` the run's wall seconds under its name."""
+    curves and the CUDA-event ms after ``SHARDED_ROUNDS`` rounds (the
+    sparse engine: the (sparse state, swim state, vis_round), the curves,
+    the ms, the peak memory so far and the epochs' info after
+    ``SPARSE_SHARDED_ROUNDS``), and under ``final`` the last round's cell
+    planes, ``head``, ``contig``, window words and alive mask (on the
+    host), the gossip config and the schedule's writes (dense only);
+    ``walls`` the run's wall seconds under its name."""
     from corrosion_tpu_torch.parallel import mesh as mesh_mod
     from corrosion_tpu_torch.sim import sparse_engine
 
@@ -1666,8 +1702,9 @@ def full_run(onehot, gossip, phase: int, builder: str, keep: dict | None = None,
     # wan_100k carries the flight recorder and the metrics bridge: one
     # chunk a 12-round call.
     tele = bridge_telemetry(builder, "dense") if builder == "wan_100k" else None
+    last = {}
     if sparse:
-        chunks = sparse_epochs(cfg, topo, sched)
+        chunks = sparse_epochs(cfg, topo, sched, last)
     else:
         chunks = dense_chunks(cfg, topo, sched, telemetry=tele)
     torch.cuda.synchronize()
@@ -1693,14 +1730,19 @@ def full_run(onehot, gossip, phase: int, builder: str, keep: dict | None = None,
         log(f"phase {phase}: rounds {done}-{done + rounds - 1}: {ms / rounds:.1f} ms/round"
             + "".join(f", {k} {v}" for k, v in info.items()))
         done += rounds
-        if keep is not None and done == SHARDED_ROUNDS:
+        if keep is not None and done == (SPARSE_SHARDED_ROUNDS if sparse else SHARDED_ROUNDS):
             # Held on the host, so the later phases' peaks stay their own.
-            keep.update(state=mesh_mod.to_host(state), ms=elapsed,
+            held = state
+            if sparse:
+                held = (state, last["resume"]["swim"], last["resume"]["vis_round"])
+                keep.update(peak=torch.cuda.max_memory_allocated(), infos=list(infos))
+            keep.update(state=mesh_mod.to_host(held), ms=elapsed,
                         curves={k: np.concatenate([p[k] for p in parts]) for k in parts[0]})
+            del held
     wall = time.perf_counter() - t_wall
     if walls is not None:
         walls[builder] = wall
-    if keep is not None:
+    if keep is not None and not sparse:
         keep["peak"] = torch.cuda.max_memory_allocated()
         # Phase 15 holds the final cells to the SQLite store and reads the
         # flight's write journeys. The cell planes, the watermarks and the
@@ -2143,8 +2185,16 @@ def sharded_runs(onehot, gossip, kept: dict, drills: tuple, phase: int = 13) -> 
         structural check (no whole node plane inside a position body).
         Printed beside phase 5's: ms/round and peak memory; beside
         ``traffic_model``'s detail: the bytes of each exchange kind;
-    (b) ``anywrite_sparse`` at phase 4's n=2000 on 4 positions == the
-        unsharded card run;
+    (b) full-width ``anywrite_sparse()`` on the same mesh, partitioned
+        (every plane of the round and the epoch boundary per position, the
+        state resident in the positions' blocks): one round from a fresh
+        state under the structural check, then ``SPARSE_SHARDED_ROUNDS``
+        rounds whose curves, state and info equal phase 7's at that round,
+        each position holding the predicted bytes after every round, its
+        peak at or below phase 7's over the same rounds; printed beside
+        phase 7's: ms/round and peak; the exchange bytes by kind and tag;
+        then phase 4's n=2000 on 4 positions (forced demotions, the cold
+        plane) == the unsharded card run;
     (c) the merge_10k burst at n=2560 (legacy delivery) on 2 positions,
         partitioned, == the unsharded card run;
     (d) the elastic drills on the card (``ELASTIC_DRILLS``, ``drills``:
@@ -2159,7 +2209,7 @@ def sharded_runs(onehot, gossip, kept: dict, drills: tuple, phase: int = 13) -> 
     from corrosion_tpu_torch.obs import epidemic
     from corrosion_tpu_torch.parallel import mesh as mesh_mod
     from corrosion_tpu_torch.parallel import shard_driver
-    from corrosion_tpu_torch.sim import engine, sparse_engine
+    from corrosion_tpu_torch.sim import engine
     from corrosion_tpu_torch.sim.telemetry import XSHARD_CURVE_KEYS
 
     t_phase = time.perf_counter()
@@ -2251,28 +2301,7 @@ def sharded_runs(onehot, gossip, kept: dict, drills: tuple, phase: int = 13) -> 
                        oo=mid.data.oo, alive=mid.swim.alive)
     del state, parts, mid
 
-    # (b) anywrite_sparse at n=2000 on 4 positions.
-    cfg, topo, sched = baselines.anywrite_sparse(device="cuda", **SPARSE_SMALL)
-    onehot.reset_launches()
-    got, ms = _timed(lambda: parallel.simulate_sparse_sharded(cfg, topo, sched, mesh, seed=0))
-    by_path["anywrite_sparse_sharded"] = launches = dict(onehot.LAUNCHES)
-    want, ms_whole = _timed(lambda: sparse_engine.simulate_sparse(cfg, topo, sched, seed=0,
-                                                                  device="cuda"))
-    missing = [k for k in PATH_KERNELS["anywrite_sparse_sharded"] if launches[k] == 0]
-    assert not missing, f"anywrite_sparse sharded: kernels never launched: {missing}"
-    bad = _same_on_card(tuple(got[:3]), tuple(want[:3]))
-    bad += _curve_diff(want[3], got[3], XSHARD_CURVE_KEYS)
-    assert not bad, f"anywrite_sparse sharded differs from the unsharded card run in {bad}"
-    assert {k: v for k, v in got[4].items() if k != "resume"} == \
-           {k: v for k, v in want[4].items() if k != "resume"}
-    ok, problems = epidemic.xshard_model_check(got[3], cfg.gossip, mesh)
-    assert ok, problems
-    rounds = len(got[3]["need"])
-    log(f"phase {phase}: anywrite_sparse n={cfg.n_nodes} on {mesh.size} positions, {rounds} "
-        f"rounds == the unsharded card run ({ms / rounds:.1f} against {ms_whole / rounds:.1f} "
-        f"ms/round); exchange bytes a round ici {got[3]['xshard_bytes_ici'][0]:.0f}, dcn "
-        f"{got[3]['xshard_bytes_dcn'][0]:.0f} == traffic_model; launches {json.dumps(launches)}")
-    del got, want
+    by_path.update(sparse_sharded_runs(onehot, gossip, kept, mesh, phase))
 
     # (c) the merge_10k burst at n=2560 (legacy delivery) on 2 positions.
     cfg, topo, sched = baselines.merge_10k(device="cuda", n=2560, rounds=MERGE_SHARDED_ROUNDS)
@@ -2300,6 +2329,127 @@ def sharded_runs(onehot, gossip, kept: dict, drills: tuple, phase: int = 13) -> 
 
     by_path["elastic"] = elastic_drills(drills, phase)
     log(f"phase {phase}: {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
+def sparse_sharded_runs(onehot, gossip, kept: dict, mesh, phase: int = 13) -> dict:
+    """Phase 13 (b): full-width ``anywrite_sparse()`` partitioned on
+    ``mesh``, held to phase 7's first ``SPARSE_SHARDED_ROUNDS`` rounds
+    (``kept["sparse"]``, popped), then phase 4's n=2000 on the same mesh
+    against its unsharded card run. Returns the launch counts by path."""
+    from corrosion_tpu_torch import parallel
+    from corrosion_tpu_torch.models import baselines
+    from corrosion_tpu_torch.obs import epidemic
+    from corrosion_tpu_torch.parallel import mesh as mesh_mod
+    from corrosion_tpu_torch.parallel import shard_driver
+    from corrosion_tpu_torch.sim import sparse_engine
+    from corrosion_tpu_torch.sim.telemetry import XSHARD_CURVE_KEYS
+
+    by_path = {}
+    # (b) anywrite_sparse at full width on the (2, 2) mesh, partitioned:
+    # one round from a fresh state under the structural check, then its
+    # first SPARSE_SHARDED_ROUNDS rounds, held to phase 7's.
+    sk = kept.pop("sparse")
+    cfg, topo, sched = build_path("anywrite_sparse")
+    n, nl = cfg.n_nodes, cfg.n_nodes // mesh.size
+    epochs = SPARSE_SHARDED_ROUNDS // cfg.sparse.epoch_rounds
+    check = shard_driver.WholePlaneCheck(n, nl, n_cells=cfg.gossip.n_cells)
+    out, check_ms = _timed(lambda: parallel.simulate_sparse_sharded(
+        cfg, topo, sched.slice(0, 1), mesh, seed=0, watch=check
+    ))
+    watched = out[3]
+    del out  # the watched round's state, so the timed run's peak is its own
+    assert all(np.isfinite(v.astype(np.float64)).all() for v in watched.values())
+    assert check.ops > 1000 and check.found == [], \
+        f"anywrite_sparse: whole node planes inside the position bodies: {check.found[:8]}"
+    log(f"phase {phase}: structural check over one full-width anywrite_sparse round (its "
+        f"epoch boundary and round): {check.ops} operations in the position bodies, none "
+        f"outputs a whole node plane ({check_ms:.0f} ms watched)")
+    del watched
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    onehot.reset_launches()
+    gossip.reset_host_syncs()
+    info = {}
+    got, ms = _timed(lambda: parallel.simulate_sparse_sharded(
+        cfg, topo, sched, mesh, seed=0, stop_after_epoch=epochs - 1, info=info
+    ))
+    by_path["anywrite_sparse_sharded"] = launches = dict(onehot.LAUNCHES)
+    syncs = dict(gossip.HOST_SYNCS)
+    peak = torch.cuda.max_memory_allocated()
+    rounds = len(got[3]["need"])
+    assert rounds == SPARSE_SHARDED_ROUNDS, rounds
+    missing = [k for k in PATH_KERNELS["anywrite_sparse_sharded"] if launches[k] == 0]
+    assert not missing, f"anywrite_sparse sharded: kernels never launched: {missing}"
+    bad = _curve_diff(sk["curves"], got[3], XSHARD_CURVE_KEYS)
+    assert not bad, f"anywrite_sparse sharded: curves differ from phase 7's in {bad}"
+    bad = _same_on_card(tuple(got[:3]), sk["state"])
+    assert not bad, f"anywrite_sparse sharded: state differs from phase 7's in {bad}"
+    want = {"epochs": len(sk["infos"]), "retired": sum(i["retired"] for i in sk["infos"]),
+            "promoted": sum(i["promoted"] for i in sk["infos"]),
+            "dev_dropped": sum(i["dev_dropped"] for i in sk["infos"]),
+            "max_dev_entries": max(i["max_dev_entries"] for i in sk["infos"])}
+    assert {k: got[4][k] for k in want} == want, (got[4], want)
+    assert want["retired"] > 0, "anywrite_sparse sharded: no slot retired in the run"
+    ok, problems = epidemic.xshard_model_check(got[3], cfg.gossip, mesh)
+    assert ok, problems
+    tree = tuple(got[:3])
+    per = parallel.per_device_state_bytes(tree)
+    predicted = mesh_mod.predicted_per_device_bytes(tree, shard_driver.sparse_specs(tree, mesh),
+                                                    mesh)
+    assert sorted(per) == list(range(mesh.size)) and set(per.values()) == {predicted}, per
+    during = {b for row in info["state_bytes"] for b in row}
+    assert len(info["state_bytes"]) == rounds and during == {predicted}, during
+    whole = sum(math.prod(x.shape) * x.dtype.itemsize for x in mesh_mod.tree_leaves(tree))
+    exch = {k: v / rounds for k, v in sorted(info["exchange_bytes"].items())}
+    by_tag = {k: v / rounds for k, v in sorted(info["exchange_bytes_by_tag"].items())}
+    log(f"phase {phase}: anywrite_sparse N={n} W={cfg.gossip.n_writers} partitioned on "
+        f"{mesh.size} positions, {rounds} rounds ({epochs} epochs): {ms / rounds:.1f} ms/round "
+        f"against {sk['ms'] / rounds:.1f} unsharded (phase 7, CUDA events; all positions share "
+        f"one card, so no speed claim), peak memory {peak / 2**30:.2f} GiB against phase 7's "
+        f"{sk['peak'] / 2**30:.2f} GiB over the same rounds; curves equal phase 7's first "
+        f"{rounds} rounds, state equal leaf for leaf, info {json.dumps(want)}; cold_healed "
+        f"{int(got[3]['cold_healed'].sum())}; queue wire a round ici "
+        f"{got[3]['xshard_bytes_ici'][0]:.0f}, dcn {got[3]['xshard_bytes_dcn'][0]:.0f} == "
+        f"traffic_model; state bytes a position after every round {predicted} == predicted "
+        f"({predicted / whole:.4f} of the whole {whole}); launches {json.dumps(launches)}; host "
+        f"syncs {json.dumps(syncs)}")
+    log(f"phase {phase}: anywrite_sparse exchange bytes a round between positions, by kind "
+        f"{json.dumps(exch)}; by tag {json.dumps(by_tag)}")
+    assert peak <= sk["peak"], (f"anywrite_sparse sharded: peak {peak} above the unsharded "
+                                f"run's {sk['peak']} over the same rounds")
+    kept["sparse_sharded"] = dict(ms_per_round=ms / rounds, ms_unsharded=sk["ms"] / rounds,
+                                  peak=peak, peak_unsharded=sk["peak"], state_bytes=predicted,
+                                  exchange=exch, by_tag=by_tag)
+    del got, tree, sk
+
+    # (b') anywrite_sparse at phase 4's n=2000 on 4 positions: forced
+    # demotions under a region cut, so the partitioned cold plane runs.
+    cfg, topo, sched = baselines.anywrite_sparse(device="cuda", **SPARSE_SMALL)
+    onehot.reset_launches()
+    got, ms = _timed(lambda: parallel.simulate_sparse_sharded(cfg, topo, sched, mesh, seed=0))
+    by_path["anywrite_sparse_small_sharded"] = launches = dict(onehot.LAUNCHES)
+    want, ms_whole = _timed(lambda: sparse_engine.simulate_sparse(cfg, topo, sched, seed=0,
+                                                                  device="cuda"))
+    missing = [k for k in PATH_KERNELS["anywrite_sparse_small_sharded"] if launches[k] == 0]
+    assert not missing, f"anywrite_sparse n=2000 sharded: kernels never launched: {missing}"
+    bad = _same_on_card(tuple(got[:3]), tuple(want[:3]))
+    bad += _curve_diff(want[3], got[3], XSHARD_CURVE_KEYS)
+    assert not bad, f"anywrite_sparse n=2000 sharded differs from the unsharded card run in {bad}"
+    assert {k: v for k, v in got[4].items() if k != "resume"} == \
+           {k: v for k, v in want[4].items() if k != "resume"}
+    assert got[4]["max_dev_entries"] > 0 and got[3]["cold_healed"].sum() > 0
+    ok, problems = epidemic.xshard_model_check(got[3], cfg.gossip, mesh)
+    assert ok, problems
+    rounds = len(got[3]["need"])
+    log(f"phase {phase}: anywrite_sparse n={cfg.n_nodes} on {mesh.size} positions, {rounds} "
+        f"rounds == the unsharded card run ({ms / rounds:.1f} against {ms_whole / rounds:.1f} "
+        f"ms/round); max dev entries {got[4]['max_dev_entries']}, cold_healed "
+        f"{int(got[3]['cold_healed'].sum())}; exchange bytes a round ici "
+        f"{got[3]['xshard_bytes_ici'][0]:.0f}, dcn {got[3]['xshard_bytes_dcn'][0]:.0f} == "
+        f"traffic_model; launches {json.dumps(launches)}")
+    del got, want
+
     return by_path
 
 
@@ -3064,8 +3214,9 @@ def main() -> int:
         for phase, path in (
             (5, "wan_100k"), (6, "merge_10k"), (7, "anywrite_sparse"), (8, "wan_100k_adaptive"),
         ):
-            by_path[path] = full_run(onehot, gossip, phase, path,
-                                     keep=kept if path == "wan_100k" else None, walls=walls)
+            keep = {"wan_100k": kept, "anywrite_sparse": kept.setdefault("sparse", {})}
+            by_path[path] = full_run(onehot, gossip, phase, path, keep=keep.get(path),
+                                     walls=walls)
             lap(f"phase {phase}")
         by_path["geo_10k"] = geo_run(onehot, gossip, keep=kept)
         lap("phase 9")

@@ -180,14 +180,8 @@ def run_sparse_resharded(
     wall["checkpoint"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    node = shard_driver.node_spec_entry(mesh_to)
     tree = (host["sstate"], host["swim"], host["vis_round"])
-    specs = (
-        mesh_mod.sparse_state_specs(host["sstate"], mesh_to),
-        mesh_mod.node_major_specs(host["swim"], mesh_to),
-        P(None, node),
-    )
-    placed, reconcile = place_reconciled(tree, specs, mesh_to)
+    placed, reconcile = place_reconciled(tree, shard_driver.sparse_specs(tree, mesh_to), mesh_to)
     resume2 = {
         "sstate": placed[0], "swim": placed[1], "vis_round": placed[2],
         "planner": host["planner"], "next_epoch": int(host["next_epoch"]),

@@ -1,21 +1,29 @@
-"""The shard driver: the dense round partitioned over a mesh of positions
-(counterpart of corrosion_tpu/parallel/shard_driver.py, whose docstring
-describes the design; there XLA partitions SWIM, sync, churn and
-visibility over the sharded state, here every plane runs per position).
+"""The shard driver: the dense and the any-node-writes rounds partitioned
+over a mesh of positions (counterpart of
+corrosion_tpu/parallel/shard_driver.py, whose docstring describes the
+design; there XLA partitions SWIM, sync, churn and visibility over the
+sharded state, here every plane runs per position).
 
 - **Resident state.** ``simulate_sharded`` carries the ``Placed`` blocks
   of ``mesh.shard_cluster_state`` from the first round to the last, across
   rounds and ``max_chunk`` pieces: each position's round body
   (``sim.engine.round_body``) reads and writes only its own rows of every
   node-major leaf, its columns of ``vis_round`` and its copy of the
-  replicated leaves. Nothing assembles the whole state during a run.
+  replicated leaves. ``simulate_sparse_sharded`` does the same for the
+  any-node-writes engine across rounds and epochs: its round body
+  (``sim.sparse_engine._sparse_round``) and its epoch bodies
+  (``ops.sparse_writers._demote_report``, ``_rotate``, the cold
+  visibility) run per position, and only the host planner's slot
+  metadata is replicated. Nothing assembles the whole state during a run.
 - **Typed exchanges.** The bodies run in lockstep (``_lockstep``); where
   the round reads what other positions own, every body yields the same
   request (``ops/exchange.py``) and the driver answers them together:
   ``Reduce`` (partial sums, maxima, ORs: the broadcast's and the round's
-  stats, the pulled counts, the window and grant flags), ``Gather`` (the
-  ``[N]`` alive and incarnation vectors, the reference's alive-vector
-  gather at the shard_map boundary), ``Rows`` (rows by global node index,
+  stats, the pulled counts, the window, grant and deviation flags, the
+  rotation's and the feasibility check's counts), ``Gather`` (the ``[N]``
+  alive and incarnation vectors, the reference's alive-vector gather at
+  the shard_map boundary, and the sparse engine's ``head_full`` where a
+  rotation's claims or a cold sync read it at global writer ids), ``Rows`` (rows by global node index,
   each owner serving what was asked of it: sync's candidates and peers,
   the sparse SWIM sources' backlogs, a revived node's seed view),
   ``Route`` (entries addressed to rows, delivered to their owners in
@@ -43,10 +51,10 @@ visibility over the sharded state, here every plane runs per position).
   values or on a cross-position OR, so a partitioned run equals the
   unsharded one on any mesh.
 
-The sparse, mixed and chunk engines (``simulate_sparse_sharded``,
-``simulate_mixed_sharded``, ``simulate_chunks_sharded``) still run in the
-controller: their state is placed at rest, assembled on the mesh's home
-device for the run, and only their broadcast plane goes per position
+The mixed and chunk engines (``simulate_mixed_sharded``,
+``simulate_chunks_sharded``) still run in the controller: their state is
+placed at rest, assembled on the mesh's home device for the run, and only
+the mixed engine's broadcast plane goes per position
 (``make_sharded_broadcast``).
 """
 
@@ -383,7 +391,7 @@ def _lockstep(bodies: list, mesh: Mesh, n_nodes: int, tally: ExchangeTally, watc
 @functools.lru_cache(maxsize=None)
 def make_sharded_broadcast(mesh: Mesh):
     """A drop-in for ``gossip.broadcast_round`` in an engine that runs in
-    the controller (the sparse and mixed engines, the plane composites):
+    the controller (the mixed engine, the plane composites):
     it places the whole DataState it is given over ``mesh``, runs the
     broadcast body once per position on its blocks in lockstep, and
     returns the whole next DataState and the round's stats plus
@@ -434,11 +442,12 @@ def per_device_state_bytes(tree) -> dict:
     of the per-position memory claim. Replicated leaves count whole at
     every position, split leaves their block.
 
-    For the dense engine this is also what a position holds during a run:
-    ``simulate_sharded`` carries these blocks from round to round and its
-    ``info["state_bytes"]`` reads them after every round. The sparse,
-    mixed and chunk engines assemble their state in the controller for a
-    run, so for them it is the placement at rest."""
+    For the dense and the any-node-writes engines this is also what a
+    position holds during a run: ``simulate_sharded`` and
+    ``simulate_sparse_sharded`` carry these blocks from round to round and
+    their ``info["state_bytes"]`` reads them after every round. The mixed
+    and chunk engines assemble their state in the controller for a run,
+    so for them it is the placement at rest."""
     out: dict = {}
     for leaf in mesh_mod.tree_leaves(tree):
         if not isinstance(leaf, Placed):
@@ -624,43 +633,103 @@ def simulate_sharded(
     return final, curves
 
 
-def _place_sparse_resume(resume: dict, mesh: Mesh) -> dict:
-    node = node_spec_entry(mesh)
-    return dict(
-        resume,
-        sstate=mesh_mod.shard_sparse_state(resume["sstate"], mesh),
-        swim=mesh_mod.shard_node_major(resume["swim"], mesh),
-        vis_round=mesh_mod.place_leaf(resume["vis_round"], P(None, node), mesh),
+def sparse_specs(tree: tuple, mesh: Mesh) -> tuple:
+    """The spec tree of the sparse engine's (sparse state, swim state,
+    vis_round), whole, placed or a position's block: the one placement its
+    resume points and byte predictions read."""
+    return (
+        mesh_mod.sparse_state_specs(tree[0], mesh),
+        mesh_mod.node_major_specs(tree[1], mesh),
+        P(None, node_spec_entry(mesh)),
     )
+
+
+def _sparse_blocks(resume: dict, mesh: Mesh) -> list:
+    """Each position's (sparse state, swim state, vis_round) block of a
+    resume point: its blocks where the point is placed on ``mesh``, else
+    the point placed once (whole, or placed on another mesh)."""
+    tree = (resume["sstate"], resume["swim"], resume["vis_round"])
+    if not _is_placed_on(tree, mesh):
+        tree = mesh_mod.place(tree, sparse_specs(tree, mesh), mesh)
+    blocks = []
+    for i in range(mesh.size):
+        st, sw, vr = mesh_mod.position_tree(tree, i)
+        # The kernels take contiguous operands: a row block of the [B, N,
+        # W] window words is one only at B = 1.
+        blocks.append((st._replace(data=st.data._replace(oo=st.data.oo.contiguous())), sw, vr))
+    return blocks
 
 
 def simulate_sparse_sharded(
     cfg, topo, sched, mesh: Mesh, seed: int = 0, telemetry=None, resume: dict | None = None,
-    stop_after_epoch: int | None = None,
+    stop_after_epoch: int | None = None, info: dict | None = None, watch=None,
 ):
-    """The any-node-writes engine under the shard driver, still in the
-    controller: the placed state is assembled on the mesh's home device
-    for the run, the slot plane's broadcast runs per position through
-    ``make_sharded_broadcast`` (``q_gw`` rides the queue exchange), and
-    rotation, cold sync, SWIM and the rest run on whole tensors. Returns
-    what ``simulate_sparse`` returns, with the states (and
-    ``info["resume"]``'s) placed per position."""
+    """The any-node-writes engine partitioned over ``mesh``: every plane of
+    the round (``sparse_engine._sparse_round``: churn, broadcast with
+    ``q_gw`` on the queue exchange, SWIM, sync, the rejoin sync, cold sync,
+    hot visibility, the health reductions) and of the epoch boundary (the
+    planner's feasibility check, ``_demote_report``; the rotation,
+    ``_rotate``; the epoch-end cold visibility) runs once per position on
+    its rows, the positions in lockstep through the typed exchanges. The
+    host planner stays on the host (slot metadata, replicated). The state
+    stays in the positions' blocks across rounds and epochs: a fresh run
+    builds each position's block where it sits, and ``resume`` (placed on
+    ``mesh``, or whole or placed elsewhere and then placed once)
+    continues. Returns what ``simulate_sparse`` returns, with the states
+    (and ``info["resume"]``'s) placed per position; equal to it bit for
+    bit.
+
+    ``info`` (a dict) receives the exchanges' bytes between positions by
+    kind and by tag and each position's state bytes after every round, as
+    ``simulate_sharded``'s does; ``watch`` is the structural check's hook
+    (``WholePlaneCheck``)."""
     from corrosion_tpu_torch.sim import sparse_engine
 
-    home = mesh.home
-    if resume is not None:
-        resume = dict(
-            resume, sstate=mesh_mod.assemble(resume["sstate"], home),
-            swim=mesh_mod.assemble(resume["swim"], home),
-            vis_round=mesh_mod.assemble(resume["vis_round"], home),
+    d = mesh.size
+    n = cfg.n_nodes
+    if n % d:
+        raise ValueError(
+            f"the shard driver needs n_nodes divisible by the mesh size: {n} % {d} != 0"
         )
-    sstate, swim_state, vis_round, curves, info = sparse_engine.simulate_sparse(
-        cfg, topo, sched, seed=seed, resume=resume, stop_after_epoch=stop_after_epoch,
-        telemetry=telemetry, device=home, bcast_fn=make_sharded_broadcast(mesh),
+    sparse_engine.check_schedule(cfg, sched)
+    devices = list(mesh.devices.flat)
+    planner = sparse_engine._Planner(n, cfg.w_hot, cfg.sparse)
+    start_epoch = 0
+    if resume is None:
+        blocks = [sparse_engine.init_position(cfg, len(sched.sample_writer), dev, n // d)
+                  for dev in devices]
+    else:
+        planner.restore(resume["planner"])
+        start_epoch = int(resume["next_epoch"])
+        blocks = _sparse_blocks(resume, mesh)
+    specs = sparse_specs(blocks[0], mesh)
+    tally = ExchangeTally()
+
+    def after_round(bs):
+        tally.state_bytes.append([sum(_nbytes(x) for x in mesh_mod.tree_leaves(b)) for b in bs])
+
+    box = [blocks]
+    blocks = None
+    final, curves, out = sparse_engine.run_epochs(
+        cfg, topo, sched, seed, box, planner, start_epoch, _positions(topo, mesh, n), devices,
+        lambda bodies: _lockstep(bodies, mesh, n, tally, watch),
+        telemetry=telemetry, stop_after_epoch=stop_after_epoch, watch=watch,
+        after_round=after_round,
     )
-    info["resume"] = _place_sparse_resume(info["resume"], mesh)
-    r = info["resume"]
-    return r["sstate"], r["swim"], r["vis_round"], curves, info
+    sstate, swim_state, vis_round = mesh_mod.from_positions(final, specs, mesh)
+    del final
+    out["resume"] = {
+        "planner": planner.snapshot(),
+        "sstate": sstate,
+        "swim": swim_state,
+        "vis_round": vis_round,
+        "next_epoch": out["epochs"] + start_epoch,
+    }
+    if info is not None:
+        info["exchange_bytes"] = dict(tally.by_kind)
+        info["exchange_bytes_by_tag"] = dict(tally.by_tag)
+        info["state_bytes"] = tally.state_bytes
+    return sstate, swim_state, vis_round, curves, out
 
 
 def simulate_chunks_sharded(

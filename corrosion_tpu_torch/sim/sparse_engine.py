@@ -16,11 +16,20 @@ Each round folds its absolute index into the seed's key and splits it
 run, equals the reference's bit for bit. The epoch's ``lax.scan`` is a
 Python loop; nothing updates a caller's tensors in place, so a resume
 dict replays as often as it is passed in.
+
+The round (``_sparse_round``) and the epoch boundary's device work
+(``sparse_writers._demote_report``, ``_rotate``, the cold visibility) are
+bodies over one mesh position's rows (``ops/exchange.py``), driven by
+``run_epochs``: ``simulate_sparse`` runs them on one position holding
+every row, the shard driver (``parallel.simulate_sparse_sharded``) one a
+position in lockstep on state that stays in the positions' blocks.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -28,6 +37,7 @@ from torch.profiler import record_function
 
 from corrosion_tpu_torch import resolve_device
 from corrosion_tpu_torch import rng as rng_mod
+from corrosion_tpu_torch.ops import exchange
 from corrosion_tpu_torch.ops import gossip as gossip_ops
 from corrosion_tpu_torch.ops import sparse_writers as sw_ops
 from corrosion_tpu_torch.ops import swim as swim_ops
@@ -206,89 +216,120 @@ class _Planner:
         self.free = [int(x) for x in snap["free"]]
 
 
-def _sparse_round(st, sw, vr, topo, w_slots, part, kill, revive, r: int, loss,
-                  probe_loss, s_slot, s_ver, s_round, base_key,
-                  cfg: SparseClusterConfig, sp: SparseConfig, bcast_fn=None):
-    """One round of the epoch body (reference ``_epoch_scan_impl.body``).
-    Returns (sparse state, swim state, vis_round, stats). ``bcast_fn``
-    replaces ``gossip.broadcast_round`` (the shard driver's)."""
+def _sparse_round(st, sw, vr, topo, writes, partition, kill, revive, r: int, loss, probe_loss,
+                  s_slot, s_ver, s_round, rng, cfg: SparseClusterConfig, pos: exchange.Pos):
+    """One round of the epoch body (reference ``_epoch_scan_impl.body``)
+    over one mesh position's rows: a generator (``ops/exchange.py``) that
+    returns (sparse state, swim state, vis_round, stats). ``st``, ``sw``
+    and ``vr`` are the position's blocks (its rows, its columns of
+    ``vis_round``, the slot vectors whole); the topology and the round's
+    inputs are whole; ``rng`` is the round's key (the seed's folded with
+    ``r``). The planes run in the reference's order (churn, broadcast,
+    SWIM, sync, the rejoin sync, cold sync, hot visibility), each on the
+    position's rows, and every summed and maxed curve comes from one
+    cross-position reduction."""
     swim_impl = swim_ops.impl(cfg.swim)
-    key = rng_mod.fold_in(base_key, r)
     has_churn = kill is not None
+    # Pause-resume churn only (simulate_sparse refuses wipe schedules).
+    keys = rng_mod.split_keys(rng, 5 if has_churn else 3)
     if has_churn:
-        keys = rng_mod.split(key, 5)
-        k_churn, k_b, k_sw, k_sy, k_rejoin = (keys[i] for i in range(5))
-        # Pause-resume churn only (simulate_sparse refuses wipe schedules).
-        sw = swim_impl.apply_churn(sw, kill, revive, k_churn, cfg.swim.max_transmissions)
+        k_churn, k_bcast, k_swim, k_sync, k_rejoin = keys
+        sw, alive = yield from swim_impl._apply_churn(
+            sw, kill, revive, k_churn, cfg.swim.max_transmissions, None, pos
+        )
     else:
-        keys = rng_mod.split(key, 3)
-        k_b, k_sw, k_sy = keys[0], keys[1], keys[2]
-    alive = sw.alive
+        k_bcast, k_swim, k_sync = keys
+        (alive,) = yield exchange.Gather("alive", (sw.alive,))
     r_t = torch.tensor(r, dtype=torch.int64, device=alive.device)
+    # Profiler ranges only where one position holds every row (lockstepped
+    # positions would interleave them).
+    plane = record_function if pos.whole else (lambda name: contextlib.nullcontext())
 
-    bfn = gossip_ops.broadcast_round if bcast_fn is None else bcast_fn
-    with record_function("corro_broadcast"):
-        data, bstats = bfn(st.data, topo, alive, part, w_slots, k_b, cfg.gossip, loss=loss)
-    with record_function("corro_swim"):
+    with plane("corro_broadcast"):
+        data, bstats = yield from gossip_ops._broadcast_round(
+            st.data, topo, alive, partition, writes, k_bcast, cfg.gossip, loss, pos
+        )
+    with plane("corro_swim"):
         # After churn: revive bumps are rejoins, not flaps.
         inc_pre = sw.incarnation
-        sw = swim_impl.swim_round(sw, k_sw, r_t, cfg.swim, probe_loss=probe_loss)
-    with record_function("corro_sync"):
-        data, ssta = gossip_ops.sync_round(data, topo, alive, part, r_t, k_sy, cfg.gossip)
+        sw = yield from swim_impl._swim_round(sw, alive, k_swim, r_t, cfg.swim, probe_loss, pos)
+    with plane("corro_sync"):
+        data, sstats = yield from gossip_ops._sync_round(
+            data, topo, alive, partition, r_t, k_sync, cfg.gossip, pos
+        )
         if has_churn:
-            data, rsta = gossip_ops.revive_sync(
-                data, topo, alive, part, revive, k_rejoin, cfg.gossip
+            data, rstats = yield from gossip_ops._revive_sync(
+                data, topo, alive, partition, revive, k_rejoin, cfg.gossip, pos
             )
-            ssta = {k: ssta[k] + rsta[k] for k in ssta}
-        st = st._replace(data=data)
-        st, csta = sw_ops.cold_sync(st, topo.region, alive, part, cfg.gossip, sp)
+            sstats = {k: sstats[k] + rstats[k] for k in sstats}
+        st, cstats, head_full = yield from sw_ops._cold_sync(
+            st._replace(data=data), topo.region, alive, partition, cfg.gossip, cfg.sparse, pos
+        )
+        data = st.data
 
     # Hot-plane visibility for samples whose writer holds a slot.
-    with record_function("corro_track"):
+    with plane("corro_track"):
         hot = s_slot >= 0
-        vis_now = gossip_ops.visibility(st.data, torch.clamp(s_slot, min=0), s_ver)
+        vis_now = gossip_ops.visibility(data, torch.clamp(s_slot, min=0), s_ver)
         active_s = r >= s_round
         vr_new = torch.where((vr < 0) & vis_now & (hot & active_s)[:, None], r, vr)
+        del vis_now
 
     # Staleness is measured on the hot slot plane; the cold plane's residue
-    # is in `need` through cold_need.
-    with record_function("corro_health"):
+    # is in `need` through the cold lag.
+    with plane("corro_health"):
         newly = (vr_new >= 0) & (vr < 0)
-        lat_hist = telemetry_mod.delivery_latency_hist(r - s_round[:, None], newly)
-        stale_sum, stale_max = gossip_ops.staleness(st.data)
-        false_alarms, undetected = swim_impl.health_counts(sw)
-        # Rumor ages track the hot-plane samples, like vis_count.
+        lat = r - s_round[:, None]
+        lat_hist = telemetry_mod.delivery_latency_hist(lat, newly)
+        part = dict(lat_hist)
+        if cfg.gossip.prop_observe:
+            # Rumor ages track the hot-plane samples, like vis_count.
+            part.update(telemetry_mod.rumor_age_hist(lat, newly))
+        stale_sum, stale_max = gossip_ops._staleness_parts(data)
+        false_alarms, undetected = swim_impl._health_counts(sw, alive, pos)
+        part.update(
+            mismatches=swim_impl._mismatches(sw, alive, pos),
+            need=gossip_ops._need_part(data) + sw_ops._cold_need_part(st, head_full),
+            vis_count=newly.sum(),
+            staleness_sum=stale_sum,
+            swim_false_alarms=false_alarms,
+            swim_undetected_deaths=undetected,
+            swim_flaps=(sw.incarnation != inc_pre).sum(),
+            queue_backlog=gossip_ops.queue_backlog(data),
+            sync_cells=sstats["cell_merges"],
+            **{k: sstats[k] for k in ("applied_sync", "sessions", "sync_regrant")},
+            **cstats,
+        )
+        del newly, head_full
+        total = yield exchange.Reduce("health", sum=tuple(part.values()), max=(stale_max,))
+        t = dict(zip(part, total.sum))
+        lat_hist.update((k, t[k]) for k in lat_hist)
         prop_stats = telemetry_mod.prop_curves(
             cfg.gossip.prop_observe, bstats.get("prop_link"),
             bstats.get("prop_useful"), bstats.get("prop_dup"),
-            r - s_round[:, None], newly,
             kills=bstats.get("prop_kills"), pulls=bstats.get("prop_pulls"),
+            age_hist={k: t[k] for k in telemetry_mod.RUMOR_AGE_KEYS if k in t},
         )
-        mism = swim_impl.mismatches(sw)
-        need = (gossip_ops.total_need(st.data) + sw_ops.cold_need(st)) & MASK
-        backlog = gossip_ops.queue_backlog(st.data)
     stats = telemetry_mod.round_curves(
-        mismatches=mism,
-        need=need,
+        mismatches=t["mismatches"],
+        need=t["need"] & MASK,
         applied_broadcast=bstats["applied_broadcast"],
-        applied_sync=ssta["applied_sync"],
+        applied_sync=t["applied_sync"] & MASK,
         msgs=bstats["msgs"],
-        sessions=ssta["sessions"],
-        cell_merges=(
-            bstats["cell_merges"] + ssta["cell_merges"] + csta["cold_merges"]
-        ) & MASK,
+        sessions=t["sessions"],
+        cell_merges=(bstats["cell_merges"] + t["sync_cells"] + t["cold_merges"]) & MASK,
         window_degraded=bstats["window_degraded"],
-        sync_regrant=ssta["sync_regrant"],
-        cold_healed=csta["cold_healed"],
+        sync_regrant=t["sync_regrant"] & MASK,
+        cold_healed=t["cold_healed"] & MASK,
         # Hot-plane visibility events only; demoted-writer samples resolve
         # at epoch granularity outside the round.
-        vis_count=newly.sum(),
-        staleness_sum=stale_sum,
-        staleness_max=stale_max,
-        swim_false_alarms=false_alarms,
-        swim_undetected_deaths=undetected,
-        swim_flaps=(sw.incarnation != inc_pre).sum(),
-        queue_backlog=backlog,
+        vis_count=t["vis_count"],
+        staleness_sum=t["staleness_sum"].to(torch.float32),
+        staleness_max=total.max[0],
+        swim_false_alarms=t["swim_false_alarms"],
+        swim_undetected_deaths=t["swim_undetected_deaths"] & MASK,
+        swim_flaps=t["swim_flaps"],
+        queue_backlog=t["queue_backlog"],
         chaos_lost_msgs=bstats["lost_msgs"],
         xshard_bytes_ici=bstats.get("xshard_bytes_ici", 0),
         xshard_bytes_dcn=bstats.get("xshard_bytes_dcn", 0),
@@ -299,52 +340,38 @@ def _sparse_round(st, sw, vr, topo, w_slots, part, kill, revive, r: int, loss,
 
 
 def _cold_vis_update(sstate: SparseState, vis_round, s_writer, s_ver, s_cold, round_now: int):
+    """The epoch-end cold visibility of a position's block: its columns of
+    ``vis_round`` (row-local, no exchange)."""
     vis = sw_ops.cold_visibility(sstate, s_writer, s_ver)
     return torch.where((vis_round < 0) & vis & s_cold[:, None], round_now, vis_round)
 
 
 def initial_resume(cfg: SparseClusterConfig, n_samples: int, device=None) -> dict:
     """An epoch-0 resume point."""
-    device = resolve_device(device)
-    planner = _Planner(cfg.n_nodes, cfg.w_hot, cfg.sparse)
+    sstate, swim_state, vis_round = init_position(cfg, n_samples, device, cfg.n_nodes)
     return {
-        "planner": planner.snapshot(),
-        "sstate": sw_ops.init_sparse(cfg.gossip, cfg.sparse, device),
-        "swim": swim_ops.impl(cfg.swim).init_state(cfg.swim, device),
-        "vis_round": torch.full(
-            (n_samples, cfg.n_nodes), -1, dtype=torch.int64, device=device
-        ),
+        "planner": _Planner(cfg.n_nodes, cfg.w_hot, cfg.sparse).snapshot(),
+        "sstate": sstate,
+        "swim": swim_state,
+        "vis_round": vis_round,
         "next_epoch": 0,
     }
 
 
-def simulate_sparse(
-    cfg: SparseClusterConfig,
-    topo_base: Topology,
-    schedule: Schedule,  # writes [rounds, N]: every node may write
-    seed: int = 0,
-    resume: dict | None = None,
-    stop_after_epoch: int | None = None,
-    telemetry: telemetry_mod.KernelTelemetry | None = None,
-    device=None,
-    bcast_fn=None,
-):
-    """Run the epoch-rotated any-node-writes simulation. Returns
-    (final SparseState, swim state, vis_round, curves, info). ``resume``
-    (``info["resume"]`` of an earlier run, or ``initial_resume``) continues
-    from its next epoch and is never modified; ``stop_after_epoch`` ends
-    the run after that epoch. ``telemetry`` (``KernelTelemetry``) treats
-    every epoch as a chunk: timed and flushed, the run's curves taken at
-    the end (a resumed run appends with a ``mode="a"`` recorder).
-    ``bcast_fn`` replaces the broadcast plane's driver
-    (``parallel.make_sharded_broadcast``). Runs on ``device`` (default
-    CUDA; raises when CUDA is absent and no device is given)."""
+def init_position(cfg: SparseClusterConfig, n_samples: int, device, n_rows: int) -> tuple:
+    """A mesh position's initial (sparse state, swim state, vis_round)
+    block of ``n_rows`` node rows, built where it sits."""
     device = resolve_device(device)
-    sp = cfg.sparse
-    n = cfg.n_nodes
-    rounds = schedule.rounds
-    e_len = sp.epoch_rounds
-    if schedule.writes.shape[1] != n:
+    return (
+        sw_ops.init_sparse(cfg.gossip, cfg.sparse, device, n_rows=n_rows),
+        swim_ops.impl(cfg.swim).init_state(cfg.swim, device, n_rows=n_rows),
+        torch.full((n_samples, n_rows), -1, dtype=torch.int64, device=device),
+    )
+
+
+def check_schedule(cfg: SparseClusterConfig, schedule: Schedule) -> None:
+    """Raise on a schedule the sparse engine does not run."""
+    if schedule.writes.shape[1] != cfg.n_nodes:
         raise ValueError(
             f"sparse schedule writes must be [rounds, n_nodes], got "
             f"{schedule.writes.shape}"
@@ -354,34 +381,80 @@ def simulate_sparse(
             "the sparse engine does not support crash-with-state-wipe: a "
             "total wipe exceeds its bounded deviation tables"
         )
-    has_churn = schedule.kill is not None or schedule.revive is not None
-    topo_base = Topology(*(None if x is None else x.to(device) for x in topo_base))
-    n_regions = int(topo_base.region.max()) + 1
 
-    def dev(x, dtype=torch.int64):
+
+class _EpochInputs(NamedTuple):
+    """An epoch's per-round tables and the epoch's topology on one device;
+    ``at(i, r)`` gives round i's (absolute round r's) positional arguments
+    of ``_sparse_round`` from ``topo`` to ``s_slot``."""
+
+    topo: Topology
+    writes: torch.Tensor
+    part: torch.Tensor
+    kill: torch.Tensor | None
+    revive: torch.Tensor | None
+    loss: torch.Tensor | None
+    probe: torch.Tensor | None
+    s_slot: torch.Tensor
+
+    def at(self, i: int, r: int) -> tuple:
+        def row(x):
+            return None if x is None else x[i]
+
+        return (self.topo, self.writes[i], self.part[i], row(self.kill), row(self.revive), r,
+                row(self.loss), row(self.probe), self.s_slot)
+
+
+def run_epochs(cfg: SparseClusterConfig, topo_base: Topology, schedule: Schedule, seed: int,
+               box: list, planner: _Planner, start_epoch: int, positions: list, devices: list,
+               drive, telemetry=None, stop_after_epoch: int | None = None, watch=None,
+               after_round=None):
+    """The epoch loop of ``simulate_sparse`` over mesh positions: ``box``
+    holds the list of each position's (sparse state, swim state,
+    vis_round) block (popped, so each round's input blocks are freed as
+    the next are made), ``positions`` their ``exchange.Pos`` and
+    ``devices`` their devices. ``drive(bodies)`` runs one generator body a
+    position to its end, answering their exchanges, and returns their
+    results (``exchange.solo`` on one position; the shard driver's
+    lockstep over a mesh). Every epoch: the planner's feasibility check
+    (``_demote_report`` a position) and its one host read, the rotation
+    (``_rotate`` a position) and the one read of its stats, the rounds
+    (``_sparse_round`` a position), then the epoch-end cold visibility a
+    position (under ``watch`` when given, as the drive's steps are).
+    ``after_round(blocks)`` sees every round's blocks. Returns (the final
+    blocks, the merged curves, info)."""
+    sp = cfg.sparse
+    n = cfg.n_nodes
+    rounds = schedule.rounds
+    e_len = sp.epoch_rounds
+    has_churn = schedule.kill is not None or schedule.revive is not None
+    n_samples = len(schedule.sample_writer)
+    s_round_np = np.asarray(schedule.sample_round)
+    local = watch if watch is not None else contextlib.nullcontext()
+
+    def dev(x, device, dtype=torch.int64):
         return torch.as_tensor(np.asarray(x), device=device).to(dtype)
 
-    planner = _Planner(n, cfg.w_hot, sp)
-    n_samples = len(schedule.sample_writer)
-    start_epoch = 0
-    if resume is None:
-        sstate = sw_ops.init_sparse(cfg.gossip, sp, device)
-        swim_state = swim_ops.impl(cfg.swim).init_state(cfg.swim, device)
-        vis_round = torch.full((n_samples, n), -1, dtype=torch.int64, device=device)
-    else:
-        planner.restore(resume["planner"])
-        sstate, swim_state = resume["sstate"], resume["swim"]
-        vis_round = resume["vis_round"]
-        start_epoch = int(resume["next_epoch"])
-    s_writer = dev(schedule.sample_writer)
-    s_ver = dev(schedule.sample_ver)
-    s_round_np = np.asarray(schedule.sample_round)
-    s_round = dev(s_round_np)
-    base_key = rng_mod.PRNGKey(seed, device)
+    # The run's constants, once per distinct device.
+    on = {}
+    for d in devices:
+        if str(d) not in on:
+            t = Topology(*(None if x is None else x.to(d) for x in topo_base))
+            on[str(d)] = dict(
+                device=d, topo=t, n_regions=int(t.region.max()) + 1, key=rng_mod.PRNGKey(seed, d),
+                s_writer=dev(schedule.sample_writer, d), s_ver=dev(schedule.sample_ver, d),
+                s_round=dev(s_round_np, d),
+            )
+    cur = box.pop()
 
     def check(cand, ok):
-        cu, ml = sw_ops.demote_report(sstate, dev(cand), dev(ok, torch.bool))
-        return cu.cpu().numpy(), ml.cpu().numpy()
+        at = {k: (dev(cand, c["device"]), dev(ok, c["device"], torch.bool))
+              for k, c in on.items()}
+        (caught_up, maxload) = drive([
+            sw_ops._demote_report(b[0], *at[str(d)], p)
+            for b, p, d in zip(cur, positions, devices)
+        ])[0]
+        return caught_up.cpu().numpy(), maxload.cpu().numpy()
 
     curve_parts = []
     info = {"epochs": 0, "retired": 0, "promoted": 0, "dev_dropped": 0,
@@ -389,12 +462,21 @@ def simulate_sparse(
     for e0 in range(start_epoch * e_len, rounds, e_len):
         e1 = min(e0 + e_len, rounds)
         epoch = e0 // e_len
+        el = e1 - e0
         w_ep = schedule.writes[e0:e1]
         plan = planner.plan(epoch, w_ep, check)
-        sstate, rstats = sw_ops.rotate(
-            sstate, dev(plan[0]), dev(plan[1], torch.bool), dev(plan[2]),
-            dev(plan[3]), dev(plan[4], torch.bool), cfg.gossip,
-        )
+        plan_on = {
+            k: tuple(dev(x, c["device"], torch.bool if x.dtype == bool else torch.int64)
+                     for x in plan)
+            for k, c in on.items()
+        }
+        outs = drive([
+            sw_ops._rotate(b[0], *plan_on[str(d)], cfg.gossip, p)
+            for b, p, d in zip(cur, positions, devices)
+        ])
+        cur = [(o[0],) + tuple(b[1:]) for o, b in zip(outs, cur)]
+        rstats = outs[0][1]
+        del outs
         # One read for the epoch's rotation stats.
         dropped, retired, promoted, entries = torch.stack([
             rstats[k] for k in ("dev_dropped", "retired", "promoted", "dev_entries")
@@ -410,78 +492,134 @@ def simulate_sparse(
         info["max_dev_entries"] = max(info["max_dev_entries"], entries)
 
         wn, won, wid = planner.topology_arrays()
-        topo = topo_base._replace(
-            writer_nodes=dev(wn), writer_of_node=dev(won), writer_ids=dev(wid),
-        )
-        writes_slots = dev(planner.writes_to_slots(w_ep))
-        el = e1 - e0
-        kill = revive = None
-        if has_churn:
-            zeros_n = np.zeros((el, n), bool)
-            kill = dev(schedule.kill[e0:e1] if schedule.kill is not None else zeros_n,
-                       torch.bool)
-            revive = dev(schedule.revive[e0:e1] if schedule.revive is not None
-                         else zeros_n, torch.bool)
-        if schedule.partition is not None:
-            part = dev(schedule.partition[e0:e1], torch.bool)
-        else:
-            part = torch.zeros((el, n_regions, n_regions), dtype=torch.bool, device=device)
-        loss = None if schedule.loss is None else dev(schedule.loss[e0:e1], torch.float32)
-        probe = (
-            None if schedule.probe_loss is None
-            else dev(schedule.probe_loss[e0:e1], torch.float32)
-        )
-        s_slot = dev(
-            planner.slot_of[np.asarray(schedule.sample_writer)]
-            if n_samples else np.zeros(0, np.int32)
-        )
-        # run() takes the only reference to the epoch's start, so each
-        # round's input state is freed as the next is made.
-        box = [(sstate, swim_state, vis_round)]
-        sstate = swim_state = vis_round = None
+        writes_slots = planner.writes_to_slots(w_ep)
+        s_slot = (planner.slot_of[np.asarray(schedule.sample_writer)] if n_samples
+                  else np.zeros(0, np.int32))
+        inputs = {}
+        for k, c in on.items():
+            d = c["device"]
+            kill = revive = None
+            if has_churn:
+                zeros_n = np.zeros((el, n), bool)
+                kill = dev(schedule.kill[e0:e1] if schedule.kill is not None else zeros_n, d,
+                           torch.bool)
+                revive = dev(schedule.revive[e0:e1] if schedule.revive is not None
+                             else zeros_n, d, torch.bool)
+            if schedule.partition is not None:
+                part = dev(schedule.partition[e0:e1], d, torch.bool)
+            else:
+                part = torch.zeros((el, c["n_regions"], c["n_regions"]), dtype=torch.bool,
+                                   device=d)
+            inputs[k] = _EpochInputs(
+                topo=c["topo"]._replace(writer_nodes=dev(wn, d), writer_of_node=dev(won, d),
+                                        writer_ids=dev(wid, d)),
+                writes=dev(writes_slots, d), part=part, kill=kill, revive=revive,
+                loss=None if schedule.loss is None else dev(schedule.loss[e0:e1], d,
+                                                            torch.float32),
+                probe=(None if schedule.probe_loss is None
+                       else dev(schedule.probe_loss[e0:e1], d, torch.float32)),
+                s_slot=dev(s_slot, d),
+            )
+        # run() takes the only reference to the epoch's start blocks, so
+        # each round's input blocks are freed as the next are made.
+        epoch_box = [cur]
+        cur = None
 
         def run():
-            carry, rows = box.pop(), []
+            blocks, rows = epoch_box.pop(), []
             for i in range(el):
-                *carry, stats = _sparse_round(
-                    *carry, topo, writes_slots[i], part[i],
-                    None if kill is None else kill[i],
-                    None if revive is None else revive[i],
-                    e0 + i,
-                    None if loss is None else loss[i],
-                    None if probe is None else probe[i],
-                    s_slot, s_ver, s_round, base_key, cfg, sp, bcast_fn,
-                )
-                rows.append(stats)
-            return tuple(carry), telemetry_mod.stack_curves(rows)
+                r = e0 + i
+                keys = {k: rng_mod.fold_in(c["key"], r) for k, c in on.items()}
+                bodies = []
+                for b, p, d in zip(blocks, positions, devices):
+                    c = on[str(d)]
+                    bodies.append(_sparse_round(
+                        *b, *inputs[str(d)].at(i, r), c["s_ver"], c["s_round"], keys[str(d)],
+                        cfg, p,
+                    ))
+                outs = drive(bodies)
+                del bodies
+                blocks = [o[:3] for o in outs]
+                rows.append(outs[0][3])
+                del outs
+                if after_round is not None:
+                    after_round(blocks)
+            return blocks, telemetry_mod.stack_curves(rows)
 
         if telemetry is None:
-            (sstate, swim_state, vis_round), curves = run()
+            cur, curves = run()
         else:
             # An epoch boundary is a chunk boundary.
-            (sstate, swim_state, vis_round), curves = telemetry.run_chunk(e0, run)
+            cur, curves = telemetry.run_chunk(e0, run)
         curve_parts.append(curves)
 
         # Epoch-end cold visibility at epoch granularity (exact for
         # zero-lag demotions: those were visible everywhere while hot).
         if n_samples:
-            s_cold = dev(
-                (planner.slot_of[np.asarray(schedule.sample_writer)] < 0)
-                & (s_round_np <= e1 - 1),
-                torch.bool,
+            s_cold = (planner.slot_of[np.asarray(schedule.sample_writer)] < 0) & (
+                s_round_np <= e1 - 1
             )
-            vis_round = _cold_vis_update(sstate, vis_round, s_writer, s_ver, s_cold, e1 - 1)
+            cold_on = {k: dev(s_cold, c["device"], torch.bool) for k, c in on.items()}
+            with local:
+                cur = [
+                    (b[0], b[1], _cold_vis_update(b[0], b[2], on[str(d)]["s_writer"],
+                                                  on[str(d)]["s_ver"], cold_on[str(d)], e1 - 1))
+                    for b, d in zip(cur, devices)
+                ]
         if stop_after_epoch is not None and epoch >= stop_after_epoch:
             break
 
     # A zero-epoch run (resume cursor at or past the schedule's end) returns
-    # the resumed state with empty curves.
+    # the resumed blocks with empty curves.
     merged = (
         {k: np.concatenate([p[k] for p in curve_parts]) for k in curve_parts[0]}
         if curve_parts else {}
     )
     if telemetry is not None and curve_parts:
         telemetry.on_run_end(merged)
+    return cur, merged, info
+
+
+def simulate_sparse(
+    cfg: SparseClusterConfig,
+    topo_base: Topology,
+    schedule: Schedule,  # writes [rounds, N]: every node may write
+    seed: int = 0,
+    resume: dict | None = None,
+    stop_after_epoch: int | None = None,
+    telemetry: telemetry_mod.KernelTelemetry | None = None,
+    device=None,
+):
+    """Run the epoch-rotated any-node-writes simulation. Returns
+    (final SparseState, swim state, vis_round, curves, info). ``resume``
+    (``info["resume"]`` of an earlier run, or ``initial_resume``) continues
+    from its next epoch and is never modified; ``stop_after_epoch`` ends
+    the run after that epoch. ``telemetry`` (``KernelTelemetry``) treats
+    every epoch as a chunk: timed and flushed, the run's curves taken at
+    the end (a resumed run appends with a ``mode="a"`` recorder). Runs on
+    ``device`` (default CUDA; raises when CUDA is absent and no device is
+    given). The epoch and round bodies are the partitioned run's
+    (``parallel.simulate_sparse_sharded``) on one position holding every
+    row."""
+    device = resolve_device(device)
+    check_schedule(cfg, schedule)
+    planner = _Planner(cfg.n_nodes, cfg.w_hot, cfg.sparse)
+    start_epoch = 0
+    if resume is None:
+        block = init_position(cfg, len(schedule.sample_writer), device, cfg.n_nodes)
+    else:
+        planner.restore(resume["planner"])
+        block = (resume["sstate"], resume["swim"], resume["vis_round"])
+        start_epoch = int(resume["next_epoch"])
+    box = [[block]]
+    block = None
+    blocks, merged, info = run_epochs(
+        cfg, topo_base, schedule, seed, box, planner, start_epoch,
+        [exchange.whole(cfg.n_nodes)], [torch.device(device)],
+        lambda bodies: [exchange.solo(b) for b in bodies],
+        telemetry=telemetry, stop_after_epoch=stop_after_epoch,
+    )
+    sstate, swim_state, vis_round = blocks[0]
     info["resume"] = {
         "planner": planner.snapshot(),
         "sstate": sstate,
