@@ -119,11 +119,14 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    of 8,192 seqs, 240 rounds: converged), then at 100,000 nodes (1.6 M
    (node, stream) rows, the first 48 rounds: the interval invariants,
    reassembly that never falls), 24 rounds a call; no kernel launched;
+   the 100,000-node run's state after its first call is held on the host
+   for phase 13;
 11. ``mixed_storm()`` (1,000 nodes, 64 writers, 16 big transactions of
    2,048 seqs, 512 cells, 200 rounds), 25 rounds a call: converged on both
    planes with every node's cells equal to the serial-merge ground truth
    of the final heads, ``rowmax``, ``rowgather``, ``delivery_reduce`` and
-   ``window_delivery`` launched;
+   ``window_delivery`` launched; its state after round 75 is held on the
+   host for phase 13;
 12. the curve consumers, through the command line (``cli.main`` in this
    process, no ``--device``: the CLI resolves CUDA): the reference CI's
    flight commands, ``obs record`` of the committed demo flights (96
@@ -147,7 +150,16 @@ Phases (each raises on failure; the exit code is nonzero on any fault):
    slots): curves, state and info equal to phase 7's at that round, every
    position's state bytes equal to the prediction after every round, its
    ms/round, peak memory (at or below phase 7's over the same rounds) and
-   exchange bytes by tag printed; phase 4's ``anywrite_sparse(n=2000,
+   exchange bytes by tag printed; the 100,000-node chunk plane (400,000
+   (node, stream) rows a position) and full-size ``mixed_storm()``
+   partitioned on the same mesh, each after one round under the structural
+   check: 24 rounds equal to phase 10's first call (curves, coverage, vis)
+   and 75 rounds in calls of 25 equal to phase 11's at round 75 (curves
+   but the exchange's byte keys, held to ``traffic_model``, and every
+   state leaf), each position's state bytes equal to the prediction after
+   every round, each peak at or below the unsharded run's over the same
+   rounds, ms/round and exchange bytes by tag printed; phase 4's
+   ``anywrite_sparse(n=2000,
    rounds=32, ...)`` on 4 positions (forced demotions: the partitioned
    cold plane) and the merge_10k burst at n=2560 (the legacy delivery, 24
    rounds) on 2, each equal to its unsharded card run;
@@ -268,7 +280,7 @@ recorder's ``device_step_ms`` is logged beside the CUDA-event ms/round.
 
 The launch counts are reset just before each main-path run (phases 5-8
 and 11, the pairs of runs of phases 9 and 10, each of phase 12's three
-paths, each of phase 13's four paths, each of phase 14's paths: the
+paths, each of phase 13's seven paths, each of phase 14's paths: the
 merge_10k run, its plane attribution, the multi-device lane's sharded
 runs, read at the lane's note that its attribution begins, that
 attribution, and ``obs cost show`` with its self-diff, each of phase
@@ -345,6 +357,10 @@ PATH_KERNELS = {
                                 "window_delivery"),
     "anywrite_sparse_small_sharded": ("table_gather", "rowmax", "rowgather", "delivery_reduce"),
     "merge_10k_sharded": ("rowgather_wide", "rowsum", "rowmax", "rowgather", "delivery_reduce"),
+    # The partitioned chunk plane launches no kernel; the partitioned mixed
+    # round launches the fast path's four inside its position bodies.
+    "anti_entropy_chunks_sharded": (),
+    "mixed_storm_sharded": ("rowmax", "rowgather", "delivery_reduce", "window_delivery"),
     "elastic": ("rowmax", "rowgather", "delivery_reduce", "window_delivery", "table_gather"),
     # Phase 14: the bench harness (merge_10k's legacy delivery, the
     # multi-device lane's 512-node fast path and its sparse plane, the
@@ -424,6 +440,12 @@ MERGE_SHARDED_ROUNDS = 24
 # (its kernels all launch in the first rounds; nothing of it is kept).
 ADAPTIVE_ROUNDS = 120
 CHUNK_100K_ROUNDS = 48  # phase 10's 100,000-node run (the 1,000-node run takes all 240)
+# Phase 13 runs the 100,000-node chunk plane's first call (24 rounds) and
+# mixed_storm's first three calls of 25 (through round 75: 12 of its 16
+# big versions commit before then) partitioned; phases 10 and 11 keep their
+# states and curves there to hold them to.
+CHUNK_SHARDED_ROUNDS = 24
+MIXED_SHARDED_ROUNDS = 75
 CHECKPOINT_ROUNDS = 50  # phase 12's churn_32 run for the checkpoint round trip
 COST_DEVICES = (1, 4)  # phase 14's ``obs cost show --devices`` (and its CPU twin's)
 # The multi-device lane's rounds in phase 14 (``benchlib.MULTICHIP_ROUNDS``,
@@ -1027,6 +1049,17 @@ def check_kernels(onehot, device) -> list:
     # The sparse drill's rotate: 8 hot slots, n=64, queue 64.
     table_case("elastic", "rotate", (torch.rand((8,), generator=g, device=device) < 0.4).to(torch.int64),
                torch.randint(0, 8, (64, 64), generator=g, device=device))
+    # The partitioned mixed_storm on 4 positions: [250, 64] a body over 64
+    # writers and 512 cells, its sync grants over a quarter of the 125-row
+    # cohort, its visibility over its 250 rows, and the CRDT merges of the
+    # sync sessions ([32, 512] grants) and of each admitted big version
+    # ([250, 1], one column a stream).
+    n, kk, w, k = 250, 64, 64, 512
+    fast_path("mixed_storm_sharded", n, kk, w, k, 256, 32, 512)
+    idx = rowmax_case("mixed_storm_sharded", 32, 512, k)
+    gather_case("mixed_storm_sharded", "sync CRDT winner check", u24(32, k), idx)
+    idx = rowmax_case("mixed_storm_sharded", n, 1, k)
+    gather_case("mixed_storm_sharded", "admission CRDT winner check", u24(n, k), idx)
     n, kk, w, k = 1280, 144, 2560, 1024
     idx = rowmax_case("merge_10k_sharded", n, kk, k)
     gather_case("merge_10k_sharded", "CRDT winner check", u24(n, k), idx)
@@ -1862,12 +1895,14 @@ def check_intervals(have, last_seq, n_streams: int) -> None:
     assert bool(((s == intervals.EMPTY) & (e == intervals.EMPTY - 1) | live).all()), "a bad empty slot"
 
 
-def chunk_runs(onehot, gossip, phase: int = 10) -> dict:
+def chunk_runs(onehot, gossip, phase: int = 10, keep: dict | None = None) -> dict:
     """``anti_entropy_chunks()`` at the reference's size (1,000 nodes, 16
     streams of 8,192 seqs, 240 rounds: converged) and at 100,000 nodes
     (1.6 M (node, stream) rows, ``CHUNK_100K_ROUNDS`` rounds: the interval
     invariants, reassembly that never falls), 24 rounds a call, each call
-    resuming the last. The
+    resuming the last. The 100,000-node run's state, vis and curves after
+    its first call (``CHUNK_SHARDED_ROUNDS``), its ms and its peak memory
+    over those rounds go into ``keep`` on the host for phase 13. The
     launch counts are reset before the pair and read after it (the plane
     launches no kernel). Returns them."""
     from corrosion_tpu_torch.models import baselines
@@ -1897,6 +1932,10 @@ def chunk_runs(onehot, gossip, phase: int = 10) -> dict:
             vis = m["vis"]
             parts.append(m["curves"])
             elapsed += a.elapsed_time(b)
+            if n == 100_000 and r0 + 24 == CHUNK_SHARDED_ROUNDS and keep is not None:
+                keep.update(state=(state.have.starts.cpu(), state.have.ends.cpu()),
+                            vis=vis.cpu(), curves=dict(m["curves"]), ms=elapsed,
+                            peak=torch.cuda.max_memory_allocated())
         curves = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
         peak = torch.cuda.max_memory_allocated()
         applied = curves["streams_applied"].astype(np.int64)
@@ -1925,15 +1964,18 @@ def chunk_runs(onehot, gossip, phase: int = 10) -> dict:
     return launches
 
 
-def mixed_run(onehot, gossip, phase: int = 11) -> dict:
+def mixed_run(onehot, gossip, phase: int = 11, keep: dict | None = None) -> dict:
     """``mixed_storm()`` at the reference's size (1,000 nodes, 64 writers,
     16 streams of 2,048 seqs, 512 cells, 200 rounds), 25 rounds a call,
     each resuming the last and a chunk of the flight recorder: converged
     on both planes, every node's cells equal to the serial-merge ground
-    truth of the final heads, the fast path's four kernels launched.
+    truth of the final heads, the fast path's four kernels launched. Its
+    state and curves after ``MIXED_SHARDED_ROUNDS``, its ms and its peak
+    memory over those rounds go into ``keep`` on the host for phase 13.
     Returns the launch counts of the run."""
     from corrosion_tpu_torch.models import baselines
     from corrosion_tpu_torch.ops import gossip as gossip_ops
+    from corrosion_tpu_torch.parallel import mesh as mesh_mod
     from corrosion_tpu_torch.sim import mixed_engine
 
     cfg, ccfg, topo, sched, spec = baselines.mixed_storm(device="cuda")
@@ -1955,6 +1997,10 @@ def mixed_run(onehot, gossip, phase: int = 11) -> dict:
         b.synchronize()
         elapsed += a.elapsed_time(b)
         parts.append(curves)
+        if r0 + 25 == MIXED_SHARDED_ROUNDS and keep is not None:
+            keep.update(state=mesh_mod.to_host(state), ms=elapsed,
+                        curves={k: np.concatenate([p[k] for p in parts]) for k in parts[0]},
+                        peak=torch.cuda.max_memory_allocated())
     launches = dict(onehot.LAUNCHES)
     syncs = dict(gossip.HOST_SYNCS)
     peak = torch.cuda.max_memory_allocated()
@@ -2171,6 +2217,15 @@ def _timed(fn):
     return out, a.elapsed_time(b)
 
 
+def _tally_calls(info: dict, call: dict) -> None:
+    """Add one call's ``info`` (exchange bytes by kind and tag, state bytes
+    a round) to a run's."""
+    for key in ("exchange_bytes", "exchange_bytes_by_tag"):
+        for k, v in call[key].items():
+            info.setdefault(key, {})[k] = info.get(key, {}).get(k, 0.0) + v
+    info.setdefault("state_bytes", []).extend(call["state_bytes"])
+
+
 def sharded_runs(onehot, gossip, kept: dict, drills: tuple, phase: int = 13) -> dict:
     """The shard driver and the elastic plane on the card, each path's
     launch counts reset just before it and read just after:
@@ -2195,9 +2250,11 @@ def sharded_runs(onehot, gossip, kept: dict, drills: tuple, phase: int = 13) -> 
         phase 7's: ms/round and peak; the exchange bytes by kind and tag;
         then phase 4's n=2000 on 4 positions (forced demotions, the cold
         plane) == the unsharded card run;
-    (c) the merge_10k burst at n=2560 (legacy delivery) on 2 positions,
+    (c), (d) the 100,000-node chunk plane and full-size ``mixed_storm()``
+        on the same mesh, partitioned (``chunk_mixed_sharded_runs``);
+    (e) the merge_10k burst at n=2560 (legacy delivery) on 2 positions,
         partitioned, == the unsharded card run;
-    (d) the elastic drills on the card (``ELASTIC_DRILLS``, ``drills``:
+    (f) the elastic drills on the card (``ELASTIC_DRILLS``, ``drills``:
         the processes ``start_drills`` started with phase 12): each equal
         to its uninterrupted run, the preemption's recovery machinery
         fired, the budget gate's survival fields ok, each report equal to
@@ -2239,7 +2296,7 @@ def sharded_runs(onehot, gossip, kept: dict, drills: tuple, phase: int = 13) -> 
     torch.cuda.reset_peak_memory_stats()
     onehot.reset_launches()
     gossip.reset_host_syncs()
-    state, parts, elapsed, info = None, [], 0.0, {"exchange_bytes": {}, "state_bytes": []}
+    state, parts, elapsed, info = None, [], 0.0, {}
     for r0 in range(0, SHARDED_ROUNDS, 12):
         call = {}
         (state, curves), ms = _timed(lambda: parallel.simulate_sharded(
@@ -2247,11 +2304,7 @@ def sharded_runs(onehot, gossip, kept: dict, drills: tuple, phase: int = 13) -> 
         ))
         elapsed += ms
         parts.append(curves)
-        for k, v in call["exchange_bytes"].items():
-            info["exchange_bytes"][k] = info["exchange_bytes"].get(k, 0.0) + v
-        for k, v in call["exchange_bytes_by_tag"].items():
-            info.setdefault("by_tag", {})[k] = info.get("by_tag", {}).get(k, 0.0) + v
-        info["state_bytes"] += call["state_bytes"]
+        _tally_calls(info, call)
     by_path["wan_100k_sharded"] = launches = dict(onehot.LAUNCHES)
     syncs = dict(gossip.HOST_SYNCS)
     peak = torch.cuda.max_memory_allocated()
@@ -2275,7 +2328,7 @@ def sharded_runs(onehot, gossip, kept: dict, drills: tuple, phase: int = 13) -> 
     whole = sum(math.prod(x.shape) * x.dtype.itemsize for x in mesh_mod.tree_leaves(state))
     rounds = SHARDED_ROUNDS
     exch = {k: v / rounds for k, v in sorted(info["exchange_bytes"].items())}
-    by_tag = {k: v / rounds for k, v in sorted(info["by_tag"].items())}
+    by_tag = {k: v / rounds for k, v in sorted(info["exchange_bytes_by_tag"].items())}
     detail = {k: tm["detail"][k] for k in
               ("alive_gather_bytes", "pulled_reduce_bytes", "sync_gather_bytes_est")}
     assert by_tag["gather:alive"] == detail["alive_gather_bytes"], (by_tag, detail)
@@ -2302,8 +2355,9 @@ def sharded_runs(onehot, gossip, kept: dict, drills: tuple, phase: int = 13) -> 
     del state, parts, mid
 
     by_path.update(sparse_sharded_runs(onehot, gossip, kept, mesh, phase))
+    by_path.update(chunk_mixed_sharded_runs(onehot, gossip, kept, mesh, phase))
 
-    # (c) the merge_10k burst at n=2560 (legacy delivery) on 2 positions.
+    # (e) the merge_10k burst at n=2560 (legacy delivery) on 2 positions.
     cfg, topo, sched = baselines.merge_10k(device="cuda", n=2560, rounds=MERGE_SHARDED_ROUNDS)
     sched = _burst(sched, engine.Schedule)
     mesh2 = parallel.make_mesh(2)
@@ -2327,6 +2381,7 @@ def sharded_runs(onehot, gossip, kept: dict, drills: tuple, phase: int = 13) -> 
         f"{curves['xshard_bytes_ici'][0]:.0f}; launches {json.dumps(launches)}")
     del final, whole
 
+    # (f) the elastic drills.
     by_path["elastic"] = elastic_drills(drills, phase)
     log(f"phase {phase}: {time.perf_counter() - t_phase:.1f} s")
     return by_path
@@ -2453,8 +2508,151 @@ def sparse_sharded_runs(onehot, gossip, kept: dict, mesh, phase: int = 13) -> di
     return by_path
 
 
+def chunk_mixed_sharded_runs(onehot, gossip, kept: dict, mesh, phase: int = 13) -> dict:
+    """Phase 13 (c) and (d) on ``mesh``, each path's launch counts reset
+    just before its timed run and read just after:
+
+    (c) the 100,000-node ``anti_entropy_chunks`` partitioned (400,000
+        (node, stream) rows a position): one round from a fresh state under
+        the structural check, then ``CHUNK_SHARDED_ROUNDS`` rounds whose
+        curves, coverage and vis equal phase 10's after its first call
+        (``kept["chunks"]``, popped);
+    (d) full-size ``mixed_storm()`` partitioned: one round under the check,
+        then ``MIXED_SHARDED_ROUNDS`` rounds in calls of 25 whose curves
+        (but the xshard keys, held to ``traffic_model``) and state equal
+        phase 11's at that round (``kept["mixed"]``, popped).
+
+    Each prints its ms/round beside the unsharded run's, its peak memory
+    (asserted at or below the unsharded run's over the same rounds), each
+    position's state bytes after every round (asserted equal to the
+    prediction) and the exchange bytes by tag. Returns the launch counts by
+    path."""
+    from corrosion_tpu_torch import parallel
+    from corrosion_tpu_torch.models import baselines
+    from corrosion_tpu_torch.obs import epidemic
+    from corrosion_tpu_torch.ops.chunks import ChunkState
+    from corrosion_tpu_torch.ops.intervals import IntervalSet
+    from corrosion_tpu_torch.parallel import mesh as mesh_mod
+    from corrosion_tpu_torch.parallel import shard_driver
+    from corrosion_tpu_torch.sim.telemetry import XSHARD_CURVE_KEYS
+
+    by_path = {}
+
+    def report(label, rounds, ms, unsharded, peak, info, tree, specs, extra=""):
+        per = parallel.per_device_state_bytes(tree)
+        predicted = mesh_mod.predicted_per_device_bytes(tree, specs, mesh)
+        assert sorted(per) == list(range(mesh.size)) and set(per.values()) == {predicted}, per
+        during = {b for row in info["state_bytes"] for b in row}
+        assert len(info["state_bytes"]) == rounds and during == {predicted}, during
+        whole = sum(math.prod(x.shape) * x.dtype.itemsize for x in mesh_mod.tree_leaves(tree))
+        by_tag = {k: v / rounds for k, v in sorted(info["exchange_bytes_by_tag"].items())}
+        log(f"phase {phase}: {label} partitioned on {mesh.size} positions, {rounds} rounds: "
+            f"{ms / rounds:.1f} ms/round against {unsharded['ms'] / rounds:.1f} unsharded (CUDA "
+            f"events; all positions share one card, so no speed claim), peak memory "
+            f"{peak / 2**30:.2f} GiB against {unsharded['peak'] / 2**30:.2f} GiB over the same "
+            f"rounds; equal to the unsharded card run{extra}; state bytes a position after "
+            f"every round {predicted} == predicted ({predicted / whole:.4f} of the whole "
+            f"{whole}); exchange bytes a round between positions by tag {json.dumps(by_tag)}")
+        assert peak <= unsharded["peak"], (f"{label}: peak {peak} above the unsharded run's "
+                                           f"{unsharded['peak']} over the same rounds")
+        return dict(ms_per_round=ms / rounds, ms_unsharded=unsharded["ms"] / rounds, peak=peak,
+                    peak_unsharded=unsharded["peak"], state_bytes=predicted, by_tag=by_tag)
+
+    # (c) the chunk plane at 100,000 nodes.
+    ck = kept.pop("chunks")
+    cfg, origin, last, _ = baselines.anti_entropy_chunks(n=100_000, device="cuda")
+    n, nl = cfg.n_nodes, cfg.n_nodes // mesh.size
+    check = shard_driver.WholePlaneCheck(n, nl, n_streams=cfg.n_streams)
+    out, check_ms = _timed(lambda: parallel.simulate_chunks_sharded(
+        cfg, origin, last, 1, mesh, seed=0, watch=check))
+    bad = _curve_diff({k: v[:1] for k, v in ck["curves"].items()}, out[1]["curves"])
+    assert not bad, f"anti_entropy_chunks watched round differs from phase 10's in {bad}"
+    del out  # the watched round's state, so the timed run's peak is its own
+    assert check.ops > 1000 and check.found == [], \
+        f"anti_entropy_chunks: whole planes inside the position bodies: {check.found[:8]}"
+    log(f"phase {phase}: structural check over one 100,000-node chunk round: {check.ops} "
+        f"operations in the position bodies, none outputs a whole node or (node, stream) "
+        f"plane ({check_ms:.0f} ms watched)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    onehot.reset_launches()
+    gossip.reset_host_syncs()
+    info = {}
+    (state, m), ms = _timed(lambda: parallel.simulate_chunks_sharded(
+        cfg, origin, last, CHUNK_SHARDED_ROUNDS, mesh, seed=0, info=info))
+    by_path["anti_entropy_chunks_sharded"] = launches = dict(onehot.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    assert not any(launches.values()), f"the partitioned chunk plane launched kernels: {launches}"
+    bad = _curve_diff(ck["curves"], m["curves"])
+    assert not bad, f"anti_entropy_chunks partitioned: curves differ from phase 10's in {bad}"
+    want = ChunkState(have=IntervalSet(*ck["state"]))
+    bad = _same_on_card((state, m["vis"]), (want, ck["vis"]))
+    assert not bad, f"anti_entropy_chunks partitioned: state differs from phase 10's in {bad}"
+    tree = (state, m["vis"])
+    kept["chunks_sharded"] = report(
+        f"anti_entropy_chunks N={n} S={cfg.n_streams} ({cfg.rows:,} rows, "
+        f"{cfg.rows // mesh.size:,} a position)", CHUNK_SHARDED_ROUNDS, ms, ck, peak, info, tree,
+        shard_driver.chunk_specs(tree, mesh),
+        f" (curves, coverage and vis equal phase 10's at round {CHUNK_SHARDED_ROUNDS}; "
+        f"applied_frac {m['applied_frac']:.6f}, p50 {m['p50_s']:.1f} s; host syncs "
+        f"{json.dumps(dict(gossip.HOST_SYNCS))})")
+    del state, m, tree, want, ck
+
+    # (d) mixed_storm at full size.
+    mk = kept.pop("mixed")
+    cfg, ccfg, topo, sched, spec = baselines.mixed_storm(device="cuda")
+    n, nl = cfg.n_nodes, cfg.n_nodes // mesh.size
+    check = shard_driver.WholePlaneCheck(n, nl, n_cells=cfg.gossip.n_cells,
+                                         n_streams=ccfg.n_streams)
+    out, check_ms = _timed(lambda: parallel.simulate_mixed_sharded(
+        cfg, ccfg, topo, sched.slice(0, 1), spec, mesh, seed=0, watch=check))
+    bad = _curve_diff({k: v[:1] for k, v in mk["curves"].items()}, out[1], XSHARD_CURVE_KEYS)
+    assert not bad, f"mixed_storm watched round differs from phase 11's in {bad}"
+    del out
+    assert check.ops > 1000 and check.found == [], \
+        f"mixed_storm: whole planes inside the position bodies: {check.found[:8]}"
+    log(f"phase {phase}: structural check over one full-size mixed_storm round: {check.ops} "
+        f"operations in the position bodies, none outputs a whole node or (node, stream) "
+        f"plane ({check_ms:.0f} ms watched)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    onehot.reset_launches()
+    gossip.reset_host_syncs()
+    state, parts, elapsed, info = None, [], 0.0, {}
+    for r0 in range(0, MIXED_SHARDED_ROUNDS, 25):
+        call = {}
+        (state, curves), ms = _timed(lambda: parallel.simulate_mixed_sharded(
+            cfg, ccfg, topo, sched.slice(r0, r0 + 25), spec, mesh, seed=0, state=state, info=call))
+        elapsed += ms
+        parts.append(curves)
+        _tally_calls(info, call)
+    by_path["mixed_storm_sharded"] = launches = dict(onehot.LAUNCHES)
+    syncs = dict(gossip.HOST_SYNCS)
+    peak = torch.cuda.max_memory_allocated()
+    curves = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    missing = [k for k in PATH_KERNELS["mixed_storm_sharded"] if launches[k] == 0]
+    assert not missing, f"mixed_storm sharded: kernels never launched: {missing}"
+    bad = _curve_diff(mk["curves"], curves, XSHARD_CURVE_KEYS)
+    assert not bad, f"mixed_storm partitioned: curves differ from phase 11's in {bad}"
+    bad = _same_on_card(state, mk["state"])
+    assert not bad, f"mixed_storm partitioned: state differs from phase 11's in {bad}"
+    ok, problems = epidemic.xshard_model_check(curves, cfg.gossip, mesh)
+    assert ok, problems
+    applied = int(curves["streams_applied"][-1])
+    assert applied > 0, "mixed_storm partitioned: no stream reassembled by the cut"
+    kept["mixed_sharded"] = report(
+        f"mixed_storm N={n} W={cfg.gossip.n_writers} S={ccfg.n_streams}", MIXED_SHARDED_ROUNDS,
+        elapsed, mk, peak, info, state, mesh_mod.mixed_state_specs(state, mesh),
+        f" (curves and state equal phase 11's at round {MIXED_SHARDED_ROUNDS}; streams_applied "
+        f"{applied} of {n * ccfg.n_streams}; queue wire a round ici "
+        f"{curves['xshard_bytes_ici'][0]:.0f}, dcn {curves['xshard_bytes_dcn'][0]:.0f} == "
+        f"traffic_model; launches {json.dumps(launches)}; host syncs {json.dumps(syncs)})")
+    del state, parts, mk
+    return by_path
+
+
 def elastic_drills(drills: tuple, phase: int = 13) -> dict:
-    """Phase 13 (d): the elastic drills (``ELASTIC_DRILLS``) on the card
+    """Phase 13 (f): the elastic drills (``ELASTIC_DRILLS``) on the card
     and on the CPU, each side in a process of its own started with phase
     12 (``drills``, from ``start_drills``): each equal to its uninterrupted
     run, the preemption's recovery machinery fired, the soak drill's
@@ -3220,9 +3418,10 @@ def main() -> int:
             lap(f"phase {phase}")
         by_path["geo_10k"] = geo_run(onehot, gossip, keep=kept)
         lap("phase 9")
-        by_path["anti_entropy_chunks"] = chunk_runs(onehot, gossip)
+        by_path["anti_entropy_chunks"] = chunk_runs(onehot, gossip,
+                                                    keep=kept.setdefault("chunks", {}))
         lap("phase 10")
-        by_path["mixed_storm"] = mixed_run(onehot, gossip)
+        by_path["mixed_storm"] = mixed_run(onehot, gossip, keep=kept.setdefault("mixed", {}))
         lap("phase 11")
     except BaseException:
         stop_worker(small[0])

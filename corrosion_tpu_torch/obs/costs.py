@@ -23,7 +23,8 @@ actually runs:
   (``torch.cuda.max_memory_allocated``). The port donates no buffer, so
   there is one variant, ``plain``. Device counts are positions of the
   port's mesh: an entry at D > 1 counts the whole mesh's work, every
-  position's body and the controller's planes, which run in one process.
+  position's body and the exchanges between them, which run in one
+  process.
 - **Roofline stage costs**: the same cumulative-prefix composite the
   timing attribution uses (``benchlib.plane_composite``), one counted step
   a prefix; a stage's flops and bytes are the increment.
@@ -382,6 +383,8 @@ def _run_sparse(mesh, device):
 
 
 def _run_chunk(mesh, device):
+    """The chunk engine's tiny run, unsharded or partitioned over ``mesh``
+    (every plane per position)."""
     from corrosion_tpu_torch import parallel
     from corrosion_tpu_torch.sim import benchlib, chunk_engine
 
@@ -400,6 +403,8 @@ def _run_chunk(mesh, device):
 
 
 def _run_mixed(mesh, device):
+    """The mixed engine's tiny run, unsharded or partitioned over ``mesh``
+    (every plane per position)."""
     from corrosion_tpu_torch import parallel
     from corrosion_tpu_torch.sim import benchlib, mixed_engine
 
@@ -688,9 +693,10 @@ def reconcile_memory(final_state, watermarks: MemoryWatermarks | None = None,
                      predicted_per_device: int | None = None, cost: dict | None = None,
                      tol: float = 0.01) -> dict:
     """Reconcile the views of a placed state's memory AT REST, as a
-    ``simulate_*_sharded`` call returns it; breaks raise ValueError. During
-    a run the controller holds the whole state on the mesh's home device
-    (``parallel/__init__.py``), so nothing here claims a position's peak.
+    ``simulate_*_sharded`` call returns it; breaks raise ValueError. The
+    drivers keep the same blocks during a run (their ``info["state_bytes"]``
+    after every round), but a position's temporaries are not placed state,
+    so nothing here claims a position's peak.
 
     1. Each position's state bytes (``parallel.per_device_state_bytes``)
        equal ``predicted_per_device`` within ``tol``.

@@ -1,10 +1,12 @@
 """What a mesh position's round body asks of its driver, and the driver
 of a body that holds every row.
 
-A round body (``sim.engine.round_body`` and the plane bodies it calls:
-``gossip._broadcast_round``, ``gossip._sync_round``, the SWIM modules'
-``_swim_round``/``_apply_churn``, ``faulting._wipe_nodes``) is a generator
-over one position's rows of the node axis (a ``Pos``). Where the round
+A round body (``sim.engine.round_body``, ``sim.sparse_engine._sparse_round``,
+``sim.chunk_engine._round``, ``sim.mixed_engine._mixed_round`` and the
+plane bodies they call: ``gossip._broadcast_round``, ``gossip._sync_round``,
+the SWIM modules' ``_swim_round``/``_apply_churn``,
+``faulting._wipe_nodes``, ``chunks._chunk_round``) is a generator over one
+position's rows of the node axis (a ``Pos``). Where the round
 reads what other positions own, the body yields one of the requests below
 and takes the answer back from ``yield``:
 
@@ -15,7 +17,7 @@ and takes the answer back from ``yield``:
   of it from its own block of each table;
 - ``Route``: entries addressed to global rows, delivered to the rows'
   owners in sender order (the dense view's push merge, the rumor kill's
-  feedback);
+  feedback, the chunk send);
 - ``Queue``: the pending-queue tables, answered with every position's,
   gathered (the broadcast plane's wire).
 

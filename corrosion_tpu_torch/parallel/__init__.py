@@ -3,13 +3,15 @@ corrosion_tpu/parallel/).
 
 The parallel axis is the virtual node dimension: O(N) and O(N·W) state is
 split along its node rows over a ``Mesh`` of positions, and writer heads
-and slot metadata replicate. The dense and the any-node-writes engines run
-partitioned (``simulate_sharded``, ``simulate_sparse_sharded``): every
-plane of the round (wipe and churn, the broadcast, SWIM, sync, the sparse
-engine's cold sync, visibility, the health reductions) and of the sparse
-engine's epoch boundary (the feasibility check, the rotation, the cold
-visibility) runs once per position on its rows, on state that stays in
-the position's blocks from the first round to the last. Where a plane reads what other positions own,
+and slot metadata replicate. All four engines run partitioned (``simulate_sharded``,
+``simulate_sparse_sharded``, ``simulate_chunks_sharded``,
+``simulate_mixed_sharded``): every plane of the round (wipe and churn, the
+broadcast, SWIM, sync, the sparse engine's cold sync, the chunk plane's
+send and partial-need sync, the mixed round's commits, admission and
+back-fill, visibility, the health reductions) and of the sparse engine's
+epoch boundary (the feasibility check, the rotation, the cold visibility)
+runs once per position on its rows, on state that stays in the position's
+blocks from the first round to the last. Where a plane reads what other positions own,
 the positions exchange it: partial sums, maxima and ORs; the gather of the
 ``[N]`` alive and incarnation vectors; rows by global index, served by
 their owners; entries routed to the owners of their rows; and the
@@ -24,10 +26,7 @@ position sits on ``cuda:0``, and the CPU stands in with ``device="cpu"``.
 Where the port differs from the reference: the reference lets XLA
 partition SWIM, sync, churn and visibility over the sharded state (GSPMD);
 the port partitions them by hand, and its results are the same bit for
-bit. The mixed and chunk engines (``simulate_mixed_sharded``,
-``simulate_chunks_sharded``) still run in the controller: their state is
-placed at rest and assembled on the mesh's home device for a run, and only
-the mixed engine's broadcast plane runs per position.
+bit.
 """
 
 from corrosion_tpu_torch.parallel.mesh import (  # noqa: F401

@@ -1,8 +1,7 @@
-"""The shard driver: the dense and the any-node-writes rounds partitioned
-over a mesh of positions (counterpart of
-corrosion_tpu/parallel/shard_driver.py, whose docstring describes the
-design; there XLA partitions SWIM, sync, churn and visibility over the
-sharded state, here every plane runs per position).
+"""The shard driver: the four engines' rounds partitioned over a mesh of
+positions (counterpart of corrosion_tpu/parallel/shard_driver.py, whose
+docstring describes the design; there XLA partitions SWIM, sync, churn and
+visibility over the sharded state, here every plane runs per position).
 
 - **Resident state.** ``simulate_sharded`` carries the ``Placed`` blocks
   of ``mesh.shard_cluster_state`` from the first round to the last, across
@@ -14,7 +13,14 @@ sharded state, here every plane runs per position).
   (``sim.sparse_engine._sparse_round``) and its epoch bodies
   (``ops.sparse_writers._demote_report``, ``_rotate``, the cold
   visibility) run per position, and only the host planner's slot
-  metadata is replicated. Nothing assembles the whole state during a run.
+  metadata is replicated. ``simulate_chunks_sharded`` runs the seq-chunk
+  plane's round (``sim.chunk_engine._round`` over
+  ``ops.chunks._chunk_round``) on each position's (node, stream) rows and
+  its rows of the visibility latch, and ``simulate_mixed_sharded`` the
+  mixed round (``sim.mixed_engine._mixed_round``: the chunk plane's body,
+  the big versions' commit and admission, the dense round's planes, the
+  back-fill) on its blocks of the ``MixedState``. Nothing assembles the
+  whole state during a run.
 - **Typed exchanges.** The bodies run in lockstep (``_lockstep``); where
   the round reads what other positions own, every body yields the same
   request (``ops/exchange.py``) and the driver answers them together:
@@ -23,12 +29,13 @@ sharded state, here every plane runs per position).
   rotation's and the feasibility check's counts), ``Gather`` (the ``[N]``
   alive and incarnation vectors, the reference's alive-vector gather at
   the shard_map boundary, and the sparse engine's ``head_full`` where a
-  rotation's claims or a cold sync read it at global writer ids), ``Rows`` (rows by global node index,
-  each owner serving what was asked of it: sync's candidates and peers,
-  the sparse SWIM sources' backlogs, a revived node's seed view),
-  ``Route`` (entries addressed to rows, delivered to their owners in
-  sender order: the dense view's push merge, the rumor kill's feedback)
-  and ``Queue`` (the pending-queue tables).
+  rotation's claims or a cold sync read it at global writer ids), ``Rows``
+  (rows by global node index, each owner serving what was asked of it:
+  sync's candidates and peers, the sparse SWIM sources' backlogs, a
+  revived node's seed view, the coverage rows of the chunk plane's due
+  nodes' peers), ``Route`` (entries addressed to rows, delivered to their
+  owners in sender order: the dense view's push merge, the rumor kill's
+  feedback, the chunk send) and ``Queue`` (the pending-queue tables).
 - **The queue wire.** ``Queue`` is the broadcast plane's one batched
   exchange a round: each position publishes its queue tables in the
   reference's 32-bit wire form (``q_writer``/``q_tx`` as int32,
@@ -51,11 +58,9 @@ sharded state, here every plane runs per position).
   values or on a cross-position OR, so a partitioned run equals the
   unsharded one on any mesh.
 
-The mixed and chunk engines (``simulate_mixed_sharded``,
-``simulate_chunks_sharded``) still run in the controller: their state is
-placed at rest, assembled on the mesh's home device for the run, and only
-the mixed engine's broadcast plane goes per position
-(``make_sharded_broadcast``).
+``make_sharded_broadcast`` remains for the plane composites
+(``sim.benchlib.plane_composite``), which step a whole state; no engine's
+run calls it.
 """
 
 from __future__ import annotations
@@ -208,6 +213,21 @@ class ExchangeTally:
         self.by_kind[kind] = self.by_kind.get(kind, 0.0) + float(nbytes)
         key = f"{kind}:{tag}"
         self.by_tag[key] = self.by_tag.get(key, 0.0) + float(nbytes)
+
+    def record_state(self, blocks: list) -> None:
+        """Each position's state bytes, after a round."""
+        self.state_bytes.append([
+            sum(_nbytes(x) for x in mesh_mod.tree_leaves(b)) for b in blocks
+        ])
+
+    def export(self, info: dict | None) -> None:
+        """The tallies into a driver's ``info``: ``exchange_bytes`` by
+        kind, ``exchange_bytes_by_tag`` by kind and tag, ``state_bytes``
+        a position after every round."""
+        if info is not None:
+            info["exchange_bytes"] = dict(self.by_kind)
+            info["exchange_bytes_by_tag"] = dict(self.by_tag)
+            info["state_bytes"] = self.state_bytes
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -390,8 +410,8 @@ def _lockstep(bodies: list, mesh: Mesh, n_nodes: int, tally: ExchangeTally, watc
 
 @functools.lru_cache(maxsize=None)
 def make_sharded_broadcast(mesh: Mesh):
-    """A drop-in for ``gossip.broadcast_round`` in an engine that runs in
-    the controller (the mixed engine, the plane composites):
+    """A drop-in for ``gossip.broadcast_round`` where a whole state is
+    stepped (the plane composites of ``sim.benchlib``):
     it places the whole DataState it is given over ``mesh``, runs the
     broadcast body once per position on its blocks in lockstep, and
     returns the whole next DataState and the round's stats plus
@@ -442,12 +462,9 @@ def per_device_state_bytes(tree) -> dict:
     of the per-position memory claim. Replicated leaves count whole at
     every position, split leaves their block.
 
-    For the dense and the any-node-writes engines this is also what a
-    position holds during a run: ``simulate_sharded`` and
-    ``simulate_sparse_sharded`` carry these blocks from round to round and
-    their ``info["state_bytes"]`` reads them after every round. The mixed
-    and chunk engines assemble their state in the controller for a run,
-    so for them it is the placement at rest."""
+    This is also what a position holds of the state during a run: every
+    ``simulate_*_sharded`` carries these blocks from round to round, and
+    its ``info["state_bytes"]`` reads them after every round."""
     out: dict = {}
     for leaf in mesh_mod.tree_leaves(tree):
         if not isinstance(leaf, Placed):
@@ -458,24 +475,28 @@ def per_device_state_bytes(tree) -> dict:
 
 
 class WholePlaneCheck(TorchDispatchMode):
-    """The partitioned round's structural check: a dispatch mode that
-    ``simulate_sharded(watch=...)`` enters around every step of every
-    position body (never around the driver's exchanges). It records each
-    operation whose output is a whole node plane: a tensor of two or more
-    dimensions (size-1 dimensions aside) with an extent of ``n_nodes``,
-    other than a position's ``[n_local, n_nodes]`` block of the dense SWIM
-    view, or the flat ``[n_nodes * n_cells]`` cell plane. ``[N]`` control
-    vectors pass. Choose a mesh where no other per-position extent equals
-    ``n_nodes``."""
+    """The partitioned round's structural check: a dispatch mode that the
+    shard drivers (``watch=``) enter around every step of every position
+    body (never around the driver's exchanges). It records each operation
+    whose output is a whole node plane: a tensor of two or more dimensions
+    (size-1 dimensions aside) with an extent of ``n_nodes``, other than a
+    position's ``[n_local, n_nodes]`` block of the dense SWIM view; the
+    flat ``[n_nodes * n_cells]`` cell plane; or, given ``n_streams``, any
+    tensor with an extent of ``n_nodes * n_streams`` (the chunk plane's
+    whole (node, stream) row plane, flat or ``[N * S, C]``). ``[N]``
+    control vectors pass. Choose a mesh where no other per-position extent
+    equals ``n_nodes`` or ``n_nodes * n_streams``."""
 
-    def __init__(self, n_nodes: int, n_local: int, n_cells: int = 0):
+    def __init__(self, n_nodes: int, n_local: int, n_cells: int = 0, n_streams: int = 0):
         super().__init__()
-        self.n, self.nl, self.k = n_nodes, n_local, n_cells
+        self.n, self.nl, self.k, self.s = n_nodes, n_local, n_cells, n_streams
         self.ops = 0
         self.found: list = []
 
     def _whole(self, shape: tuple) -> bool:
         dims = tuple(x for x in shape if x != 1)
+        if self.s > 1 and self.n * self.s in dims:
+            return True
         if len(dims) >= 2:
             return self.n in dims and dims != (self.nl, self.n)
         return self.k > 1 and dims == (self.n * self.k,)
@@ -489,15 +510,16 @@ class WholePlaneCheck(TorchDispatchMode):
         return out
 
 
-def _positions(topo: Topology, mesh: Mesh, n_nodes: int) -> list:
-    """Each position's ``exchange.Pos``: its row block and, under sync
-    cohorts, the entries of each cohort whose node it owns (built once on
-    the host from the replicated topology)."""
+def _positions(topo: Topology | None, mesh: Mesh, n_nodes: int) -> list:
+    """Each position's ``exchange.Pos``: its row block and, under the
+    topology's sync cohorts, the entries of each cohort whose node it owns
+    (built once on the host from the replicated topology)."""
     d = mesh.size
     if d == 1:
         return [exchange.whole(n_nodes)]
     nl = n_nodes // d
-    cohorts = None if topo.sync_cohorts is None else topo.sync_cohorts.cpu().numpy()
+    cohorts = (None if topo is None or topo.sync_cohorts is None
+               else topo.sync_cohorts.cpu().numpy())
     out = []
     for i, dev in enumerate(mesh.devices.flat):
         ents = None
@@ -509,6 +531,14 @@ def _positions(topo: Topology, mesh: Mesh, n_nodes: int) -> list:
             ents = torch.as_tensor(table, device=dev)
         out.append(exchange.Pos(i * nl, nl, n_nodes, ents))
     return out
+
+
+def _check_divisible(n: int, mesh: Mesh) -> None:
+    if n % mesh.size:
+        raise ValueError(
+            f"the shard driver needs n_nodes divisible by the mesh size: "
+            f"{n} % {mesh.size} != 0"
+        )
 
 
 def _is_placed_on(tree, mesh: Mesh) -> bool:
@@ -523,7 +553,6 @@ def _run_rounds(cfg, topo, sched, mesh: Mesh, positions: list, seed: int, box: l
     made): one ``round_body`` a position a round, in lockstep. Returns the
     placed next state and the curves."""
     from corrosion_tpu_torch.sim import engine
-    from corrosion_tpu_torch.sim import telemetry as telemetry_mod
 
     devices = list(mesh.devices.flat)
     state = box.pop()
@@ -541,22 +570,23 @@ def _run_rounds(cfg, topo, sched, mesh: Mesh, positions: list, seed: int, box: l
         blocks.append(b._replace(data=b.data._replace(oo=b.data.oo.contiguous())))
     del state
     offset = int(blocks[0].round)
-    rows = []
-    for r in range(sched.rounds):
+
+    def bodies(r, blocks):
         round_keys = {k: rng_mod.fold_in(v, offset + r) for k, v in keys.items()}
-        bodies = [
+        return [
             engine.round_body(blocks[i], rng=round_keys[str(dev)], cfg=cfg, pos=positions[i],
                               **inputs[str(dev)].at(r))
             for i, dev in enumerate(devices)
         ]
-        outs = _lockstep(bodies, mesh, cfg.n_nodes, tally, watch)
-        del bodies
-        blocks = [o[0] for o in outs]
-        rows.append(outs[0][1])
-        tally.state_bytes.append([
-            sum(_nbytes(x) for x in mesh_mod.tree_leaves(b)) for b in blocks
-        ])
-    return mesh_mod.from_positions(blocks, specs, mesh), telemetry_mod.stack_curves(rows)
+
+    # run_positions takes the only reference to the start blocks.
+    box.append(blocks)
+    del blocks
+    blocks, curves = engine.run_positions(
+        box.pop(), range(sched.rounds), bodies,
+        lambda bs: _lockstep(bs, mesh, cfg.n_nodes, tally, watch), tally.record_state,
+    )
+    return mesh_mod.from_positions(blocks, specs, mesh), curves
 
 
 def init_sharded(cfg, n_samples: int, mesh: Mesh):
@@ -566,11 +596,7 @@ def init_sharded(cfg, n_samples: int, mesh: Mesh):
     from corrosion_tpu_torch.sim import engine
 
     d = mesh.size
-    if cfg.n_nodes % d:
-        raise ValueError(
-            f"the shard driver needs n_nodes divisible by the mesh size: "
-            f"{cfg.n_nodes} % {d} != 0"
-        )
+    _check_divisible(cfg.n_nodes, mesh)
     blocks = [engine.init_cluster(cfg, n_samples, dev, n_rows=cfg.n_nodes // d)
               for dev in mesh.devices.flat]
     return mesh_mod.from_positions(blocks, mesh_mod.cluster_state_specs(blocks[0], mesh), mesh)
@@ -598,12 +624,8 @@ def simulate_sharded(
     ``watch`` is the structural check's hook (``WholePlaneCheck``)."""
     from corrosion_tpu_torch.sim import engine
 
-    d = mesh.size
     n = cfg.n_nodes
-    if n % d:
-        raise ValueError(
-            f"the shard driver needs n_nodes divisible by the mesh size: {n} % {d} != 0"
-        )
+    _check_divisible(n, mesh)
     if state is None:
         state = init_sharded(cfg, len(sched.sample_writer), mesh)
     elif not _is_placed_on(state, mesh):
@@ -612,24 +634,14 @@ def simulate_sharded(
     engine.check_head_domain(cfg, start_round, sched.rounds)
     positions = _positions(topo, mesh, n)
     tally = ExchangeTally()
-
-    def piece(part, box):
-        return _run_rounds(cfg, topo, part, mesh, positions, seed, box, tally, watch)
-
     box = [state]
     state = None
-    if max_chunk is not None and sched.rounds > max_chunk:
-        final, curves = engine.run_in_chunks(sched, box, max_chunk, start_round, telemetry,
-                                             piece)
-    elif telemetry is None:
-        final, curves = piece(sched, box)
-    else:
-        final, curves = telemetry.run_chunk(start_round, lambda: piece(sched, box))
-        telemetry.on_run_end(curves)
-    if info is not None:
-        info["exchange_bytes"] = dict(tally.by_kind)
-        info["exchange_bytes_by_tag"] = dict(tally.by_tag)
-        info["state_bytes"] = tally.state_bytes
+    final, curves = engine.run_in_chunks(
+        sched.rounds, box, max_chunk or max(sched.rounds, 1), start_round, telemetry,
+        lambda start, stop, box: _run_rounds(cfg, topo, sched.slice(start, stop), mesh,
+                                             positions, seed, box, tally, watch),
+    )
+    tally.export(info)
     return final, curves
 
 
@@ -687,10 +699,7 @@ def simulate_sparse_sharded(
 
     d = mesh.size
     n = cfg.n_nodes
-    if n % d:
-        raise ValueError(
-            f"the shard driver needs n_nodes divisible by the mesh size: {n} % {d} != 0"
-        )
+    _check_divisible(n, mesh)
     sparse_engine.check_schedule(cfg, sched)
     devices = list(mesh.devices.flat)
     planner = sparse_engine._Planner(n, cfg.w_hot, cfg.sparse)
@@ -704,17 +713,13 @@ def simulate_sparse_sharded(
         blocks = _sparse_blocks(resume, mesh)
     specs = sparse_specs(blocks[0], mesh)
     tally = ExchangeTally()
-
-    def after_round(bs):
-        tally.state_bytes.append([sum(_nbytes(x) for x in mesh_mod.tree_leaves(b)) for b in bs])
-
     box = [blocks]
     blocks = None
     final, curves, out = sparse_engine.run_epochs(
         cfg, topo, sched, seed, box, planner, start_epoch, _positions(topo, mesh, n), devices,
         lambda bodies: _lockstep(bodies, mesh, n, tally, watch),
         telemetry=telemetry, stop_after_epoch=stop_after_epoch, watch=watch,
-        after_round=after_round,
+        after_round=tally.record_state,
     )
     sstate, swim_state, vis_round = mesh_mod.from_positions(final, specs, mesh)
     del final
@@ -725,54 +730,134 @@ def simulate_sparse_sharded(
         "vis_round": vis_round,
         "next_epoch": out["epochs"] + start_epoch,
     }
-    if info is not None:
-        info["exchange_bytes"] = dict(tally.by_kind)
-        info["exchange_bytes_by_tag"] = dict(tally.by_tag)
-        info["state_bytes"] = tally.state_bytes
+    tally.export(info)
     return sstate, swim_state, vis_round, curves, out
+
+
+def chunk_specs(tree: tuple, mesh: Mesh) -> tuple:
+    """The spec tree of the chunk engine's (coverage state, vis), whole,
+    placed or a position's block: coverage rows are node-major [N * S, C],
+    so a row split lands on node boundaries, and the [N, S] visibility
+    latch splits its node axis."""
+    return (mesh_mod.node_major_specs(tree[0], mesh), P(node_spec_entry(mesh), None))
 
 
 def simulate_chunks_sharded(
     ccfg, origin, last_seq, rounds: int, mesh: Mesh, seed: int = 0,
     max_chunk: int | None = None, telemetry=None, faults=None, state=None, vis=None,
-    start_round: int = 0,
+    start_round: int = 0, round_ms: float = 500.0, info: dict | None = None, watch=None,
 ):
-    """The seq-chunk plane with its coverage placed per position at rest,
-    still run in the controller: the state is assembled on the mesh's home
-    device and the plane runs on whole tensors. It has no broadcast queue
-    to exchange, so the xshard curves stay zero; ``state``/``vis``/
-    ``start_round`` resume a run (the elastic seam). Returns (placed
-    state, metrics) with ``metrics["vis"]`` placed."""
+    """The seq-chunk plane partitioned over ``mesh``: the round
+    (``chunk_engine._round``: wipe, the chunk send, the partial-need sync,
+    the visibility latch, the health reductions) runs once per position on
+    its (node, stream) rows, the positions in lockstep through the typed
+    exchanges (the chunk send a ``Route`` to the targets' owners, the sync
+    a ``Rows`` of the due nodes' peers' coverage, the stats one
+    ``Reduce``). The coverage state and ``vis`` stay in the positions'
+    blocks across rounds and ``max_chunk`` pieces: a fresh run builds each
+    position's blocks where they sit, and ``state``/``vis``/``start_round``
+    (the elastic resume seam; placed on ``mesh``, or whole or placed
+    elsewhere and then placed once) resume. The kill/revive alive curve
+    and the loss scalar stay whole, the wipe mask is read at each
+    position's rows; a partition raises. It has no broadcast queue to
+    exchange, so the xshard curves stay zero, as in the reference. Returns
+    (placed state, metrics) with ``metrics["vis"]`` placed, equal to
+    ``sim.chunk_engine.simulate_chunks`` bit for bit (``round_ms`` is its
+    simulated round length, for p50/p99).
+
+    ``info`` (a dict) receives the exchanges' bytes between positions by
+    kind and by tag and each position's state bytes (coverage and vis)
+    after every round, as ``simulate_sharded``'s does; ``watch`` is the
+    structural check's hook (``WholePlaneCheck``)."""
+    from corrosion_tpu_torch.ops import chunks as chunk_ops
     from corrosion_tpu_torch.sim import chunk_engine
 
-    home = mesh.home
-    state, m = chunk_engine.simulate_chunks(
-        ccfg, origin, last_seq, rounds, seed=seed, max_chunk=max_chunk, telemetry=telemetry,
-        faults=faults,
-        state=None if state is None else mesh_mod.assemble(state, home),
-        vis=None if vis is None else mesh_mod.assemble(vis, home),
-        start_round=start_round, device=home,
+    d = mesh.size
+    n, s_count = ccfg.n_nodes, ccfg.n_streams
+    _check_divisible(n, mesh)
+    devices = list(mesh.devices.flat)
+    positions = _positions(None, mesh, n)
+    if state is None:
+        cov = [chunk_ops.init_chunks(ccfg, origin, last_seq, dev, p)
+               for p, dev in zip(positions, devices)]
+    else:
+        placed = state if _is_placed_on(state, mesh) else mesh_mod.shard_chunk_state(state, mesh)
+        cov = [mesh_mod.position_tree(placed, i) for i in range(d)]
+        del placed
+    if vis is None:
+        vb = [torch.full((p.n_local, s_count), -1, dtype=torch.int64, device=dev)
+              for p, dev in zip(positions, devices)]
+    else:
+        placed = vis if _is_placed_on(vis, mesh) else mesh_mod.place_leaf(
+            vis, P(node_spec_entry(mesh), None), mesh)
+        vb = list(placed.blocks)
+        del placed
+    specs = chunk_specs((cov[0], vb[0]), mesh)
+    tally = ExchangeTally()
+    box = [list(zip(cov, vb))]
+    cov = vb = None
+    final, merged = chunk_engine.run_rounds(
+        ccfg, last_seq, rounds, seed, box, start_round, positions, devices,
+        lambda bodies: _lockstep(bodies, mesh, n, tally, watch),
+        faults=faults, max_chunk=max_chunk, telemetry=telemetry, after_round=tally.record_state,
     )
-    m["vis"] = mesh_mod.place_leaf(m["vis"], P(node_spec_entry(mesh), None), mesh)
-    return mesh_mod.shard_chunk_state(state, mesh), m
+    # The metrics read the positions' vis blocks on the host, in row order.
+    metrics = chunk_engine.run_metrics(
+        np.concatenate([b[1].cpu().numpy() for b in final]), merged, round_ms
+    )
+    state, metrics["vis"] = mesh_mod.from_positions(final, specs, mesh)
+    tally.export(info)
+    return state, metrics
 
 
 def simulate_mixed_sharded(
     cfg, ccfg, topo, sched, streams, mesh: Mesh, seed: int = 0, max_chunk: int | None = None,
-    telemetry=None, state=None,
+    telemetry=None, state=None, info: dict | None = None, watch=None,
 ):
-    """The mixed chunk+version engine under the shard driver, still in the
-    controller: the state is assembled on the mesh's home device, the
-    version plane's delivery chain runs per position through
-    ``make_sharded_broadcast``, and the chunk plane, the big versions'
-    admission and the other planes run on whole tensors. ``state`` resumes
-    at its carried ``round``; the final state comes back placed."""
+    """The mixed chunk+version engine partitioned over ``mesh``: every
+    plane of the round (``mixed_engine._mixed_round``: wipe and churn, the
+    big-version commits, the chunk plane, the admission, broadcast with the
+    queue exchange, SWIM, sync with the rejoin sync, the sync-crossing
+    back-fill, visibility, the health reduction) runs once per position on
+    its rows, the positions in lockstep through the typed exchanges. The
+    state stays in the positions' blocks across rounds and ``max_chunk``
+    pieces: a fresh run builds each position's ``MixedState`` block where
+    it sits, and ``state`` (placed on ``mesh``, or whole or placed
+    elsewhere and then placed once) resumes at its carried ``round``. The
+    final state comes back placed; equal to ``sim.mixed_engine.
+    simulate_mixed`` bit for bit, with the xshard curves the queue
+    exchange's bytes (``traffic_model``).
+
+    ``info`` (a dict) receives the exchanges' bytes between positions by
+    kind and by tag and each position's state bytes after every round, as
+    ``simulate_sharded``'s does; ``watch`` is the structural check's hook
+    (``WholePlaneCheck``)."""
     from corrosion_tpu_torch.sim import mixed_engine
 
-    home = mesh.home
-    final, curves = mixed_engine.simulate_mixed(
-        cfg, ccfg, topo, sched, streams, seed=seed, max_chunk=max_chunk, telemetry=telemetry,
-        state=None if state is None else mesh_mod.assemble(state, home), device=home,
-        bcast_fn=make_sharded_broadcast(mesh),
+    d = mesh.size
+    n = cfg.n_nodes
+    _check_divisible(n, mesh)
+    devices = list(mesh.devices.flat)
+    positions = _positions(topo, mesh, n)
+    if state is None:
+        blocks = [mixed_engine.init_mixed_state(cfg, ccfg, topo, sched, streams, dev, pos=p)
+                  for p, dev in zip(positions, devices)]
+    else:
+        if not _is_placed_on(state, mesh):
+            state = mesh_mod.shard_mixed_state(state, mesh)
+        blocks = [mesh_mod.position_tree(state, i) for i in range(d)]
+    state = None
+    # The kernels take contiguous operands: a row block of the [B, N, W]
+    # window words is one only at B = 1.
+    blocks = [b._replace(data=b.data._replace(oo=b.data.oo.contiguous())) for b in blocks]
+    specs = mesh_mod.mixed_state_specs(blocks[0], mesh)
+    tally = ExchangeTally()
+    box = [blocks]
+    blocks = None
+    final, curves = mixed_engine.run_rounds(
+        cfg, ccfg, topo, sched, streams, seed, box, positions, devices,
+        lambda bodies: _lockstep(bodies, mesh, n, tally, watch),
+        max_chunk=max_chunk, telemetry=telemetry, after_round=tally.record_state,
     )
-    return mesh_mod.shard_mixed_state(final, mesh), curves
+    tally.export(info)
+    return mesh_mod.from_positions(final, specs, mesh), curves

@@ -288,6 +288,11 @@ def round_body(
     )
 
 
+def at(x, i: int):
+    """Row ``i`` of a per-round table, None where the run has none."""
+    return None if x is None else x[i]
+
+
 class RoundInputs(NamedTuple):
     """A schedule's per-round tables on one device, the topology with
     them; ``at(i)`` gives round i's keyword arguments of ``cluster_round``
@@ -306,15 +311,12 @@ class RoundInputs(NamedTuple):
     wipe: torch.Tensor | None
 
     def at(self, i: int) -> dict:
-        def row(x):
-            return None if x is None else x[i]
-
         return dict(
             topo=self.topo, writes=self.writes[i], partition=self.partition[i],
             sample_writer=self.sample_writer, sample_ver=self.sample_ver,
-            sample_round=self.sample_round, loss=row(self.loss),
-            probe_loss=row(self.probe_loss), kill=row(self.kill), revive=row(self.revive),
-            wipe=row(self.wipe),
+            sample_round=self.sample_round, loss=at(self.loss, i),
+            probe_loss=at(self.probe_loss, i), kill=at(self.kill, i), revive=at(self.revive, i),
+            wipe=at(self.wipe, i),
         )
 
 
@@ -373,24 +375,59 @@ def check_head_domain(cfg: ClusterConfig, start_round: int, rounds: int) -> None
         )
 
 
-def run_in_chunks(schedule: Schedule, box: list, max_chunk: int, start_round: int, telemetry,
+def per_device(devices: list, make) -> list:
+    """``make(device)`` for each position's device, made once per distinct
+    device (the positions on one device share it)."""
+    made: dict = {}
+    for d in devices:
+        if str(d) not in made:
+            made[str(d)] = make(d)
+    return [made[str(d)] for d in devices]
+
+
+def run_positions(blocks: list, rounds, bodies, drive, after_round=None, dtypes=None):
+    """Rounds ``rounds`` (host ints) of one round body a mesh position:
+    ``bodies(i, blocks)`` makes round i's bodies over the positions'
+    blocks, ``drive`` runs them to their ends (``exchange.solo`` on one
+    position holding every row, the shard driver's lockstep over a mesh),
+    and each body returns (its position's next block, the round's curves).
+    The caller hands over its only reference to ``blocks``, so each round's
+    input blocks are freed as the next are made. ``after_round(blocks)``
+    sees every round's blocks. Returns (the last blocks, the curves stacked
+    in ``dtypes``)."""
+    rows = []
+    for i in rounds:
+        outs = drive(bodies(i, blocks))
+        blocks = [o[0] for o in outs]
+        rows.append(outs[0][1])
+        del outs
+        if after_round is not None:
+            after_round(blocks)
+    return blocks, telemetry_mod.stack_curves(rows, dtypes)
+
+
+def run_in_chunks(rounds: int, box: list, max_chunk: int, start_round: int, telemetry,
                   run_piece):
-    """``run_piece(part, box) -> (state, curves)`` over pieces of at most
-    ``max_chunk`` rounds, each timed and flushed as a chunk by
-    ``telemetry`` when given; returns the last state and the merged
-    curves. ``box`` is a list holding a piece's start state, which the
-    piece pops: it takes the only reference, so each round's input state
-    is freed as the next is made."""
+    """``run_piece(start, stop, box) -> (state, curves)`` over pieces of at
+    most ``max_chunk`` of the ``rounds`` rounds, each timed and flushed as
+    a chunk by ``telemetry`` when given; returns the last state and the
+    merged curves (empty ones for a zero-round run). ``box`` is a list
+    holding a piece's start state, which the piece pops: it takes the only
+    reference, so each round's input state is freed as the next is
+    made."""
     parts = []
-    for start in range(0, schedule.rounds, max_chunk):
-        part = schedule.slice(start, min(start + max_chunk, schedule.rounds))
+    for start in range(0, rounds, max_chunk):
+        stop = min(start + max_chunk, rounds)
         if telemetry is None:
-            cur, curves = run_piece(part, box)
+            cur, curves = run_piece(start, stop, box)
         else:
-            cur, curves = telemetry.run_chunk(start_round + start, lambda: run_piece(part, box))
+            cur, curves = telemetry.run_chunk(start_round + start,
+                                              lambda: run_piece(start, stop, box))
         box = [cur]
         cur = None
         parts.append(curves)
+    if not parts:
+        parts = [{k: np.zeros((0,)) for k in telemetry_mod.ROUND_CURVE_KEYS}]
     merged = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
     if telemetry is not None:
         telemetry.on_run_end(merged)
@@ -422,9 +459,9 @@ def simulate(
     check_head_domain(cfg, start_round, schedule.rounds)
     if max_chunk is not None and schedule.rounds > max_chunk:
         return run_in_chunks(
-            schedule, [state], max_chunk, start_round, telemetry,
-            lambda part, box: simulate(cfg, topo, part, seed=seed, state=box.pop(),
-                                       device=device),
+            schedule.rounds, [state], max_chunk, start_round, telemetry,
+            lambda start, stop, box: simulate(cfg, topo, schedule.slice(start, stop), seed=seed,
+                                              state=box.pop(), device=device),
         )
 
     inp = round_inputs(cfg, topo, schedule, device)

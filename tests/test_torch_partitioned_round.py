@@ -307,3 +307,13 @@ def test_the_check_sees_a_whole_plane():
         torch.zeros((96,), dtype=torch.bool)  # a control vector: allowed
         torch.zeros((1, 96), dtype=torch.bool)
     assert [shape for _, shape in check.found] == [(96, 16), (16, 96), (384,)]
+    # With the chunk plane's streams: a whole [N * S, C] coverage plane or
+    # flat (node, stream) row vector, and an [N, S] plane.
+    check = tdriver.WholePlaneCheck(96, 24, n_streams=3)
+    with check:
+        torch.zeros((288, 16), dtype=torch.int64)
+        torch.zeros((288,), dtype=torch.bool)
+        torch.zeros((96, 3), dtype=torch.int64)
+        torch.zeros((72, 16), dtype=torch.int64)  # a position's coverage block: allowed
+        torch.zeros((24, 48), dtype=torch.int64)  # its rows as [n_local, S * C]: allowed
+    assert [shape for _, shape in check.found] == [(288, 16), (288,), (96, 3)]

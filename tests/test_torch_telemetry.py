@@ -391,7 +391,7 @@ def test_engines_free_each_round_s_input(monkeypatch, with_telemetry):
 
     spy(ts, "_sparse_round", lambda *a: a[8], lambda *a: a[0].data.contig)
     spy(te, "cluster_round", lambda *a: int(a[0].round), lambda *a: a[0].data.contig)
-    spy(tm, "mixed_round", lambda *a: int(a[0].round), lambda *a: a[0].data.contig)
+    spy(tm, "_mixed_round", lambda *a: int(a[0].round), lambda *a: a[0].data.contig)
     spy(tc, "_round", lambda *a: a[4], lambda *a: a[0].have.starts)
 
     def tel():
@@ -406,6 +406,6 @@ def test_engines_free_each_round_s_input(monkeypatch, with_telemetry):
     tcfg, torigin, tlast, rounds = tb.anti_entropy_chunks(**CHUNKS, device="cpu")
     tc.simulate_chunks(tcfg, torigin, tlast, rounds, seed=0, max_chunk=8, telemetry=tel(),
                        device="cpu")
-    assert {name for name, _ in seen} == {"_sparse_round", "cluster_round", "mixed_round",
+    assert {name for name, _ in seen} == {"_sparse_round", "cluster_round", "_mixed_round",
                                           "_round"}
     assert all(freed for _, freed in seen), seen
